@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0] [--ranks 8] [--duration 120]
+
+Phases, each of which raises (and the script exits non-zero) on failure:
+
+1. card    — name and power limit, as nvidia-smi reports them;
+2. build   — compile every CUDA source of the port with nvcc, one process
+             per source, all started together;
+3. kernels — every kernel entry point against its plain PyTorch version
+             on the card at edge shapes (ragged N, all rows invalid, n_seg
+             not a multiple of 128 with empty segments, M = 1 and 3; iqr
+             at n = 1, a non-power-of-two n, no occupied bin, and a table
+             above the single-block limit);
+4. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
+             Table-1-sized synthetic trace (8 ranks x 105k kernels + 13.4k
+             memcpys, 120 s, 10 ms bins x 4 devices, 3 metrics, moments +
+             quantile sketch, p99 fences), backend "torch". The launch
+             counters are zeroed just before and read just after; the
+             run must launch binstats_flat, histbin_flat and iqr_fences,
+             recover the injected anomaly windows and agree with the
+             exact "serial" backend on the same store. The inputs each
+             wrapper received are kept, and every kernel is then held
+             against its plain version on exactly those tensors;
+5. delta   — a store grown by an append: the delta aggregation on the card
+             must equal a cold one bit for bit;
+6. times   — each kernel, its plain version and a one-call PyTorch
+             yardstick, timed with CUDA events at the main path's shapes,
+             beside the kernel's bound (bytes moved over 3.35 TB/s).
+
+Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
+rtol 1e-5 (atomics and summation order differ); histogram totals exact
+with at most 0.1% of rows one bucket over (float32 log2 on a bucket edge).
+
+The last two lines of standard output are a JSON ``kernels`` record and
+``{"ok": true, "device": {...}}``. Needs one CUDA card and the ``src/``
+tree of this repository; exits non-zero without either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
+FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+METRICS = ("k_stall", "m_duration", "m_bytes")
+RTOL = 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# --- comparisons ------------------------------------------------------------
+
+def moments_err(got, want) -> float:
+    """Raise unless two (..., 5) moment tables agree (counts/min/max
+    exact, sums rtol 1e-5); return the largest absolute difference."""
+    import torch
+    g, w = got.double().cpu(), want.double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    for ch in (0, 3, 4):
+        if not torch.equal(g[..., ch], w[..., ch]):
+            raise AssertionError(f"moments channel {ch} differs")
+    diff = (g[..., 1:3] - w[..., 1:3]).abs()
+    if bool((diff > RTOL * w[..., 1:3].abs() + 1e-30).any()):
+        raise AssertionError(f"sums differ beyond rtol {RTOL}: "
+                             f"max abs {float(diff.max())}")
+    return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def hist_err(got, want) -> float:
+    """Raise unless two (..., 384) count tables agree (totals exact, at
+    most 0.1% of rows moved, each one bucket over)."""
+    import torch
+    g, w = got.double().cpu(), want.double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not torch.equal(g.sum(-1), w.sum(-1)):
+        raise AssertionError("histogram totals differ")
+    d = g - w
+    moved = float(d.abs().sum()) / 2
+    if float(d.cumsum(-1).abs().sum()) != moved:
+        raise AssertionError("a row moved more than one bucket")
+    if moved > 1e-3 * max(float(w.sum()), 1.0):
+        raise AssertionError(f"{moved} rows changed bucket")
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
+def iqr_err(got, want) -> float:
+    import torch
+    for key in ("sorted", "flags", "stats"):
+        if not torch.equal(got[key].cpu(), want[key].cpu()):
+            raise AssertionError(f"iqr {key} differs")
+    return 0.0
+
+
+# --- phases -----------------------------------------------------------------
+
+def phase_card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()
+    if not out:
+        raise RuntimeError("nvidia-smi reported no card")
+    return out[0].strip()
+
+
+def phase_kernels(dev):
+    """Every entry point against its plain version at edge shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.histbin import ops as hb
+    from repro_torch.kernels.iqr import ops as iq
+
+    rng = np.random.default_rng(1)
+    worst = {}
+
+    def rows(n, m, n_seg, invalid=False):
+        vals = rng.lognormal(8.0, 2.0, (m, n)).astype(np.float32)
+        vals[:, ::13] = -1.5
+        seg = np.sort(rng.integers(0, max(n_seg - 7, 1), n)).astype(np.int32)
+        ts = rng.uniform(-1e7, 1.01e9, n).astype(np.float32)
+        valid = (np.zeros(n, bool) if invalid else rng.random(n) > 0.1)
+        return [torch.from_numpy(x).to(dev) for x in (seg, vals, valid, ts)]
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for n, m, n_seg, invalid in ((1001, 1, 1000, False),
+                                 (1001, 3, 1000, True),
+                                 (70_001, 3, 4097, False),
+                                 (1, 1, 5, False)):
+        seg, vals, valid, ts = rows(n, m, n_seg, invalid)
+        note("binstats_flat", moments_err(
+            bs.binstats_flat(seg, vals, n_seg, valid),
+            bs.binstats_flat_plain(seg, vals, n_seg, valid)))
+        note("histbin_flat", hist_err(
+            hb.histbin_flat(seg, vals, n_seg, valid),
+            hb.histbin_flat_plain(seg, vals, n_seg, valid)))
+        kw = dict(total_ns=1e9, n_bins=n_seg)
+        note("binstats", moments_err(bs.binstats(ts, vals, valid, **kw),
+                                     bs.binstats_plain(ts, vals, valid,
+                                                       **kw)))
+        note("histbin", hist_err(hb.histbin(ts, vals, valid, **kw),
+                                 hb.histbin_plain(ts, vals, valid, **kw)))
+    for n, frac in ((1, 1.0), (12_000, 0.7), (5_000, 0.0),
+                    (100_000, 0.6)):
+        s = torch.from_numpy(
+            rng.lognormal(3.0, 0.6, n).astype(np.float32)).to(dev)
+        occ = torch.from_numpy(rng.random(n) < frac).to(dev)
+        note("iqr_fences", iqr_err(iq.iqr_fences(s, occ),
+                                   iq.iqr_fences_plain(s, occ)))
+    torch.cuda.synchronize()
+    return worst
+
+
+class Capture:
+    """Keeps the arguments of the first call each wrapper receives from
+    the pipeline (by replacing the module attributes the pipeline looks
+    up), so the kernels can afterwards be held against their plain
+    versions — and timed — on exactly the main path's tensors."""
+
+    def __init__(self):
+        from repro_torch.core import anomaly, distributed
+        self.calls = {}
+        self._restore = []
+        for mod, attr, name in ((distributed, "binstats_flat",
+                                 "binstats_flat"),
+                                (distributed, "histbin_flat",
+                                 "histbin_flat"),
+                                (anomaly, "iqr_fences", "iqr_fences")):
+            fn = getattr(mod, attr)
+            self._restore.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            self.calls.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def close(self):
+        for mod, attr, fn in self._restore:
+            setattr(mod, attr, fn)
+
+
+def _cfg(args, backend):
+    from repro_torch.core import PipelineConfig
+    return PipelineConfig(
+        n_ranks=args.ranks, backend=backend, device="cuda", metrics=METRICS,
+        group_by="k_device", reducers=("moments", "quantile"),
+        anomaly_score="p99", agg_interval_ns=10_000_000)
+
+
+def _spec(args):
+    from repro_torch.core import SyntheticSpec
+    return SyntheticSpec(n_ranks=args.ranks, kernels_per_rank=105_000,
+                         memcpys_per_rank=13_400,
+                         duration_s=float(args.duration), seed=args.seed)
+
+
+def _launch_counters():
+    from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.histbin import ops as hb
+    from repro_torch.kernels.iqr import ops as iq
+    return {"binstats_flat": bs.binstats_flat, "binstats": bs.binstats,
+            "histbin_flat": hb.histbin_flat, "histbin": hb.histbin,
+            "iqr_fences": iq.iqr_fences}
+
+
+def phase_main(args, work):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (VariabilityPipeline, generate_synthetic,
+                                  recovered, write_synthetic_dbs)
+    from repro_torch.core.aggregation import PRODUCER_STATS
+
+    ds = generate_synthetic(_spec(args))
+    paths = write_synthetic_dbs(ds, os.path.join(work, "dbs"))
+    store = os.path.join(work, "store")
+    counters = _launch_counters()
+    cap = Capture()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = VariabilityPipeline(_cfg(args, "torch")).run(paths, store)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        cap.close()
+    gen = res.generation
+    log(f"main: {len(paths)} rank DBs, rows per table {gen.rows_per_table},"
+        f" {gen.joined_rows} joined rows, {gen.n_shards} shards; "
+        f"phase 1 {gen.seconds:.3f}s, phase 2+3 "
+        f"{wall - gen.seconds:.3f}s, total {wall:.3f}s")
+    log(f"main: device batch {PRODUCER_STATS}")
+    log(f"main: launches {launches}")
+    for name in ("binstats_flat", "histbin_flat", "iqr_fences"):
+        if launches[name] < 1:
+            raise AssertionError(f"main path never launched {name}")
+    frac = recovered(ds.anomaly_windows, res.anomaly_windows,
+                     tol_ns=1_000_000_000)
+    log(f"main: injected windows recovered {frac * 100:.0f}% "
+        f"(top bins {res.anomalies.top_idx.tolist()})")
+    if frac < 1.0:
+        raise AssertionError("injected anomaly windows not recovered")
+
+    ser = VariabilityPipeline(_cfg(args, "serial")).run(
+        paths, os.path.join(work, "store_serial"))
+    a, b = res.aggregation.grouped, ser.aggregation.grouped
+    occ = b.count > 0
+    np.testing.assert_array_equal(a.count, b.count)
+    for f in ("min", "max"):
+        np.testing.assert_array_equal(
+            np.where(occ, getattr(a, f), 0.0),
+            np.where(occ, getattr(b, f).astype(np.float32), 0.0))
+    for f in ("sum", "sumsq"):
+        np.testing.assert_allclose(getattr(a, f), getattr(b, f),
+                                   rtol=RTOL)
+    np.testing.assert_array_equal(
+        res.aggregation.reduced["quantile"].counts.sum(-1),
+        ser.aggregation.reduced["quantile"].counts.sum(-1))
+    np.testing.assert_array_equal(res.anomalies.flags, ser.anomalies.flags)
+    log(f"main: torch == serial (counts/min/max exact, sums rtol {RTOL}, "
+        f"sketch totals exact, {int(res.anomalies.flags.sum())} flags "
+        "equal)")
+    if not np.isfinite(res.anomalies.scores).all():
+        raise AssertionError("non-finite anomaly scores")
+
+    errs = {}
+    args_bs, _ = cap.calls["binstats_flat"]
+    errs["binstats_flat"] = moments_err(
+        counters["binstats_flat"](*args_bs),
+        _plain("binstats_flat")(*args_bs))
+    args_hb, _ = cap.calls["histbin_flat"]
+    errs["histbin_flat"] = hist_err(counters["histbin_flat"](*args_hb),
+                                    _plain("histbin_flat")(*args_hb))
+    args_iq, kw_iq = cap.calls["iqr_fences"]
+    errs["iqr_fences"] = iqr_err(counters["iqr_fences"](*args_iq, **kw_iq),
+                                 _plain("iqr_fences")(*args_iq, **kw_iq))
+    n_bins = int(res.aggregation.plan.n_shards)
+    ts_args = _ts_inputs(args_bs, n_bins)
+    errs["binstats"] = moments_err(counters["binstats"](*ts_args[0],
+                                                        **ts_args[1]),
+                                   _plain("binstats")(*ts_args[0],
+                                                      **ts_args[1]))
+    errs["histbin"] = hist_err(counters["histbin"](*ts_args[0],
+                                                   **ts_args[1]),
+                               _plain("histbin")(*ts_args[0],
+                                                 **ts_args[1]))
+    torch.cuda.synchronize()
+    shapes = {"binstats_flat": args_bs, "histbin_flat": args_hb,
+              "iqr_fences": (args_iq, kw_iq), "ts": ts_args}
+    return launches, errs, shapes
+
+
+def _plain(name):
+    from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.histbin import ops as hb
+    from repro_torch.kernels.iqr import ops as iq
+    return {"binstats_flat": bs.binstats_flat_plain,
+            "binstats": bs.binstats_plain,
+            "histbin_flat": hb.histbin_flat_plain,
+            "histbin": hb.histbin_plain,
+            "iqr_fences": iq.iqr_fences_plain}[name]
+
+
+def _ts_inputs(flat_args, n_bins):
+    """Timestamp-form inputs at the main path's row count and bin count
+    (the timestamp forms are not on the main path)."""
+    import torch
+    seg, vals, _, valid = flat_args
+    gen = torch.Generator(device=vals.device).manual_seed(5)
+    ts = torch.rand(seg.shape[0], generator=gen, device=vals.device) * 1.2e11
+    return ((ts.contiguous(), vals, valid),
+            {"total_ns": 1.2e11, "n_bins": n_bins})
+
+
+def phase_delta(args, work):
+    import numpy as np
+
+    from repro_torch.core import (TraceStore, VariabilityPipeline,
+                                  append_rank_db, generate_synthetic,
+                                  trace_remainder, truncate_trace,
+                                  write_rank_db)
+
+    ds = generate_synthetic(_spec(args))
+    t0 = int(min(tr.kernels.start.min() for tr in ds.traces))
+    cutoff = t0 + int(0.9 * args.duration * 1e9)
+    root = os.path.join(work, "delta")
+    os.makedirs(root)
+    paths = [os.path.join(root, f"rank{tr.rank}.sqlite") for tr in ds.traces]
+    for tr, p in zip(ds.traces, paths):
+        write_rank_db(p, truncate_trace(tr, cutoff))
+    store = os.path.join(root, "store")
+    pipe = VariabilityPipeline(_cfg(args, "torch"))
+    pipe.run(paths, store)
+    for tr, p in zip(ds.traces, paths):
+        append_rank_db(p, trace_remainder(tr, cutoff))
+    delta = pipe.append(paths, store)
+    if delta.aggregation.partial_hits < 1:
+        raise AssertionError("the delta served no shard from the cache")
+    cold_dir = os.path.join(root, "cold")
+    shutil.copytree(store, cold_dir)
+    cs = TraceStore(cold_dir)
+    cs.clear_summaries()
+    cs.clear_partials()
+    cold = pipe.aggregate(cold_dir)
+    if cold.partial_hits != 0:
+        raise AssertionError("the cold run read cached partials")
+    a, b = delta.aggregation, cold
+    for f in ("count", "sum", "sumsq", "min", "max"):
+        np.testing.assert_array_equal(getattr(a.grouped, f),
+                                      getattr(b.grouped, f))
+    np.testing.assert_array_equal(a.reduced["quantile"].counts,
+                                  b.reduced["quantile"].counts)
+    log(f"delta: {len(a.recomputed_shards)} shards recomputed, "
+        f"{a.partial_hits} from the partial cache; delta == cold bitwise "
+        f"({len(b.recomputed_shards)} shards cold)")
+
+
+def _time_ms(fn, iters=20, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_times(shapes):
+    """Kernel, plain version and a one-call yardstick at the main path's
+    shapes, with each kernel's bound."""
+    import math
+
+    import torch
+
+    from repro_torch.core.reducers import N_BUCKETS
+    from repro_torch.kernels.histbin.ops import bucketize
+
+    counters = _launch_counters()
+    rows = {}
+
+    def record(name, call, plain, library, out, inputs, ops):
+        nbytes = _nbytes(*inputs) + _nbytes(*out)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        rows[name] = {
+            "ms": _time_ms(call), "plain_ms": _time_ms(plain),
+            "library_ms": None if library is None else _time_ms(library),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+    seg, vals, n_seg, valid = shapes["binstats_flat"]
+    m, n = vals.shape
+    out = counters["binstats_flat"](seg, vals, n_seg, valid)
+    idx = seg.long().clamp(0, n_seg - 1).expand(m, n)
+    record("binstats_flat",
+           lambda: counters["binstats_flat"](seg, vals, n_seg, valid),
+           lambda: _plain("binstats_flat")(seg, vals, n_seg, valid),
+           lambda: torch.zeros(m, n_seg, device=vals.device).scatter_reduce_(
+               1, idx, vals, "sum"),
+           [out], [seg, vals, valid], 6 * m * n)
+
+    seg, vals, n_seg, valid = shapes["histbin_flat"]
+    out = counters["histbin_flat"](seg, vals, n_seg, valid)
+    fused = ((torch.arange(m, device=vals.device)[:, None] * n_seg
+              + seg.long()[None, :]) * N_BUCKETS + bucketize(vals)).reshape(-1)
+    record("histbin_flat",
+           lambda: counters["histbin_flat"](seg, vals, n_seg, valid),
+           lambda: _plain("histbin_flat")(seg, vals, n_seg, valid),
+           lambda: torch.bincount(fused, minlength=m * n_seg * N_BUCKETS),
+           [out], [seg, vals, valid], 4 * m * n)
+
+    (scores, occ), kw = shapes["iqr_fences"]
+    res = counters["iqr_fences"](scores, occ, **kw)
+    n_iqr = scores.shape[0]
+    q = torch.tensor([0.25, 0.75], device=scores.device)
+    occ_scores = scores[occ]
+    record("iqr_fences",
+           lambda: counters["iqr_fences"](scores, occ, **kw),
+           lambda: _plain("iqr_fences")(scores, occ, **kw),
+           lambda: torch.quantile(occ_scores, q),
+           [res["sorted"], res["flags"], res["stats"]], [scores, occ],
+           n_iqr * max(math.log2(n_iqr), 1.0))
+
+    (ts, vals, valid), kw = shapes["ts"]
+    for name in ("binstats", "histbin"):
+        out = counters[name](ts, vals, valid, **kw)
+        record(name, lambda name=name: counters[name](ts, vals, valid, **kw),
+               lambda name=name: _plain(name)(ts, vals, valid, **kw), None,
+               [out], [ts, vals, valid], (6 if name == "binstats" else 4)
+               * vals.numel())
+    return rows
+
+
+SOURCES = {
+    "binstats_flat": ("src/repro_torch/csrc/binstats.cu",
+                      "src/repro/kernels/binstats/kernel.py:58"),
+    "binstats": ("src/repro_torch/csrc/binstats.cu",
+                 "src/repro/kernels/binstats/kernel.py:58"),
+    "histbin_flat": ("src/repro_torch/csrc/histbin.cu",
+                     "src/repro/kernels/histbin/kernel.py:50"),
+    "histbin": ("src/repro_torch/csrc/histbin.cu",
+                "src/repro/kernels/histbin/kernel.py:50"),
+    "iqr_fences": ("src/repro_torch/csrc/iqr.cu",
+                   "src/repro/kernels/iqr/kernel.py:72"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--duration", type=float, default=120.0)
+    args = ap.parse_args()
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    card = phase_card()
+    log(card)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
+    log(f"build: {time.perf_counter() - t0:.2f}s "
+        f"(nvcc per source: {built})")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    edge = phase_kernels(dev)
+    log(f"kernels at edge shapes, largest |kernel - plain|: {edge}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches, errs, shapes = phase_main(args, work)
+        log(f"kernels on the main path's inputs, largest |kernel - plain|:"
+            f" {errs}")
+        phase_delta(args, work)
+        times = phase_times(shapes)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    kernels = []
+    for name, (src, tpu) in SOURCES.items():
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name],
+            "max_abs_err": max(errs[name], edge[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+        log(f"time {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+            f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']}, {t['bytes']} bytes), "
+            f"{launches[name]} launch(es) on the main path [{card}]")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the variability-analysis pipeline.
+
+The package mirrors :mod:`repro`'s layout: ``core`` holds the three
+phases (shard generation, the fused phase-2 reduction, the IQR fences),
+``ingest`` the profiler SQLite frontend, and ``kernels`` the hand-written
+CUDA kernels that carry phase 2 and the fences on the card, each beside
+its plain PyTorch version. Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (``<kernel>/ops.py``). Sources live in ``repro_torch/csrc/`` and
+are built at first use by :mod:`repro_torch.kernels._build`.
+
+  binstats  per-segment count/sum/sumsq/min/max (flat and timestamp forms)
+  histbin   per-segment log2-bucket histogram counts (flat and timestamp)
+  iqr       sort + Tukey fences + flags over a per-bin score table
+"""

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device and skips without one; the
+file imports no JAX, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: counts, min/max, flags and the iqr outputs exact; float32
+sums rtol 1e-5 (atomics and summation order differ); histogram totals per
+(metric, segment) exact, with a row allowed to move only to an adjacent
+bucket (float32 log2 of two libraries on a bucket edge), at most 0.1% of
+rows. The comparison helpers are shared with the other port tests.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.binstats import (binstats, binstats_flat,
+                                          binstats_flat_plain,
+                                          binstats_plain)
+from repro_torch.kernels.histbin import (histbin, histbin_flat,
+                                         histbin_flat_plain, histbin_plain)
+from repro_torch.kernels.iqr import iqr_fences, iqr_fences_plain
+
+RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel against its plain version")
+    return torch.device("cuda")
+
+
+def assert_moments_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:3], want[..., 1:3], rtol=RTOL)
+    np.testing.assert_array_equal(got[..., 3:5], want[..., 3:5])
+
+
+def assert_hist_close(got, want, max_moved=1e-3):
+    """Per-(..., segment) totals exact; rows move only to an adjacent
+    bucket, and at most ``max_moved`` of them."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.sum(-1), want.sum(-1))
+    d = got - want
+    moved = np.abs(d).sum() / 2
+    # transport cost in buckets equals the moved count iff every moved
+    # row went one bucket over
+    assert np.abs(np.cumsum(d, axis=-1)).sum() == moved
+    assert moved <= max_moved * max(want.sum(), 1.0)
+
+
+def _events(seed, n, m, n_seg):
+    rng = np.random.default_rng(seed)
+    ts = rng.uniform(-2e7, 1.02e9, n).astype(np.float32)
+    vals = rng.lognormal(8.0, 2.0, (m, n)).astype(np.float32)
+    vals[:, ::17] = rng.uniform(-5, 2, vals[:, ::17].shape)
+    valid = rng.random(n) > 0.1
+    seg = np.sort(rng.integers(0, n_seg, n)).astype(np.int32)
+    return ts, vals, valid, seg
+
+
+def test_binstats_kernels_on_card(cuda):
+    ts, vals, valid, seg = _events(10, 70001, 3, 1000)
+    t = [torch.from_numpy(x).to(cuda) for x in (ts, vals, valid, seg)]
+    got = binstats_flat(t[3], t[1], 1003, t[2])
+    want = binstats_flat_plain(t[3], t[1], 1003, t[2])
+    assert_moments_close(got.cpu(), want.cpu())
+    got = binstats(t[0], t[1], t[2], total_ns=1e9, n_bins=333)
+    want = binstats_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=333)
+    assert_moments_close(got.cpu(), want.cpu())
+    with pytest.raises(ValueError):
+        binstats_flat(t[3].flip(0).contiguous(), t[1], 1003, t[2])
+
+
+def test_histbin_kernels_on_card(cuda):
+    ts, vals, valid, seg = _events(11, 70001, 3, 1000)
+    t = [torch.from_numpy(x).to(cuda) for x in (ts, vals, valid, seg)]
+    assert_hist_close(histbin_flat(t[3], t[1], 1000, t[2]).cpu(),
+                      histbin_flat_plain(t[3], t[1], 1000, t[2]).cpu())
+    assert_hist_close(
+        histbin(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu(),
+        histbin_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu())
+
+
+@pytest.mark.parametrize("n", [1, 1000, 16384, 40000])
+def test_iqr_kernel_on_card(cuda, n):
+    rng = np.random.default_rng(12)
+    s = rng.lognormal(3.0, 0.5, n).astype(np.float32)
+    occ = rng.random(n) < 0.8
+    s_t, o_t = torch.from_numpy(s).to(cuda), torch.from_numpy(occ).to(cuda)
+    got = iqr_fences(s_t, o_t)
+    want = iqr_fences_plain(s_t, o_t)
+    for key in ("sorted", "flags", "stats"):
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      want[key].cpu().numpy())
