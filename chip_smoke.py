@@ -12,7 +12,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              on the card at edge shapes (ragged N, all rows invalid, n_seg
              not a multiple of 128 with empty segments, M = 1 and 3; iqr
              at n = 1, a non-power-of-two n, no occupied bin, and a table
-             above the single-block limit);
+             above the single-block limit; ssd with S not a multiple of
+             the chunk, G == H and G < H, P/N 8/16, 64/16 and 64/128,
+             chunks 8, 16 and 128, bfloat16 and float32 B/C);
 4. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
              Table-1-sized synthetic trace (8 ranks x 105k kernels + 13.4k
              memcpys, 120 s, 10 ms bins x 4 devices, 3 metrics, moments +
@@ -25,13 +27,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              against its plain version on exactly those tensors;
 5. delta   — a store grown by an append: the delta aggregation on the card
              must equal a cold one bit for bit;
-6. times   — each kernel, its plain version and a one-call PyTorch
-             yardstick, timed with CUDA events at the main path's shapes,
-             beside the kernel's bound (bytes moved over 3.35 TB/s).
+6. serve   — mamba2-370m at full width and depth (48 layers, d_model
+             1024, vocab 50280) in bfloat16, random weights drawn on the
+             card from --seed, through ``ServeEngine.generate``: 8
+             requests of 2048 prompt tokens, 32 new tokens each. The
+             counters are zeroed just before and read just after; the
+             prefill must launch ssd_fused once per layer. The kernel is
+             held against its plain version on the first layer's own
+             inputs, and a prefill and a generation through the plain
+             version must give the same last-token logits (within the
+             bfloat16 tolerance below) and first tokens. Device kernel
+             time by name for one prefill and 8 decode steps is read
+             with torch.profiler;
+7. times   — each kernel, its plain version and a one-call PyTorch
+             yardstick where one exists, timed with CUDA events at the
+             main path's shapes, beside the kernel's bound.
 
 Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
 rtol 1e-5 (atomics and summation order differ); histogram totals exact
-with at most 0.1% of rows one bucket over (float32 log2 on a bucket edge).
+with at most 0.1% of rows one bucket over (float32 log2 on a bucket edge);
+ssd float32 outputs rtol = atol = 1e-4 (the reference's own), bfloat16
+outputs one rounding step (rtol 2^-7); serving logits, computed in
+bfloat16 through 48 layers, max |kernel - plain| <= 0.5 and mean <= 0.05,
+and each request's first token equal unless the plain logits' top-2 gap
+is below 0.5.
 
 The last two lines of standard output are a JSON ``kernels`` record and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the ``src/``
@@ -53,8 +72,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 METRICS = ("k_stall", "m_duration", "m_bytes")
 RTOL = 1e-5
+SSD_TOL = 1e-4
+BF16_RTOL = 2 ** -7
+LOGIT_MAX_TOL = 0.5
+LOGIT_MEAN_TOL = 0.05
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+# b, s, H, P, G, N, chunk
+SSD_EDGE_SHAPES = ((2, 37, 4, 8, 2, 16, 8), (1, 64, 2, 16, 1, 32, 16),
+                   (2, 16, 8, 8, 8, 8, 16), (1, 300, 32, 64, 1, 128, 128),
+                   (1, 256, 4, 64, 1, 16, 128))
 
 
 def log(msg: str) -> None:
@@ -98,6 +127,28 @@ def hist_err(got, want) -> float:
     return float(d.abs().max()) if d.numel() else 0.0
 
 
+def ssd_err(got, want) -> float:
+    """Raise unless two (y, state) pairs agree: float32 within rtol =
+    atol = 1e-4, a bfloat16 y within one rounding step; return the
+    largest absolute difference."""
+    import torch
+    worst = 0.0
+    for name, g, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"ssd {name}: {g.dtype}{tuple(g.shape)} != "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        rtol = BF16_RTOL if g.dtype == torch.bfloat16 else SSD_TOL
+        g, w = g.double().cpu(), w.double().cpu()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd {name}: non-finite values")
+        diff = (g - w).abs()
+        if bool((diff > SSD_TOL + rtol * w.abs()).any()):
+            raise AssertionError(f"ssd {name} differs: max abs "
+                                 f"{float(diff.max())}")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst
+
+
 def iqr_err(got, want) -> float:
     import torch
     for key in ("sorted", "flags", "stats"):
@@ -126,6 +177,7 @@ def phase_kernels(dev):
     from repro_torch.kernels.binstats import ops as bs
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.ssd import ops as sd
 
     rng = np.random.default_rng(1)
     worst = {}
@@ -165,28 +217,44 @@ def phase_kernels(dev):
         occ = torch.from_numpy(rng.random(n) < frac).to(dev)
         note("iqr_fences", iqr_err(iq.iqr_fences(s, occ),
                                    iq.iqr_fences_plain(s, occ)))
+    for b, s, H, P, G, N, chunk in SSD_EDGE_SHAPES:
+        for bc in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(rng, (b, s, H, P, G, N), bc, dev)
+            note("ssd_fused", ssd_err(sd.ssd_fused(*args, chunk=chunk),
+                                      sd.ssd_fused_plain(*args,
+                                                         chunk=chunk)))
     torch.cuda.synchronize()
     return worst
 
 
-class Capture:
-    """Keeps the arguments of the first call each wrapper receives from
-    the pipeline (by replacing the module attributes the pipeline looks
-    up), so the kernels can afterwards be held against their plain
-    versions — and timed — on exactly the main path's tensors."""
+def _ssd_inputs(rng, shape, bc_dtype, dev):
+    """Model-layout inputs of ssd_fused: float32 x, dt in [0.01, 0.1]."""
+    import torch
+    b, s, H, P, G, N = shape
 
-    def __init__(self):
-        from repro_torch.core import anomaly, distributed
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype("float32")).to(dev, dtype)
+    return (t(rng.normal(size=(b, s, H, P))),
+            t(rng.uniform(0.01, 0.1, (b, s, H))), t(rng.uniform(-1, 1, H)),
+            t(rng.normal(size=(b, s, G, N)), bc_dtype),
+            t(rng.normal(size=(b, s, G, N)), bc_dtype),
+            t(rng.normal(size=H)))
+
+
+class Capture:
+    """Keeps the arguments of the first call each wrapper receives on a
+    path (by replacing the module attributes the path looks up), so the
+    kernels can afterwards be held against their plain versions — and
+    timed — on exactly the path's tensors. ``targets`` lists (module,
+    attribute) pairs; a call is kept under the attribute's name."""
+
+    def __init__(self, targets):
         self.calls = {}
         self._restore = []
-        for mod, attr, name in ((distributed, "binstats_flat",
-                                 "binstats_flat"),
-                                (distributed, "histbin_flat",
-                                 "histbin_flat"),
-                                (anomaly, "iqr_fences", "iqr_fences")):
-            fn = getattr(mod, attr)
-            self._restore.append((mod, attr, fn))
-            setattr(mod, attr, self._wrap(name, fn))
+        for mod, name in targets:
+            fn = getattr(mod, name)
+            self._restore.append((mod, name, fn))
+            setattr(mod, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
@@ -218,9 +286,10 @@ def _launch_counters():
     from repro_torch.kernels.binstats import ops as bs
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.ssd import ops as sd
     return {"binstats_flat": bs.binstats_flat, "binstats": bs.binstats,
             "histbin_flat": hb.histbin_flat, "histbin": hb.histbin,
-            "iqr_fences": iq.iqr_fences}
+            "iqr_fences": iq.iqr_fences, "ssd_fused": sd.ssd_fused}
 
 
 def phase_main(args, work):
@@ -234,8 +303,10 @@ def phase_main(args, work):
     ds = generate_synthetic(_spec(args))
     paths = write_synthetic_dbs(ds, os.path.join(work, "dbs"))
     store = os.path.join(work, "store")
+    from repro_torch.core import anomaly, distributed
     counters = _launch_counters()
-    cap = Capture()
+    cap = Capture(((distributed, "binstats_flat"),
+                   (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -312,15 +383,183 @@ def phase_main(args, work):
     return launches, errs, shapes
 
 
+class _Plain:
+    """Within the block the model's SSD scan calls the plain version of
+    the kernel (the attribute ``ssm_forward`` looks up is replaced)."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self._fn = ssm.ssd_fused
+        ssm.ssd_fused = _plain("ssd_fused")
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm.ssd_fused = self._fn
+
+
+def phase_serve(args, dev):
+    """mamba2-370m served at full width and depth through the port's
+    engine; returns (launches, |kernel - plain| on the path's tensors,
+    the captured ssd call, a summary line)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model, ssm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {model.param_count(params)} parameters in "
+        f"{cfg.dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    scfg = ServeConfig(max_len=SERVE_PROMPT + SERVE_NEW,
+                       max_new_tokens=SERVE_NEW, cache_dtype=cfg.dtype)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
+    # warm-up at a short prompt: library handles, the kernel's attributes
+    ServeEngine(cfg, params, ServeConfig(max_len=256, max_new_tokens=2),
+                device=dev).generate({"tokens": prompts[:, :128]})
+    engine = ServeEngine(cfg, params, scfg, device=dev)
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = Capture(((ssm, "ssd_fused"),))
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        tokens = engine.generate({"tokens": prompts})
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        cap.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = engine.telemetry.steps
+    pre_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
+              if e.kind == KIND_PREFILL]
+    dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
+              if e.kind == KIND_DECODE]
+    log(f"serve: launches {launches}")
+    if launches["ssd_fused"] != cfg.n_layers:
+        raise AssertionError(f"the prefill launched ssd_fused "
+                             f"{launches['ssd_fused']} times, expected one "
+                             f"per layer ({cfg.n_layers})")
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"bad tokens {tokens.shape}")
+
+    c_args, c_kw = cap.calls["ssd_fused"]
+    err = ssd_err(ssm.ssd_fused(*c_args, **c_kw),
+                  _plain("ssd_fused")(*c_args, **c_kw))
+
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    with torch.inference_mode():
+        lg_k, _, _ = model.prefill(cfg, params, batch, scfg.max_len,
+                                   cfg.dtype)
+        with _Plain():
+            lg_p, _, _ = model.prefill(cfg, params, batch, scfg.max_len,
+                                       cfg.dtype)
+    with _Plain():
+        tokens_p = ServeEngine(cfg, params, scfg, device=dev).generate(
+            {"tokens": prompts})
+    if not (bool(torch.isfinite(lg_k).all()) and
+            tuple(lg_k.shape) == (SERVE_BATCH, cfg.vocab)):
+        raise AssertionError("kernel logits not finite or misshapen")
+    d = (lg_k - lg_p).abs()
+    d_max, d_mean = float(d.max()), float(d.mean())
+    top2 = lg_p.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    first_k, first_p = lg_k.argmax(-1).cpu().numpy(), \
+        lg_p.argmax(-1).cpu().numpy()
+    if not np.array_equal(first_k, tokens[:, 0]):
+        raise AssertionError("the engine's first tokens differ from its "
+                             "own prefill's")
+    bad = (first_k != first_p) & (gap >= LOGIT_MAX_TOL)
+    log(f"serve: last-token logits |kernel - plain| max {d_max:.6f}, mean "
+        f"{d_mean:.6f} (tolerance {LOGIT_MAX_TOL} / {LOGIT_MEAN_TOL}); "
+        f"plain top-2 gaps {np.round(gap, 4).tolist()}")
+    if d_max > LOGIT_MAX_TOL or d_mean > LOGIT_MEAN_TOL or bad.any():
+        raise AssertionError("kernel and plain prefill disagree")
+    agree = int((tokens == tokens_p).sum())
+    summary = (f"serve: batch {SERVE_BATCH} x prompt {SERVE_PROMPT} + "
+               f"{SERVE_NEW} new tokens; prefill {pre_ms[0]:.3f} ms, "
+               f"decode median {float(np.median(dec_ms)):.3f} ms/token "
+               f"(min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
+               f"{len(dec_ms)} steps); peak memory "
+               f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB live "
+               f"before); first tokens equal {int((first_k == first_p).sum())}"
+               f"/{SERVE_BATCH}; kernel and plain generations agree on "
+               f"{agree}/{tokens.size} tokens")
+    log(summary)
+
+    # where the serving time goes on the device: kernel time by name under
+    # torch.profiler, for one prefill and for 8 decode steps
+    with torch.inference_mode():
+        pre = _device_profile(lambda: model.prefill(
+            cfg, params, batch, scfg.max_len, cfg.dtype))
+        lg, caches, index = model.prefill(cfg, params, batch, scfg.max_len,
+                                          cfg.dtype)
+        tok = [lg.argmax(-1)[:, None]]
+
+        def decode(n=8):
+            for t in range(n):
+                lg_t, _ = model.decode_step(cfg, params, tok[0], caches,
+                                            index + t)
+                tok[0] = lg_t.argmax(-1)[:, None]
+        dec = _device_profile(decode)
+    for name, (wall, busy, top), per in (("prefill", pre, 1),
+                                         ("decode", dec, 8)):
+        if busy is None:
+            log(f"serve profile {name}: device time not measured (the "
+                "profiler saw no CUDA kernel)")
+            continue
+        log(f"serve profile {name}: device kernels {busy / per:.3f} ms per "
+            f"step, host wall {wall / per:.3f} ms per step under the "
+            f"profiler; largest: " + "; ".join(
+                f"{n} {ms / per:.3f} ms x{c // per}" for n, ms, c in top))
+    return launches, err, (c_args, c_kw)
+
+
+def _device_profile(fn):
+    """Run ``fn`` under torch.profiler; return (host wall ms, summed device
+    kernel ms or None when the profiler saw none, the five kernels with the
+    most device time as (name, ms, launches))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not kern:
+        return wall, None, []
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return (wall, sum(e.self_device_time_total for e in kern) / 1e3,
+            [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+             for e in kern[:5]])
+
+
 def _plain(name):
     from repro_torch.kernels.binstats import ops as bs
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.ssd import ops as sd
     return {"binstats_flat": bs.binstats_flat_plain,
             "binstats": bs.binstats_plain,
             "histbin_flat": hb.histbin_flat_plain,
             "histbin": hb.histbin_plain,
-            "iqr_fences": iq.iqr_fences_plain}[name]
+            "iqr_fences": iq.iqr_fences_plain,
+            "ssd_fused": sd.ssd_fused_plain}[name]
 
 
 def _ts_inputs(flat_args, n_bins):
@@ -409,16 +648,18 @@ def phase_times(shapes):
     counters = _launch_counters()
     rows = {}
 
-    def record(name, call, plain, library, out, inputs, ops):
+    def record(name, call, plain, library, out, inputs, ops,
+               ops_per_s=FP32_OPS_PER_S):
         nbytes = _nbytes(*inputs) + _nbytes(*out)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
+        t_ops = ops / ops_per_s * 1e3
         rows[name] = {
             "ms": _time_ms(call), "plain_ms": _time_ms(plain),
             "library_ms": None if library is None else _time_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes}
+            "bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops}
 
     seg, vals, n_seg, valid = shapes["binstats_flat"]
     m, n = vals.shape
@@ -460,6 +701,22 @@ def phase_times(shapes):
                lambda name=name: _plain(name)(ts, vals, valid, **kw), None,
                [out], [ts, vals, valid], (6 if name == "binstats" else 4)
                * vals.numel())
+
+    # ssd: the serving path's first-layer call. Bound: its own inputs read
+    # and outputs written once, or 2q^2 N + 2q^2 P + 4qNP FLOP per (head,
+    # chunk) on the bfloat16 tensor cores; no single PyTorch call computes
+    # the scan, so there is no yardstick.
+    c_args, c_kw = shapes["ssd_fused"]
+    xs, B = c_args[0], c_args[3]
+    b, s, H, P = xs.shape
+    N, q = B.shape[3], c_kw["chunk"]
+    flops = b * H * (-(-s // q)) * (2 * q * q * N + 2 * q * q * P
+                                    + 4 * q * N * P)
+    out = counters["ssd_fused"](*c_args, **c_kw)
+    record("ssd_fused", lambda: counters["ssd_fused"](*c_args, **c_kw),
+           lambda: _plain("ssd_fused")(*c_args, **c_kw), None, list(out),
+           list(c_args), flops, BF16_OPS_PER_S)
+    rows["ssd_fused"]["fp32_floor_ms"] = flops / FP32_OPS_PER_S * 1e3
     return rows
 
 
@@ -474,6 +731,8 @@ SOURCES = {
                 "src/repro/kernels/histbin/kernel.py:50"),
     "iqr_fences": ("src/repro_torch/csrc/iqr.cu",
                    "src/repro/kernels/iqr/kernel.py:72"),
+    "ssd_fused": ("src/repro_torch/csrc/ssd.cu",
+                  "src/repro/kernels/ssd/kernel.py:39"),
 }
 
 
@@ -520,9 +779,12 @@ def main() -> int:
         log(f"kernels on the main path's inputs, largest |kernel - plain|:"
             f" {errs}")
         phase_delta(args, work)
-        times = phase_times(shapes)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    serve_launches, errs["ssd_fused"], shapes["ssd_fused"] = \
+        phase_serve(args, dev)
+    launches["ssd_fused"] = serve_launches["ssd_fused"]
+    times = phase_times(shapes)
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():
@@ -534,10 +796,13 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        floor = (f", fp32 CUDA-core floor {t['fp32_floor_ms']:.4f}"
+                 if "fp32_floor_ms" in t else "")
         log(f"time {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
-            f"{t['bound_by']}, {t['bytes']} bytes), "
-            f"{launches[name]} launch(es) on the main path [{card}]")
+            f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
+            f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), "
+            f"{launches[name]} launch(es) on its path [{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

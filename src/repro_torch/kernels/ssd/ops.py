@@ -1,0 +1,173 @@
+"""Mamba2 SSD chunk scan: the CUDA kernel's wrapper and its plain PyTorch
+version.
+
+Both take the model's layout (``repro/kernels/ssd/ops.py::ssd_fused``):
+
+    xs (b, s, H, P), dt (b, s, H), A_log (H,), B and C (b, s, G, N), D (H,)
+
+and return ``(y (b, s, H, P) in xs.dtype, state (b, H, P, N) float32)``,
+with ``y = SSD(dt·x) + D·x``. Head ``h`` reads group ``h // (H // G)``.
+Everything inside the scan is float32: dt, A, x̄ = dt·x, the decay
+exponents and the state.
+
+:func:`ssd_fused` given CPU tensors runs :func:`ssd_fused_plain`; given
+CUDA tensors it reorders to the kernel's head-major layout, pads the
+sequence to a multiple of ``chunk`` with ``dtA = 0`` (the identity step),
+launches the kernel (source ``repro_torch/csrc/ssd.cu``) or raises.
+``ssd_fused.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .._check import check_tensor, stream_ptr
+
+P_TILE = 64       # the kernel's limits (csrc/ssd.cu)
+MAX_CHUNK = 128
+MAX_STATE = 128
+
+
+def _check_shapes(xs, dt, A_log, B, C, D) -> None:
+    if xs.dim() != 4 or B.dim() != 4 or C.dim() != 4:
+        raise ValueError("xs, B and C must be 4-d (b, s, heads|groups, dim)")
+    b, s, H, _ = xs.shape
+    G = B.shape[2]
+    if tuple(dt.shape) != (b, s, H):
+        raise ValueError(f"dt {tuple(dt.shape)}, expected {(b, s, H)}")
+    if B.shape != C.shape or tuple(B.shape[:2]) != (b, s):
+        raise ValueError(f"B {tuple(B.shape)} / C {tuple(C.shape)} do not "
+                         f"match xs {tuple(xs.shape)}")
+    if tuple(A_log.shape) != (H,) or tuple(D.shape) != (H,):
+        raise ValueError(f"A_log and D must be ({H},)")
+    if G < 1 or H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
+
+
+def ssd_fused_plain(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`ssd_fused`, on any device: the chunked SSD
+    of ``repro/models/ssm.py::ssd_scan``, a loop over chunks that carries
+    the (b, H, P, N) state."""
+    _check_shapes(xs, dt, A_log, B, C, D)
+    b, s, H, Pd = xs.shape
+    G, N = B.shape[2], B.shape[3]
+    hg = H // G
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    f32 = torch.float32
+    x = F.pad(xs.to(f32), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.to(f32), (0, 0, 0, pad))        # dt = 0: identity step
+    Bf = F.pad(B.to(f32), (0, 0, 0, 0, 0, pad))
+    Cf = F.pad(C.to(f32), (0, 0, 0, 0, 0, pad))
+    A = -torch.exp(A_log.to(f32))                   # (H,) < 0
+    Df = D.to(f32)[None, None, :, None]
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool,
+                                   device=xs.device))[None, :, None, None, :]
+    h = torch.zeros(b, G, hg, Pd, N, dtype=f32, device=xs.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * q, (c + 1) * q)
+        xck, dtk, Bk, Ck = x[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(dtk * A, dim=1)           # (b, q, H) <= 0
+        last = cum[:, -1, :]                         # (b, H)
+        xg = (dtk[..., None] * xck).reshape(b, q, G, hg, Pd)
+        cumg = cum.reshape(b, q, G, hg)
+        scores = torch.einsum("bign,bjgn->bgij", Ck, Bk)
+        li = cumg[:, :, :, :, None] - cumg.permute(0, 2, 3, 1)[:, None]
+        # exp only of the masked exponents: above the diagonal li > 0
+        L = torch.where(causal, torch.exp(torch.where(causal, li, 0.0)), 0.0)
+        y_intra = torch.einsum("bgij,bighj,bjghp->bighp", scores, L, xg)
+        y_inter = torch.einsum("bign,bghpn,bigh->bighp", Ck, h,
+                               torch.exp(cumg))
+        decay = torch.exp(last.reshape(b, 1, G, hg) - cumg)
+        upd = torch.einsum("bjgn,bjghp,bjgh->bghpn", Bk, xg, decay)
+        h = torch.exp(last).reshape(b, G, hg, 1, 1) * h + upd
+        y = (y_intra + y_inter).reshape(b, q, H, Pd) + Df * xck
+        ys.append(y.to(xs.dtype))
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y, h.reshape(b, H, Pd, N)
+
+
+def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD chunk scan plus ``D·x`` (the TPU kernel's contract,
+    ``repro/kernels/ssd/ops.py::ssd_fused``).
+
+    B and C reach the kernel as they come, in bfloat16 or float32. The
+    kernel takes chunk <= 128, N <= 128 and P at most 64 or a multiple of
+    64; it raises on anything else."""
+    if xs.device.type == "cpu":
+        return ssd_fused_plain(xs, dt, A_log, B, C, D, chunk=chunk)
+    if xs.device.type != "cuda":
+        raise ValueError(f"ssd_fused: unsupported device {xs.device}")
+    _check_shapes(xs, dt, A_log, B, C, D)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the kernel takes 1 to {MAX_CHUNK}")
+    if B.dtype not in (torch.bfloat16, torch.float32) or C.dtype != B.dtype:
+        raise TypeError(f"B/C dtype {B.dtype}/{C.dtype}: the kernel takes "
+                        "bfloat16 or float32")
+    b, s, H, Pd = xs.shape
+    G, N = B.shape[2], B.shape[3]
+    if s < 1:
+        raise ValueError("ssd_fused: empty sequence")
+    if N > MAX_STATE:
+        raise ValueError(f"d_state {N}: the kernel takes at most {MAX_STATE}")
+    if Pd > P_TILE and Pd % P_TILE:
+        raise ValueError(f"head_dim {Pd}: the kernel takes P <= {P_TILE} or "
+                         f"a multiple of {P_TILE}")
+    dev = xs.device
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    dta = dtf * -torch.exp(A_log.to(f32))[None, None, :]           # (b,s,H)
+    xbar = dtf[..., None] * xs.to(f32)                             # (b,s,H,P)
+    pad = (-s) % chunk
+    # head-major (BH, S, P) / (BH, S) / (BG, S, N), padded with zeros
+    xbar_h = F.pad(xbar.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    dta_h = F.pad(dta.permute(0, 2, 1), (0, pad))
+    B_h = F.pad(B.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    C_h = F.pad(C.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    sp = s + pad
+    xbar_h = xbar_h.reshape(b * H, sp, Pd).contiguous()
+    dta_h = dta_h.reshape(b * H, sp).contiguous()
+    B_h = B_h.reshape(b * G, sp, N).contiguous()
+    C_h = C_h.reshape(b * G, sp, N).contiguous()
+    for t, name, dtype, nd in ((xbar_h, "xbar", f32, 3),
+                               (dta_h, "dta", f32, 2),
+                               (B_h, "B", B.dtype, 3), (C_h, "C", B.dtype, 3)):
+        check_tensor(t, name, dtype, nd, dev)
+    lib = _lib()
+    y_h = torch.empty((b * H, sp, Pd), dtype=f32, device=dev)
+    state = torch.empty((b * H, Pd, N), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ssd_scan(xbar_h.data_ptr(), dta_h.data_ptr(),
+                            B_h.data_ptr(), C_h.data_ptr(),
+                            int(B.dtype == torch.bfloat16), y_h.data_ptr(),
+                            state.data_ptr(), b * H, sp, Pd, N, chunk,
+                            H // G, stream_ptr(dev))
+    ssd_fused.launches += 1
+    _build.check(code, "ssd_fused")
+    y = y_h[:, :s].reshape(b, H, s, Pd).permute(0, 2, 1, 3)
+    y = y + D.to(f32)[None, None, :, None] * xs.to(f32)
+    return y.to(xs.dtype), state.reshape(b, H, Pd, N)
+
+
+ssd_fused.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd")
+    if not getattr(lib, "_typed", False):
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.ssd_scan.argtypes = [p, p, p, p, i, p, p, l, i, i, i, i, i, p]
+        lib.ssd_scan.restype = i
+        lib._typed = True
+    return lib

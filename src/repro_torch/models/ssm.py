@@ -1,0 +1,201 @@
+"""Mamba2 SSD mixer (state-space duality, arXiv:2405.21060) and its decode
+state, after ``repro/models/ssm.py``.
+
+Prefill runs the chunked SSD scan through
+:func:`repro_torch.kernels.ssd.ssd_fused`: on a CUDA tensor that is the
+hand-written kernel, on a CPU tensor its plain version. Decode is the O(1)
+recurrence ``h ← a·h + dt·x⊗B, y = C·h + D·x`` plus a rolling window for
+the causal depthwise conv.
+
+Precision follows the reference: dt, A, x̄ and the state are float32; y
+and the projections are in the model dtype. Public layouts are the
+reference's: ``(B, S, H, P)``, ``(B, S, G, N)``, state ``(B, H, P, N)``.
+Mesh and sharding anchors are not part of the port (one card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd import ssd_fused
+from .layers import dense_init
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_model: int
+    d_state: int = 128          # N
+    head_dim: int = 64          # P
+    expand: int = 2
+    n_groups: int = 1           # G
+    conv_width: int = 4
+    chunk: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+# --- init ---------------------------------------------------------------------
+
+def ssm_init(cfg: SSMConfig, *, generator: torch.Generator,
+             device: torch.device) -> Dict:
+    """float32 parameters of one mixer (the model casts matrices)."""
+    d, di, gn, h, w = (cfg.d_model, cfg.d_inner,
+                       cfg.n_groups * cfg.d_state, cfg.n_heads,
+                       cfg.conv_width)
+    f32 = torch.float32
+    kw = {"generator": generator, "device": device}
+    # dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]
+    u = torch.rand(h, generator=generator, device=device)
+    dt = torch.exp(u * (np.log(cfg.dt_max) - np.log(cfg.dt_min))
+                   + np.log(cfg.dt_min))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))      # inverse softplus
+    return {
+        "in_z": dense_init((d, di), **kw),
+        "in_x": dense_init((d, di), **kw),
+        "in_b": dense_init((d, gn), **kw),
+        "in_c": dense_init((d, gn), **kw),
+        "in_dt": dense_init((d, h), **kw),
+        "conv_x": {"w": dense_init((w, di), fan_in=w, **kw),
+                   "b": torch.zeros(di, dtype=f32, device=device)},
+        "conv_b": {"w": dense_init((w, gn), fan_in=w, **kw),
+                   "b": torch.zeros(gn, dtype=f32, device=device)},
+        "conv_c": {"w": dense_init((w, gn), fan_in=w, **kw),
+                   "b": torch.zeros(gn, dtype=f32, device=device)},
+        "A_log": torch.log(torch.arange(1, h + 1, dtype=f32, device=device)),
+        "D": torch.ones(h, dtype=f32, device=device),
+        "dt_bias": dt_bias.to(f32),
+        "ssm_norm": {"scale": torch.ones(di, dtype=f32, device=device)},
+        "out_proj": dense_init((di, d), fan_in=di, **kw),
+    }
+
+
+# --- causal depthwise conv ------------------------------------------------------
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (width, C) depthwise; left-padded causal + silu.
+
+    ``width`` shifted multiply-adds in float32, rounded once to x's dtype:
+    a float32 cuDNN convolution would run in TF32 by default, and the
+    window is only a few taps wide."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, width - 1, 0))
+    wf = w.to(x.dtype).float()
+    out = xp[:, :s] * wf[0]
+    for k in range(1, width):
+        out = out + xp[:, k:k + s] * wf[k]
+    return F.silu(out + b.to(x.dtype).float()).to(x.dtype)
+
+
+def _conv_step(state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Decode: state (B, width-1, C), x_new (B, 1, C) -> out (B, 1, C).
+    The window in ``state`` moves on by one token in place."""
+    window = torch.cat([state, x_new.to(state.dtype)], dim=1)
+    dt_ = x_new.dtype
+    out = (window.to(dt_).float() * w.to(dt_).float()).sum(1)
+    out = out + b.to(dt_).float()
+    state.copy_(window[:, 1:])
+    return F.silu(out).to(dt_)[:, None, :]
+
+
+# --- block forward / decode -------------------------------------------------------
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    gf = (y * F.silu(z)).float()
+    var = (gf * gf).mean(-1, keepdim=True)
+    return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _projections(params, x: torch.Tensor):
+    return (x @ params["in_z"], x @ params["in_x"], x @ params["in_b"],
+            x @ params["in_c"], x @ params["in_dt"])
+
+
+def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig,
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill. x: (B, S, D). Returns (out, decode cache entries)."""
+    bsz, s, _ = x.shape
+    z, xr, Br, Cr, dt_raw = _projections(params, x)
+    xc = _causal_conv(xr, params["conv_x"]["w"], params["conv_x"]["b"])
+    Bc = _causal_conv(Br, params["conv_b"]["w"], params["conv_b"]["b"])
+    Cc = _causal_conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"])
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B, S, H)
+    xs = xc.reshape(bsz, s, cfg.n_heads, cfg.head_dim)
+    B3 = Bc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
+    C3 = Cc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
+    y, h_fin = ssd_fused(xs, dt, params["A_log"], B3, C3, params["D"],
+                         chunk=cfg.chunk)
+    y = _gated_norm(params["ssm_norm"]["scale"],
+                    y.reshape(bsz, s, cfg.d_inner), z)
+    out = y @ params["out_proj"]
+
+    # decode cache: conv tails (pre-conv inputs) + final SSM state; the
+    # tails are copies, so the full projections are freed
+    w = cfg.conv_width
+
+    def tail(u):
+        t = u[:, -(w - 1):, :]
+        return F.pad(t, (0, 0, (w - 1) - t.shape[1], 0)).clone()
+
+    cache = {"conv_x": tail(xr), "conv_b": tail(Br), "conv_c": tail(Cr),
+             "state": h_fin}
+    return out, cache
+
+
+def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. x: (B, 1, D); cache from ssm_forward/init.
+
+    The cache is updated in place and returned (the reference's serving
+    loop donates it to the jitted step for the same effect)."""
+    bsz = x.shape[0]
+    z, xr, Br, Cr, dt_raw = _projections(params, x)
+    xc = _conv_step(cache["conv_x"], xr, params["conv_x"]["w"],
+                    params["conv_x"]["b"])
+    Bc = _conv_step(cache["conv_b"], Br, params["conv_b"]["w"],
+                    params["conv_b"]["b"])
+    Cc = _conv_step(cache["conv_c"], Cr, params["conv_c"]["w"],
+                    params["conv_c"]["b"])
+
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])    # (B, H)
+    a = torch.exp(dt * -torch.exp(params["A_log"].float()))      # (B, H)
+    H, Pd, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    hg = H // G
+    x1 = xc[:, 0].float().reshape(bsz, H, Pd)
+    Bh = Bc[:, 0].float().reshape(bsz, G, N).repeat_interleave(hg, dim=1)
+    Ch = Cc[:, 0].float().reshape(bsz, G, N).repeat_interleave(hg, dim=1)
+    state = cache["state"]                                       # (B,H,P,N)
+    state.mul_(a[..., None, None]).add_(
+        (dt[..., None] * x1)[..., None] * Bh[:, :, None, :])
+    y = (state * Ch[:, :, None, :]).sum(-1) + params["D"][None, :, None] * x1
+    y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
+    y = _gated_norm(params["ssm_norm"]["scale"], y, z)
+    return y @ params["out_proj"], cache
+
+
+def ssm_init_cache(cfg: SSMConfig, batch: int, dtype: torch.dtype,
+                   device: torch.device) -> Dict:
+    w, di, gn = cfg.conv_width, cfg.d_inner, cfg.n_groups * cfg.d_state
+    return {
+        "conv_x": torch.zeros(batch, w - 1, di, dtype=dtype, device=device),
+        "conv_b": torch.zeros(batch, w - 1, gn, dtype=dtype, device=device),
+        "conv_c": torch.zeros(batch, w - 1, gn, dtype=dtype, device=device),
+        "state": torch.zeros(batch, cfg.n_heads, cfg.head_dim, cfg.d_state,
+                             dtype=torch.float32, device=device),
+    }

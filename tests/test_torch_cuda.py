@@ -99,3 +99,68 @@ def test_iqr_kernel_on_card(cuda, n):
     for key in ("sorted", "flags", "stats"):
         np.testing.assert_array_equal(got[key].cpu().numpy(),
                                       want[key].cpu().numpy())
+
+
+SSD_SHAPES = [  # b, s, H, P, G, N, chunk
+    (2, 37, 4, 8, 2, 16, 8),         # s not a multiple of chunk, hg = 2
+    (1, 64, 2, 16, 1, 32, 16),
+    (2, 16, 8, 8, 8, 8, 16),         # G == H
+    (1, 300, 32, 64, 1, 128, 128),   # mamba2-370m's P, N and chunk
+    (1, 256, 4, 64, 1, 16, 128),     # hymba-1.5b's P, N and chunk
+]
+
+
+def ssd_inputs(seed, b, s, H, P, G, N, dtype=torch.float32,
+               bc_dtype=torch.float32, device="cpu"):
+    """Model-layout inputs of ``ssd_fused`` from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    f32 = torch.float32
+    return (t(rng.normal(size=(b, s, H, P)), dtype),
+            t(rng.uniform(0.01, 0.1, (b, s, H)), f32),
+            t(rng.uniform(-1, 1, (H,)), f32),
+            t(rng.normal(size=(b, s, G, N)), bc_dtype),
+            t(rng.normal(size=(b, s, G, N)), bc_dtype),
+            t(rng.normal(size=(H,)), f32))
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_on_card(cuda, shape, bc_dtype):
+    """y and the state within rtol = atol = 1e-4 of the plain version, the
+    reference's own tolerance (tests/test_kernels.py): both sum in
+    float32, in another order."""
+    from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
+    b, s, H, P, G, N, chunk = shape
+    args = ssd_inputs(sum(shape), b, s, H, P, G, N, bc_dtype=bc_dtype,
+                      device=cuda)
+    before = ssd_fused.launches
+    yk, hk = ssd_fused(*args, chunk=chunk)
+    assert ssd_fused.launches == before + 1
+    yp, hp = ssd_fused_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(yk.cpu().numpy(), yp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hk.cpu().numpy(), hp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.ssd import ssd_fused
+    args = ssd_inputs(0, 1, 512, 2, 64, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_fused(*args, chunk=256)
+    args = ssd_inputs(0, 1, 16, 2, 8, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_fused(*args, chunk=16)
+    args = ssd_inputs(0, 1, 16, 2, 96, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_fused(*args, chunk=16)
+    args = ssd_inputs(0, 1, 16, 2, 8, 1, 16, device=cuda,
+                      bc_dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ssd_fused(*args, chunk=16)

@@ -64,6 +64,14 @@ def test_entry_points_default_to_the_card():
     for fn in (run_aggregation, run_queries, iqr_detect):
         assert fn.__defaults__[-1] == "cuda" or \
             fn.__kwdefaults__ and fn.__kwdefaults__.get("device") == "cuda"
+    import inspect
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+    for fn in (ServeEngine.__init__, init_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         assert PipelineConfig().device == "cuda"
@@ -74,6 +82,14 @@ def test_entry_points_default_to_the_card():
         iqr_detect([1.0, 2.0, 3.0])
     with pytest.raises(ValueError):
         resolve_device("mps")
+    cfg = get_smoke_config("mamba2-370m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, ServeConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main(["--arch", "mamba2-370m", "--smoke"])
 
 
 def test_every_cuda_source_is_built():
