@@ -14,7 +14,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              at n = 1, a non-power-of-two n, no occupied bin, and a table
              above the single-block limit; ssd with S not a multiple of
              the chunk, G == H and G < H, P/N 8/16, 64/16 and 64/128,
-             chunks 8, 16 and 128, bfloat16 and float32 B/C);
+             chunks 8, 16 and 128, bfloat16 and float32 B/C;
+             flash_attention with S not a multiple of the tile, causal
+             with window 0, windows of 1, 8 and 16 and one above S,
+             non-causal, H / Hkv = 1, 5 and 8, hd 8, 32, 64 and 128, and
+             S = 37 with window 8, whose padded query rows see no key,
+             in bfloat16 and float32);
 4. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
              Table-1-sized synthetic trace (8 ranks x 105k kernels + 13.4k
              memcpys, 120 s, 10 ms bins x 4 devices, 3 metrics, moments +
@@ -39,7 +44,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              bfloat16 tolerance below) and first tokens. Device kernel
              time by name for one prefill and 8 decode steps is read
              with torch.profiler;
-7. times   — each kernel, its plain version and a one-call PyTorch
+7. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
+             3 global and 29 with window 1024, d_model 1600, vocab 32001,
+             128 meta tokens) in bfloat16, random weights drawn on the card
+             from --seed, through ``ServeEngine.generate``: 8 requests of
+             2048 prompt tokens, 32 new tokens each. The prefill must
+             launch flash_attention and ssd_fused once per layer. The
+             kernels are held against their plain versions on the path's
+             own first global and first window layer's attention inputs
+             and first layer's SSD inputs; a prefill and a generation
+             through the plain versions must agree with the kernels' as
+             in the serve phase; prefill(N - 1) + one decode step must
+             give prefill(N)'s logits at batch 2 with a prompt longer than
+             the window (the meta-token and ring bookkeeping). Device
+             kernel time by name is read as in the serve phase;
+8. times   — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, timed with CUDA events at the
              main path's shapes, beside the kernel's bound.
 
@@ -47,10 +66,12 @@ Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
 rtol 1e-5 (atomics and summation order differ); histogram totals exact
 with at most 0.1% of rows one bucket over (float32 log2 on a bucket edge);
 ssd float32 outputs rtol = atol = 1e-4 (the reference's own), bfloat16
-outputs one rounding step (rtol 2^-7); serving logits, computed in
-bfloat16 through 48 layers, max |kernel - plain| <= 0.5 and mean <= 0.05,
-and each request's first token equal unless the plain logits' top-2 gap
-is below 0.5.
+outputs one rounding step (rtol 2^-7); flash_attention float32 outputs
+rtol = atol = 2e-4 (the reference's own), bfloat16 one rounding step;
+serving logits, computed in bfloat16 through 48 (mamba2) or 32 (hymba)
+layers, max |kernel - plain| <= 0.5 and mean <= 0.05, and each request's
+first token equal unless the plain logits' top-2 gap is below 0.5; the
+same logits bound for hymba's decode continuation.
 
 The last two lines of standard output are a JSON ``kernels`` record and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the ``src/``
@@ -76,14 +97,24 @@ BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 METRICS = ("k_stall", "m_duration", "m_bytes")
 RTOL = 1e-5
 SSD_TOL = 1e-4
+FLASH_TOL = 2e-4
 BF16_RTOL = 2 ** -7
 LOGIT_MAX_TOL = 0.5
 LOGIT_MEAN_TOL = 0.05
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
+HYMBA_PARAMS = 1_590_080_320     # the reference's count (jax.eval_shape)
+CONT_BATCH, CONT_PROMPT = 2, 1100    # 128 meta + 1100 > the 1024 window
 # b, s, H, P, G, N, chunk
 SSD_EDGE_SHAPES = ((2, 37, 4, 8, 2, 16, 8), (1, 64, 2, 16, 1, 32, 16),
                    (2, 16, 8, 8, 8, 8, 16), (1, 300, 32, 64, 1, 128, 128),
                    (1, 256, 4, 64, 1, 16, 128))
+# b, s, H, Hkv, hd, causal, window
+FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, True, 0), (2, 37, 5, 1, 64, True, 8),
+                     (1, 300, 10, 2, 64, True, 16),
+                     (1, 300, 8, 1, 128, False, 0),
+                     (1, 300, 4, 2, 32, True, 500),
+                     (1, 130, 4, 4, 16, True, 1),
+                     (1, 1100, 5, 5, 64, True, 1024))
 
 
 def log(msg: str) -> None:
@@ -149,6 +180,24 @@ def ssd_err(got, want) -> float:
     return worst
 
 
+def flash_err(got, want) -> float:
+    """Raise unless two attention outputs agree: float32 within rtol =
+    atol = 2e-4, bfloat16 within one rounding step; return the largest
+    absolute difference."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    rtol = BF16_RTOL if got.dtype == torch.bfloat16 else FLASH_TOL
+    g, w = got.double().cpu(), want.double().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("flash: non-finite values")
+    diff = (g - w).abs()
+    if bool((diff > FLASH_TOL + rtol * w.abs()).any()):
+        raise AssertionError(f"flash differs: max abs {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def iqr_err(got, want) -> float:
     import torch
     for key in ("sorted", "flags", "stats"):
@@ -175,6 +224,7 @@ def phase_kernels(dev):
     import torch
 
     from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
     from repro_torch.kernels.ssd import ops as sd
@@ -223,6 +273,15 @@ def phase_kernels(dev):
             note("ssd_fused", ssd_err(sd.ssd_fused(*args, chunk=chunk),
                                       sd.ssd_fused_plain(*args,
                                                          chunk=chunk)))
+    for b, s, H, Hkv, hd, causal, window in FLASH_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd))
+                                        .astype(np.float32)).to(dev, dtype)
+                       for n in (H, Hkv, Hkv))
+            kw = dict(causal=causal, window=window)
+            note("flash_attention", flash_err(
+                fa.flash_attention(q, k, v, **kw),
+                fa.flash_attention_plain(q, k, v, **kw)))
     torch.cuda.synchronize()
     return worst
 
@@ -246,11 +305,13 @@ class Capture:
     path (by replacing the module attributes the path looks up), so the
     kernels can afterwards be held against their plain versions — and
     timed — on exactly the path's tensors. ``targets`` lists (module,
-    attribute) pairs; a call is kept under the attribute's name."""
+    attribute) pairs; a call is kept under the attribute's name, or under
+    ``key(name, kwargs)`` when that is given."""
 
-    def __init__(self, targets):
+    def __init__(self, targets, key=None):
         self.calls = {}
         self._restore = []
+        self._key = key or (lambda name, kwargs: name)
         for mod, name in targets:
             fn = getattr(mod, name)
             self._restore.append((mod, name, fn))
@@ -258,7 +319,7 @@ class Capture:
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
-            self.calls.setdefault(name, (args, kwargs))
+            self.calls.setdefault(self._key(name, kwargs), (args, kwargs))
             return fn(*args, **kwargs)
         return wrapper
 
@@ -284,12 +345,14 @@ def _spec(args):
 
 def _launch_counters():
     from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
     from repro_torch.kernels.ssd import ops as sd
     return {"binstats_flat": bs.binstats_flat, "binstats": bs.binstats,
             "histbin_flat": hb.histbin_flat, "histbin": hb.histbin,
-            "iqr_fences": iq.iqr_fences, "ssd_fused": sd.ssd_fused}
+            "iqr_fences": iq.iqr_fences, "ssd_fused": sd.ssd_fused,
+            "flash_attention": fa.flash_attention}
 
 
 def phase_main(args, work):
@@ -384,52 +447,80 @@ def phase_main(args, work):
 
 
 class _Plain:
-    """Within the block the model's SSD scan calls the plain version of
-    the kernel (the attribute ``ssm_forward`` looks up is replaced)."""
+    """Within the block the model's SSD scan and attention call the plain
+    versions of their kernels (the attributes ``ssm_forward`` and
+    ``attn_forward`` look up are replaced)."""
 
     def __enter__(self):
-        from repro_torch.models import ssm
-        self._fn = ssm.ssd_fused
-        ssm.ssd_fused = _plain("ssd_fused")
+        from repro_torch.models import attention, ssm
+        self._fns = ((ssm, "ssd_fused", ssm.ssd_fused),
+                     (attention, "flash_attention",
+                      attention.flash_attention))
+        for mod, name, _ in self._fns:
+            setattr(mod, name, _plain(name))
 
     def __exit__(self, *exc):
-        from repro_torch.models import ssm
-        ssm.ssd_fused = self._fn
+        for mod, name, fn in self._fns:
+            setattr(mod, name, fn)
 
 
-def phase_serve(args, dev):
-    """mamba2-370m served at full width and depth through the port's
-    engine; returns (launches, |kernel - plain| on the path's tensors,
-    the captured ssd call, a summary line)."""
+def _flash_key(name, kwargs):
+    """Capture key: the first global and the first window layer's
+    attention calls are kept apart."""
+    if name != "flash_attention":
+        return name
+    return f"{name}/{'window' if kwargs.get('window') else 'global'}"
+
+
+def _expected_launches(cfg):
+    """One ssd_fused per SSM or hybrid layer and one flash_attention per
+    attention or hybrid layer, in one prefill."""
+    n = {"ssd_fused": 0, "flash_attention": 0}
+    for spec, count in cfg.plan:
+        n["ssd_fused"] += count * (spec.kind in ("ssm", "hybrid"))
+        n["flash_attention"] += count * (spec.kind in ("attn", "hybrid"))
+    return n
+
+
+def phase_serve(args, dev, arch, tag):
+    """``arch`` served at full width and depth through the port's engine;
+    returns (launches, |kernel - plain| on the path's tensors by kernel,
+    the captured calls)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import model, ssm
+    from repro_torch.models import attention, model, ssm
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
 
-    cfg = get_config("mamba2-370m")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed=args.seed, device=dev)
     torch.cuda.synchronize()
-    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"vocab {cfg.vocab}, {model.param_count(params)} parameters in "
-        f"{cfg.dtype}, drawn on the card in "
+    n_params = model.param_count(params)
+    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {cfg.meta_tokens} meta tokens, {n_params} "
+        f"parameters in {cfg.dtype}, drawn on the card in "
         f"{time.perf_counter() - t0:.2f}s")
-    scfg = ServeConfig(max_len=SERVE_PROMPT + SERVE_NEW,
-                       max_new_tokens=SERVE_NEW, cache_dtype=cfg.dtype)
+    if arch == "hymba-1.5b" and n_params != HYMBA_PARAMS:
+        raise AssertionError(f"{n_params} parameters, the reference has "
+                             f"{HYMBA_PARAMS}")
+    max_len = cfg.meta_tokens + SERVE_PROMPT + SERVE_NEW
+    scfg = ServeConfig(max_len=max_len, max_new_tokens=SERVE_NEW,
+                       cache_dtype=cfg.dtype)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
-    # warm-up at a short prompt: library handles, the kernel's attributes
-    ServeEngine(cfg, params, ServeConfig(max_len=256, max_new_tokens=2),
+    # warm-up at a short prompt: library handles, the kernels' attributes
+    ServeEngine(cfg, params, ServeConfig(max_len=max_len, max_new_tokens=2),
                 device=dev).generate({"tokens": prompts[:, :128]})
     engine = ServeEngine(cfg, params, scfg, device=dev)
     counters = _launch_counters()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    cap = Capture(((ssm, "ssd_fused"),))
+    cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
+                  key=_flash_key)
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -444,25 +535,32 @@ def phase_serve(args, dev):
               if e.kind == KIND_PREFILL]
     dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
               if e.kind == KIND_DECODE]
-    log(f"serve: launches {launches}")
-    if launches["ssd_fused"] != cfg.n_layers:
-        raise AssertionError(f"the prefill launched ssd_fused "
-                             f"{launches['ssd_fused']} times, expected one "
-                             f"per layer ({cfg.n_layers})")
+    log(f"{tag}: launches {launches}")
+    for name, want in _expected_launches(cfg).items():
+        if launches[name] != want:
+            raise AssertionError(f"the prefill launched {name} "
+                                 f"{launches[name]} times, expected one per "
+                                 f"layer that runs it ({want})")
     if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
 
-    c_args, c_kw = cap.calls["ssd_fused"]
-    err = ssd_err(ssm.ssd_fused(*c_args, **c_kw),
-                  _plain("ssd_fused")(*c_args, **c_kw))
+    errs = {}
+    for key, (c_args, c_kw) in cap.calls.items():
+        name = key.split("/")[0]
+        check = ssd_err if name == "ssd_fused" else flash_err
+        err = check(_launch_counters()[name](*c_args, **c_kw),
+                    _plain(name)(*c_args, **c_kw))
+        log(f"{tag}: {key} on the path's own inputs "
+            f"{[tuple(a.shape) for a in c_args if hasattr(a, 'shape')]} "
+            f"{c_kw}: largest |kernel - plain| {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
 
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
     with torch.inference_mode():
-        lg_k, _, _ = model.prefill(cfg, params, batch, scfg.max_len,
-                                   cfg.dtype)
+        lg_k, _, _ = model.prefill(cfg, params, batch, max_len, cfg.dtype)
         with _Plain():
-            lg_p, _, _ = model.prefill(cfg, params, batch, scfg.max_len,
+            lg_p, _, _ = model.prefill(cfg, params, batch, max_len,
                                        cfg.dtype)
     with _Plain():
         tokens_p = ServeEngine(cfg, params, scfg, device=dev).generate(
@@ -470,8 +568,7 @@ def phase_serve(args, dev):
     if not (bool(torch.isfinite(lg_k).all()) and
             tuple(lg_k.shape) == (SERVE_BATCH, cfg.vocab)):
         raise AssertionError("kernel logits not finite or misshapen")
-    d = (lg_k - lg_p).abs()
-    d_max, d_mean = float(d.max()), float(d.mean())
+    d_max, d_mean = _logit_gap(lg_k, lg_p)
     top2 = lg_p.topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
     first_k, first_p = lg_k.argmax(-1).cpu().numpy(), \
@@ -480,29 +577,30 @@ def phase_serve(args, dev):
         raise AssertionError("the engine's first tokens differ from its "
                              "own prefill's")
     bad = (first_k != first_p) & (gap >= LOGIT_MAX_TOL)
-    log(f"serve: last-token logits |kernel - plain| max {d_max:.6f}, mean "
+    log(f"{tag}: last-token logits |kernel - plain| max {d_max:.6f}, mean "
         f"{d_mean:.6f} (tolerance {LOGIT_MAX_TOL} / {LOGIT_MEAN_TOL}); "
         f"plain top-2 gaps {np.round(gap, 4).tolist()}")
     if d_max > LOGIT_MAX_TOL or d_mean > LOGIT_MEAN_TOL or bad.any():
         raise AssertionError("kernel and plain prefill disagree")
     agree = int((tokens == tokens_p).sum())
-    summary = (f"serve: batch {SERVE_BATCH} x prompt {SERVE_PROMPT} + "
-               f"{SERVE_NEW} new tokens; prefill {pre_ms[0]:.3f} ms, "
-               f"decode median {float(np.median(dec_ms)):.3f} ms/token "
-               f"(min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
-               f"{len(dec_ms)} steps); peak memory "
-               f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB live "
-               f"before); first tokens equal {int((first_k == first_p).sum())}"
-               f"/{SERVE_BATCH}; kernel and plain generations agree on "
-               f"{agree}/{tokens.size} tokens")
-    log(summary)
+    log(f"{tag}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT} + "
+        f"{SERVE_NEW} new tokens; prefill {pre_ms[0]:.3f} ms, "
+        f"decode median {float(np.median(dec_ms)):.3f} ms/token "
+        f"(min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
+        f"{len(dec_ms)} steps); peak memory "
+        f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB live "
+        f"before); first tokens equal {int((first_k == first_p).sum())}"
+        f"/{SERVE_BATCH}; kernel and plain generations agree on "
+        f"{agree}/{tokens.size} tokens")
+    if cfg.meta_tokens:
+        _continuation(cfg, params, dev, args.seed, tag)
 
     # where the serving time goes on the device: kernel time by name under
     # torch.profiler, for one prefill and for 8 decode steps
     with torch.inference_mode():
         pre = _device_profile(lambda: model.prefill(
-            cfg, params, batch, scfg.max_len, cfg.dtype))
-        lg, caches, index = model.prefill(cfg, params, batch, scfg.max_len,
+            cfg, params, batch, max_len, cfg.dtype))
+        lg, caches, index = model.prefill(cfg, params, batch, max_len,
                                           cfg.dtype)
         tok = [lg.argmax(-1)[:, None]]
 
@@ -515,14 +613,46 @@ def phase_serve(args, dev):
     for name, (wall, busy, top), per in (("prefill", pre, 1),
                                          ("decode", dec, 8)):
         if busy is None:
-            log(f"serve profile {name}: device time not measured (the "
+            log(f"{tag} profile {name}: device time not measured (the "
                 "profiler saw no CUDA kernel)")
             continue
-        log(f"serve profile {name}: device kernels {busy / per:.3f} ms per "
+        log(f"{tag} profile {name}: device kernels {busy / per:.3f} ms per "
             f"step, host wall {wall / per:.3f} ms per step under the "
             f"profiler; largest: " + "; ".join(
                 f"{n} {ms / per:.3f} ms x{c // per}" for n, ms, c in top))
-    return launches, err, (c_args, c_kw)
+    return launches, errs, cap.calls
+
+
+def _logit_gap(a, b):
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _continuation(cfg, params, dev, seed, tag):
+    """prefill(N - 1) + one decode step against prefill(N) on the card,
+    at a prompt whose meta + text positions pass the attention window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model
+
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (CONT_BATCH, CONT_PROMPT)), device=dev)
+    max_len = cfg.meta_tokens + CONT_PROMPT
+    with torch.inference_mode():
+        lg_full, _, _ = model.prefill(cfg, params, {"tokens": toks},
+                                      max_len, cfg.dtype)
+        _, caches, idx = model.prefill(cfg, params,
+                                       {"tokens": toks[:, :-1]}, max_len,
+                                       cfg.dtype)
+        lg, _ = model.decode_step(cfg, params, toks[:, -1:], caches, idx)
+    d_max, d_mean = _logit_gap(lg, lg_full)
+    log(f"{tag}: continuation at batch {CONT_BATCH}, {cfg.meta_tokens} meta"
+        f" + {CONT_PROMPT} prompt positions: prefill(N-1) + decode vs "
+        f"prefill(N) logits max {d_max:.6f}, mean {d_mean:.6f}")
+    if not bool(torch.isfinite(lg).all()) or d_max > LOGIT_MAX_TOL or \
+            d_mean > LOGIT_MEAN_TOL:
+        raise AssertionError("decode does not continue the prefill")
 
 
 def _device_profile(fn):
@@ -551,6 +681,7 @@ def _device_profile(fn):
 
 def _plain(name):
     from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
     from repro_torch.kernels.ssd import ops as sd
@@ -559,7 +690,8 @@ def _plain(name):
             "histbin_flat": hb.histbin_flat_plain,
             "histbin": hb.histbin_plain,
             "iqr_fences": iq.iqr_fences_plain,
-            "ssd_fused": sd.ssd_fused_plain}[name]
+            "ssd_fused": sd.ssd_fused_plain,
+            "flash_attention": fa.flash_attention_plain}[name]
 
 
 def _ts_inputs(flat_args, n_bins):
@@ -702,22 +834,74 @@ def phase_times(shapes):
                [out], [ts, vals, valid], (6 if name == "binstats" else 4)
                * vals.numel())
 
-    # ssd: the serving path's first-layer call. Bound: its own inputs read
-    # and outputs written once, or 2q^2 N + 2q^2 P + 4qNP FLOP per (head,
-    # chunk) on the bfloat16 tensor cores; no single PyTorch call computes
-    # the scan, so there is no yardstick.
-    c_args, c_kw = shapes["ssd_fused"]
-    xs, B = c_args[0], c_args[3]
-    b, s, H, P = xs.shape
-    N, q = B.shape[3], c_kw["chunk"]
-    flops = b * H * (-(-s // q)) * (2 * q * q * N + 2 * q * q * P
-                                    + 4 * q * N * P)
-    out = counters["ssd_fused"](*c_args, **c_kw)
-    record("ssd_fused", lambda: counters["ssd_fused"](*c_args, **c_kw),
-           lambda: _plain("ssd_fused")(*c_args, **c_kw), None, list(out),
-           list(c_args), flops, BF16_OPS_PER_S)
-    rows["ssd_fused"]["fp32_floor_ms"] = flops / FP32_OPS_PER_S * 1e3
+    # ssd: the serving paths' first-layer calls (mamba2, hymba). Bound:
+    # its own inputs read and outputs written once, or 2q^2 N + 2q^2 P +
+    # 4qNP FLOP per (head, chunk) on the bfloat16 tensor cores; no single
+    # PyTorch call computes the scan, so there is no yardstick.
+    for row in ("ssd_fused", "ssd_fused/hymba"):
+        c_args, c_kw = shapes[row]
+        xs, B = c_args[0], c_args[3]
+        b, s, H, P = xs.shape
+        N, q = B.shape[3], c_kw["chunk"]
+        flops = b * H * (-(-s // q)) * (2 * q * q * N + 2 * q * q * P
+                                        + 4 * q * N * P)
+        out = counters["ssd_fused"](*c_args, **c_kw)
+        record(row, lambda a=c_args, k=c_kw: counters["ssd_fused"](*a, **k),
+               lambda a=c_args, k=c_kw: _plain("ssd_fused")(*a, **k), None,
+               list(out), list(c_args), flops, BF16_OPS_PER_S)
+        rows[row]["fp32_floor_ms"] = flops / FP32_OPS_PER_S * 1e3
+
+    # flash_attention: hymba's first window-1024 call (29 of the 32 per
+    # prefill) and its first global call. Bound: q, k, v read and o
+    # written once, or 4 hd FLOP per visible (query, key) pair on the
+    # tensor cores of the inputs' type; yardstick: one SDPA call with
+    # grouped KV heads (an explicit boolean mask for the window).
+    for row in ("flash_attention/window", "flash_attention/global"):
+        (q, k, v), c_kw = shapes[row]
+        b, s, H, hd = q.shape
+        causal, window = c_kw.get("causal", True), c_kw.get("window", 0)
+        flops = b * H * _visible_pairs(s, causal, window) * 4 * hd
+        out = counters["flash_attention"](q, k, v, **c_kw)
+        lib = _sdpa(q, k, v, causal, window)
+        plain_out = _plain("flash_attention")(q, k, v, **c_kw)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - plain_out.float()).abs().max())
+        del plain_out
+        log(f"times: {row}: SDPA yardstick vs plain, largest |diff| "
+            f"{lib_err}")
+        record(row, lambda: counters["flash_attention"](q, k, v, **c_kw),
+               lambda: _plain("flash_attention")(q, k, v, **c_kw), lib,
+               [out], [q, k, v], flops,
+               BF16_OPS_PER_S if q.dtype == torch.bfloat16
+               else FP32_OPS_PER_S)
+        rows[row]["fp32_floor_ms"] = flops / FP32_OPS_PER_S * 1e3
+    rows["flash_attention"] = rows["flash_attention/window"]
     return rows
+
+
+def _visible_pairs(s, causal, window):
+    """(query, key) pairs the masks leave visible in one (batch, head)."""
+    import numpy as np
+    i = np.arange(s)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _sdpa(q, k, v, causal, window):
+    """One torch.nn.functional.scaled_dot_product_attention call on the
+    same inputs (a timing yardstick only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(q.shape[1], device=q.device)[None, :]
+    mask = (i - j < window) & ((i >= j) if causal else True)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 SOURCES = {
@@ -733,7 +917,12 @@ SOURCES = {
                    "src/repro/kernels/iqr/kernel.py:72"),
     "ssd_fused": ("src/repro_torch/csrc/ssd.cu",
                   "src/repro/kernels/ssd/kernel.py:39"),
+    "flash_attention": ("src/repro_torch/csrc/flashattn.cu",
+                        "src/repro/kernels/flashattn/kernel.py:30"),
 }
+# the kernels timed at a second call of a path, reported beside the first
+ALSO = {"ssd_fused": "ssd_fused/hymba",
+        "flash_attention": "flash_attention/global"}
 
 
 def main() -> int:
@@ -742,6 +931,7 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--duration", type=float, default=120.0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     try:
         import torch
@@ -781,28 +971,50 @@ def main() -> int:
         phase_delta(args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    serve_launches, errs["ssd_fused"], shapes["ssd_fused"] = \
-        phase_serve(args, dev)
+    serve_launches, serve_errs, calls = phase_serve(args, dev,
+                                                    "mamba2-370m", "serve")
     launches["ssd_fused"] = serve_launches["ssd_fused"]
+    errs["ssd_fused"] = serve_errs["ssd_fused"]
+    shapes["ssd_fused"] = calls["ssd_fused"]
+    del calls
+    h_launches, h_errs, h_calls = phase_serve(args, dev, "hymba-1.5b",
+                                              "serve-hymba")
+    launches["flash_attention"] = h_launches["flash_attention"]
+    launches["ssd_fused/hymba"] = h_launches["ssd_fused"]
+    errs["flash_attention"] = h_errs["flash_attention"]
+    errs["ssd_fused"] = max(errs["ssd_fused"], h_errs["ssd_fused"])
+    shapes["ssd_fused/hymba"] = h_calls["ssd_fused"]
+    for key in ("flash_attention/window", "flash_attention/global"):
+        shapes[key] = h_calls[key]
+    del h_calls
     times = phase_times(shapes)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         t = times[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name],
-            "max_abs_err": max(errs[name], edge[name]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": tpu, "launches": launches[name],
+               "max_abs_err": max(errs[name], edge[name]),
+               **{k: t[k] for k in keys}}
+        if name in ALSO:
+            also = ALSO[name]
+            row["also"] = {also: {
+                "launches": launches.get(also, launches[name]),
+                **{k: times[also][k] for k in keys}}}
+        kernels.append(row)
+    for name, t in times.items():
+        if name == "flash_attention":
+            continue                   # the same row as its window call
         floor = (f", fp32 CUDA-core floor {t['fp32_floor_ms']:.4f}"
                  if "fp32_floor_ms" in t else "")
         log(f"time {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
             f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
             f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
             f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), "
-            f"{launches[name]} launch(es) on its path [{card}]")
+            f"{launches.get(name, launches[name.split('/')[0]])} launch(es) "
+            f"of {name.split('/')[0]} on its path [{card}]")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ from ..models.model import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_NAMES: List[str] = list(_MODULES)

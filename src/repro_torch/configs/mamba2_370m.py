@@ -18,7 +18,7 @@ def config() -> ModelConfig:
         d_ff=0)
     return ModelConfig(
         name="mamba2-370m", d_model=1024, vocab=50280,
-        plan=((spec, 48),))
+        plan=((spec, 48),), long_context=True)
 
 
 def smoke_config() -> ModelConfig:
@@ -29,4 +29,4 @@ def smoke_config() -> ModelConfig:
         d_ff=0)
     return ModelConfig(
         name="mamba2-smoke", d_model=64, vocab=128,
-        plan=((spec, 3),), dtype=torch.float32)
+        plan=((spec, 3),), long_context=True, dtype=torch.float32)

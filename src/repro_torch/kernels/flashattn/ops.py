@@ -1,0 +1,144 @@
+"""Online-softmax attention: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Both take the model's layout (``repro/kernels/flashattn/ops.py``)::
+
+    q (b, s, H, hd), k and v (b, s, Hkv, hd), H a multiple of Hkv
+
+and return ``(b, s, H, hd)`` in q's dtype. Query head ``h`` reads KV head
+``h // (H // Hkv)``. Key ``j`` is visible to query ``i`` iff ``i >= j``
+when ``causal`` and ``i - j < window`` when ``window > 0``; a row that
+sees no key gives 0. ``scale`` defaults to ``hd ** -0.5``.
+
+:func:`flash_attention` given CPU tensors runs
+:func:`flash_attention_plain`; given CUDA tensors it launches the kernel
+(source ``repro_torch/csrc/flashattn.cu``) on q, k and v as they lie, through
+their strides, or raises. ``flash_attention.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .._check import stream_ptr
+
+MAX_HEAD_DIM = 128    # the kernel's limits (csrc/flashattn.cu)
+ALIGN = 8             # elements: hd and every stride, 16-byte loads
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-d (b, s, heads, head_dim)")
+    b, s, H, hd = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"{H} query heads do not split over {k.shape[2]} "
+                         "KV heads")
+
+
+def _scale(hd: int, scale: Optional[float]) -> float:
+    return hd ** -0.5 if scale is None else float(scale)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`, on any device: the dense
+    masked softmax of ``repro/kernels/flashattn/ref.py`` in float32, with
+    the KV heads expanded to the query heads."""
+    _check_shapes(q, k, v)
+    s, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    g = H // k.shape[2]
+    f32 = torch.float32
+    kf = k.to(f32).repeat_interleave(g, dim=2)
+    vf = v.to(f32).repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kf) * _scale(hd,
+                                                                     scale)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i >= j
+    if window > 0:
+        mask &= (i - j) < window
+    logits = logits.masked_fill_(~mask, -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    del logits
+    p = p.masked_fill_(~mask, 0.0)
+    p = p.div_(p.sum(-1, keepdim=True).clamp_min_(1e-20))
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Causal / sliding-window attention with grouped KV heads (the TPU
+    kernel's contract, ``repro/kernels/flashattn/ops.py::flash_attention``,
+    with the KV heads grouped instead of expanded).
+
+    The kernel takes bfloat16 or float32 q, k and v of one dtype, a head
+    dimension that is a multiple of 8 up to 128, a contiguous last
+    dimension, other strides that are multiples of 8 and 16-byte aligned
+    data; it raises on anything else."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_shapes(q, k, v)
+    b, s, H, hd = q.shape
+    Hkv = k.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q/k/v dtype {q.dtype}/{k.dtype}/{v.dtype}: the "
+                        "kernel takes one of bfloat16 or float32")
+    if hd > MAX_HEAD_DIM or hd % ALIGN:
+        raise ValueError(f"head_dim {hd}: the kernel takes a multiple of "
+                         f"{ALIGN} up to {MAX_HEAD_DIM}")
+    if s < 1 or b < 1:
+        raise ValueError("flash_attention: empty batch or sequence")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, expected {q.device}")
+        if t.stride(3) != 1 or any(st % ALIGN for st in t.stride()[:3]):
+            raise ValueError(f"{name}: strides {t.stride()}: the kernel "
+                             f"takes a contiguous head_dim and other strides "
+                             f"that are multiples of {ALIGN}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data not 16-byte aligned")
+    lib = _lib()
+    out = torch.empty((b, s, H, hd), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_long * 9)(*q.stride()[:3], *k.stride()[:3],
+                                  *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        code = lib.flash_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), int(q.dtype == torch.bfloat16),
+                              b, s, H, Hkv, hd, strides, _scale(hd, scale),
+                              int(causal), int(window), stream_ptr(q.device))
+    flash_attention.launches += 1
+    _build.check(code, "flash_attention")
+    return out
+
+
+flash_attention.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flashattn")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attn.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                   ctypes.POINTER(ctypes.c_long),
+                                   ctypes.c_float, i, i, p]
+        lib.flash_attn.restype = i
+        lib._typed = True
+    return lib

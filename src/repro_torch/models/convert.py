@@ -4,8 +4,10 @@
 with every leaf a numpy array (``jax.tree.map(np.asarray, params)``),
 each segment's layers stacked on a leading axis, and returns the port's
 parameters for the same :class:`~repro_torch.models.model.ModelConfig`:
-the segments unstacked into lists of per-layer dictionaries, every
-matrix in ``cfg.dtype`` and every vector in float32 (the types each
+the segments unstacked into lists of per-layer dictionaries (a hybrid
+layer's ``attn``, ``ssm``, ``ffn``, norms and gains alike), every matrix
+in ``cfg.dtype`` (``meta_tokens`` too, as the reference's
+``cast_params`` casts it) and every vector in float32 (the types each
 reference use site casts to). Nothing of JAX is imported: the input is
 numpy.
 """

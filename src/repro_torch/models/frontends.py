@@ -15,9 +15,11 @@ def embed_tokens(params, tokens: torch.Tensor,
     return table[tokens.to(device=table.device, dtype=torch.long)].to(dtype)
 
 
-def assemble(cfg, params, batch: Dict) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B, S_total, D), prefix_len): ``prefix_len`` counts the
-    meta-token positions that come before the text."""
+def assemble(cfg, params, batch: Dict,
+             ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Returns (x (B, S_total, D), positions (1, S_total), prefix_len):
+    ``prefix_len`` counts the meta-token positions that come before the
+    text, and the positions count them too."""
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"frontend {cfg.frontend!r} is not ported yet (ROADMAP Queue 1: "
@@ -28,4 +30,5 @@ def assemble(cfg, params, batch: Dict) -> Tuple[torch.Tensor, int]:
         meta = params["meta_tokens"].to(cfg.dtype)
         x = torch.cat([meta[None].expand(x.shape[0], -1, -1), x], dim=1)
         prefix = cfg.meta_tokens
-    return x, prefix
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return x, positions, prefix

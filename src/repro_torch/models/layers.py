@@ -1,16 +1,20 @@
-"""Common model primitives: initialisers and norms.
+"""Common model primitives: initialisers, norms, activations, rotary
+position embeddings and the dense FFN.
 
 Initialisers draw from an explicit :class:`torch.Generator` on the
 target device. Norms compute in float32 and cast back to the input's
-dtype, as ``repro/models/layers.py`` does.
+dtype, and RoPE rotates in float32 and casts back, as
+``repro/models/layers.py`` does. The FFN's products stay in the input's
+dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def truncated_normal(shape: Sequence[int], scale: float, *,
@@ -56,3 +60,85 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = xf.var(-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+# --- activations -------------------------------------------------------------
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    """Primer / Nemotron-4 activation: relu(x)^2."""
+    r = F.relu(x)
+    return r * r
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's default
+    "relu": F.relu,
+    "relu2": squared_relu,
+}
+
+
+# --- rotary position embeddings ----------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               rotary_dim: Optional[int] = None,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """Inverse frequencies (float32) for the rotated sub-dimension."""
+    rd = rotary_dim or head_dim
+    return 1.0 / (theta ** (torch.arange(0, rd, 2, dtype=torch.float32,
+                                         device=device) / rd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0,
+               rotary_fraction: float = 1.0) -> torch.Tensor:
+    """Standard (optionally partial) RoPE.
+
+    x: (..., S, H, head_dim); positions: broadcastable to (..., S).
+    ``rotary_fraction < 1`` rotates only the leading fraction of head_dim;
+    the tail passes through unchanged."""
+    head_dim = x.shape[-1]
+    rd = int(head_dim * rotary_fraction)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    inv = rope_freqs(head_dim, theta, rd, x.device)            # (rd/2,)
+    ang = positions[..., None].to(torch.float32) * inv      # (..., S, rd/2)
+    sin = torch.sin(ang)[..., None, :]                   # (..., S, 1, rd/2)
+    cos = torch.cos(ang)[..., None, :]
+    r1, r2 = x[..., : rd // 2], x[..., rd // 2:rd]
+    out1 = r1 * cos - r2 * sin                                  # float32
+    out2 = r2 * cos + r1 * sin
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), x[..., rd:]],
+                     dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE comes with the VLM slice."""
+    raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1: "
+                              "the remaining model families, VLM)")
+
+
+# --- ffn ---------------------------------------------------------------------
+
+def ffn_init(d_model: int, d_ff: int, gated: bool, *,
+             generator: torch.Generator, device: torch.device) -> Dict:
+    kw = {"generator": generator, "device": device}
+    p = {"w_up": dense_init((d_model, d_ff), **kw),
+         "w_down": dense_init((d_ff, d_model), fan_in=d_ff, **kw)}
+    if gated:
+        p["w_gate"] = dense_init((d_model, d_ff), **kw)
+    return p
+
+
+def ffn_apply(params, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    act = ACTIVATIONS[activation]
+    dt = x.dtype
+    up = x @ params["w_up"].to(dt)
+    if "w_gate" in params:
+        h = act(x @ params["w_gate"].to(dt)) * up
+    else:
+        h = act(up)
+    return h @ params["w_down"].to(dt)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from .frontends import assemble, embed_tokens
@@ -42,7 +43,9 @@ class ModelConfig:
     meta_tokens: int = 0               # hymba learnable prefix
     frontend: str = "none"             # none | audio | vlm
     dtype: torch.dtype = torch.bfloat16
+    # documentation-only flags, as in the reference:
     decode_supported: bool = True      # False: encoder-only
+    long_context: bool = False         # sub-quadratic decode at 500k?
 
     @property
     def n_layers(self) -> int:
@@ -103,10 +106,11 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict,
                    mode: str = "train", caches: Optional[List] = None,
                    ) -> Tuple[torch.Tensor, Optional[List], int]:
     """Trunk forward. Returns (h, new_caches, prefix_len)."""
-    x, prefix = assemble(cfg, params, batch)
+    x, positions, prefix = assemble(cfg, params, batch)
     new_caches: List[Any] = []
     for i, (spec, _) in enumerate(cfg.plan):
-        x, c = segment_forward(params["segments"][i], x, spec, mode,
+        x, c = segment_forward(params["segments"][i], x, spec, positions,
+                               mode,
                                caches[i] if caches is not None else None)
         new_caches.append(c)
     h = _final_norm(cfg, params, x)
@@ -139,11 +143,49 @@ def logits_for(cfg: ModelConfig, params, h_last: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Union[str, torch.device] = "cuda") -> List:
-    """Per-segment lists of per-layer caches. SSM caches are O(1) in
-    context; ``max_len`` sizes the attention caches of later slices."""
+    """Per-segment lists of per-layer caches sized for ``max_len``
+    absolute positions (meta tokens + prompt + generated)."""
     dev = resolve_device(device)
-    return [[layer_init_cache(spec, batch, dtype, dev) for _ in range(count)]
-            for spec, count in cfg.plan]
+    return [[layer_init_cache(spec, batch, max_len, dtype, dev)
+             for _ in range(count)] for spec, count in cfg.plan]
+
+
+def _ring_from_prefill(entry: torch.Tensor, window: int) -> torch.Tensor:
+    """Full-sequence prefill K/V (B, S, ...) into the ring layout
+    attn_decode expects (slot = position % window)."""
+    s = entry.shape[1]
+    if s >= window:
+        return torch.roll(entry[:, s - window:], shifts=s % window, dims=1)
+    return _pad_positions(entry, window)
+
+
+def _pad_positions(entry: torch.Tensor, length: int) -> torch.Tensor:
+    """(B, S, ...) zero-padded along S to ``length``."""
+    s = entry.shape[1]
+    if s > length:
+        raise ValueError(f"{s} prefill positions do not fit a cache of "
+                         f"{length}: raise max_len")
+    pad = [0, 0] * (entry.dim() - 2) + [0, length - s]
+    return F.pad(entry, pad)
+
+
+def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
+                        dtype: torch.dtype) -> Dict:
+    """One layer's prefill cache entries (full-sequence) -> its decode
+    cache layout."""
+    out = {}
+    if "attn" in pre:
+        a = pre["attn"]
+        if spec.attn.window > 0:
+            w = min(spec.attn.window, max_len)
+            out["attn"] = {k: _ring_from_prefill(a[k].to(dtype), w)
+                           for k in ("k", "v")}
+        else:
+            out["attn"] = {k: _pad_positions(a[k].to(dtype), max_len)
+                           for k in ("k", "v")}
+    if "ssm" in pre:
+        out["ssm"] = pre["ssm"]        # states are already decode-shaped
+    return out
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
@@ -151,23 +193,25 @@ def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
             ) -> Tuple[torch.Tensor, List, int]:
     """Ingest the prompt. Returns (last-token logits, caches, next_index).
 
-    The SSM layers' prefill caches are already in the decode layout and
-    keep the reference's types (conv tails in the model dtype, states in
-    float32); ``max_len`` and ``cache_dtype`` size and type the attention
-    caches of later slices."""
-    h, caches, _ = forward_hidden(cfg, params, batch, "prefill")
+    ``max_len`` sizes the global attention caches (meta tokens + prompt +
+    generated positions); the attention caches take ``cache_dtype``, the
+    SSM caches keep the reference's types (conv tails in the model dtype,
+    states in float32)."""
+    h, pre, _ = forward_hidden(cfg, params, batch, "prefill")
+    caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype)
+               for c in seg] for (spec, _), seg in zip(cfg.plan, pre)]
     logits = logits_for(cfg, params, h[:, -1])
     return logits, caches, h.shape[1]     # meta/prefix included
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
                 caches: List, index: int) -> Tuple[torch.Tensor, List]:
-    """token (B, 1) int at absolute position ``index`` (which the SSM
-    layers do not need). Returns ((B, V) logits, caches); the caches are
-    updated in place."""
+    """token (B, 1) int at absolute position ``index`` (meta tokens
+    counted). Returns ((B, V) logits, caches); the caches are updated in
+    place."""
     h = embed_tokens(params, token, cfg.dtype)
     for i, (spec, _) in enumerate(cfg.plan):
-        h, caches[i] = segment_forward(params["segments"][i], h, spec,
-                                       "decode", caches[i])
+        h, caches[i] = segment_forward(params["segments"][i], h, spec, None,
+                                       "decode", caches[i], index)
     h = _final_norm(cfg, params, h)
     return logits_for(cfg, params, h[:, -1]), caches

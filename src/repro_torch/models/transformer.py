@@ -6,9 +6,14 @@ identical layers. The reference stacks a segment's parameters on a
 leading axis and runs ``jax.lax.scan``; here a segment is a list of
 per-layer parameter dictionaries walked by a Python loop.
 
-Only the ``ssm`` block (pre-norm mamba2 mixer, no FFN) is ported. The
-attention and hybrid blocks, MoE and the dense FFN come with the slices
-that need them (ROADMAP Queue 1) and raise until then.
+Block kinds:
+  attn    pre-norm attention (+ optional dense FFN sub-block)
+  ssm     pre-norm mamba2 mixer (mamba2: no FFN at all)
+  hybrid  hymba: attention and SSM heads run IN PARALLEL on the same
+          normed input; per-path output norms + learned gains, averaged.
+
+MoE comes with the slice of the models that use it (ROADMAP Queue 1) and
+raises until then.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .layers import layernorm, layernorm_init, rmsnorm, rmsnorm_init
+from .attention import (AttnConfig, attn_decode, attn_forward, attn_init,
+                        attn_init_cache, check_config)
+from .layers import (ffn_apply, ffn_init, layernorm, layernorm_init, rmsnorm,
+                     rmsnorm_init)
 from .ssm import SSMConfig, ssm_decode, ssm_forward, ssm_init, ssm_init_cache
 
 MODES = ("train", "prefill", "decode")
@@ -27,27 +35,36 @@ MODES = ("train", "prefill", "decode")
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     kind: str                        # "attn" | "ssm" | "hybrid"
-    attn: Optional[Any] = None
+    attn: Optional[AttnConfig] = None
     ssm: Optional[SSMConfig] = None
     moe: Optional[Any] = None
     d_ff: int = 0                    # dense FFN hidden (0 = no dense FFN)
+    activation: str = "silu"
+    gated: bool = True
     norm: str = "rmsnorm"            # rmsnorm | layernorm
+
+
+def _has_attn(spec: LayerSpec) -> bool:
+    return spec.kind in ("attn", "hybrid")
+
+
+def _has_ssm(spec: LayerSpec) -> bool:
+    return spec.kind in ("ssm", "hybrid")
 
 
 def check_spec(spec: LayerSpec) -> None:
     """Raise for the block kinds the port does not build yet."""
-    if spec.kind in ("attn", "hybrid"):
-        raise NotImplementedError(
-            f"{spec.kind!r} layers are not ported yet (ROADMAP Queue 1: "
-            "the hymba slice adds models/attention.py)")
-    if spec.kind != "ssm" or spec.ssm is None:
+    if spec.kind not in ("attn", "ssm", "hybrid"):
+        raise ValueError(f"unknown layer kind {spec.kind!r}")
+    if _has_attn(spec):
+        if spec.attn is None:
+            raise ValueError(f"layer kind {spec.kind!r} needs an AttnConfig")
+        check_config(spec.attn)
+    if _has_ssm(spec) and spec.ssm is None:
         raise ValueError(f"layer kind {spec.kind!r} needs an SSMConfig")
     if spec.moe is not None:
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
                                   "Queue 1: the remaining model families)")
-    if spec.d_ff > 0:
-        raise NotImplementedError("the dense FFN is not ported yet (ROADMAP "
-                                  "Queue 1: the hymba slice)")
 
 
 def _norm_init(spec: LayerSpec, d: int, device: torch.device):
@@ -60,37 +77,90 @@ def _norm(spec: LayerSpec, p, x):
     return layernorm(p, x) if spec.norm == "layernorm" else rmsnorm(p, x)
 
 
-# --- single layer -----------------------------------------------------------------
+# --- single layer ------------------------------------------------------------
 
 def layer_init(spec: LayerSpec, d_model: int, *,
                generator: torch.Generator, device: torch.device) -> Dict:
     check_spec(spec)
-    return {"norm1": _norm_init(spec, d_model, device),
-            "ssm": ssm_init(spec.ssm, generator=generator, device=device)}
+    kw = {"generator": generator, "device": device}
+    p: Dict[str, Any] = {"norm1": _norm_init(spec, d_model, device)}
+    if _has_attn(spec):
+        p["attn"] = attn_init(spec.attn, **kw)
+    if _has_ssm(spec):
+        p["ssm"] = ssm_init(spec.ssm, **kw)
+    if spec.kind == "hybrid":
+        # per-path output norms + learned per-channel gains (hymba fusion)
+        p["norm_attn"] = rmsnorm_init(d_model, device)
+        p["norm_ssm"] = rmsnorm_init(d_model, device)
+        p["gain_attn"] = torch.ones(d_model, dtype=torch.float32,
+                                    device=device)
+        p["gain_ssm"] = torch.ones(d_model, dtype=torch.float32,
+                                   device=device)
+    if spec.d_ff > 0:
+        p["norm2"] = _norm_init(spec, d_model, device)
+        p["ffn"] = ffn_init(d_model, spec.d_ff, spec.gated, **kw)
+    return p
+
+
+def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
+           cache, cache_index) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The sequence mixer part of a layer. Returns (y, new cache): the
+    prefill cache entries, the (in place) updated decode cache, or None
+    in train."""
+    ya = ys = None
+    new_cache: Dict[str, Any] = {}
+    if _has_attn(spec):
+        if mode == "decode":
+            ya, new_cache["attn"] = attn_decode(
+                params["attn"], x_n, cache["attn"], spec.attn, cache_index)
+        else:
+            ya, new_cache["attn"] = attn_forward(params["attn"], x_n,
+                                                 spec.attn, positions)
+    if _has_ssm(spec):
+        if mode == "decode":
+            ys, new_cache["ssm"] = ssm_decode(params["ssm"], x_n,
+                                              cache["ssm"], spec.ssm)
+        else:
+            ys, new_cache["ssm"] = ssm_forward(params["ssm"], x_n, spec.ssm)
+    out = new_cache if mode != "train" else None
+    if spec.kind != "hybrid":
+        return (ya if ys is None else ys), out
+    # hybrid (hymba): parallel attention + SSM heads, fused by normed mean
+    ya = rmsnorm(params["norm_attn"], ya) * params["gain_attn"].to(ya.dtype)
+    ys = rmsnorm(params["norm_ssm"], ys) * params["gain_ssm"].to(ys.dtype)
+    return 0.5 * (ya + ys), out
 
 
 def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
+                  positions: Optional[torch.Tensor] = None,
                   mode: str = "train", cache: Optional[Dict] = None,
+                  cache_index: Optional[int] = None,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Pre-norm residual layer. Returns (x, new_cache): the prefill cache
-    entries, the (in place) updated decode cache, or None in train."""
+    """Pre-norm residual layer (mixer, then the dense FFN if any).
+    Returns (x, new_cache)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    x_n = _norm(spec, params["norm1"], x)
-    if mode == "decode":
-        y, c = ssm_decode(params["ssm"], x_n, cache["ssm"], spec.ssm)
-    else:
-        y, c = ssm_forward(params["ssm"], x_n, spec.ssm)
-    return x + y, ({"ssm": c} if mode != "train" else None)
+    y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,
+                          positions, mode, cache, cache_index)
+    x = x + y
+    if "ffn" in params:
+        x = x + ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),
+                          spec.activation)
+    return x, new_cache
 
 
-def layer_init_cache(spec: LayerSpec, batch: int, dtype: torch.dtype,
-                     device: torch.device) -> Dict:
+def layer_init_cache(spec: LayerSpec, batch: int, max_len: int,
+                     dtype: torch.dtype, device: torch.device) -> Dict:
     check_spec(spec)
-    return {"ssm": ssm_init_cache(spec.ssm, batch, dtype, device)}
+    c: Dict[str, Any] = {}
+    if _has_attn(spec):
+        c["attn"] = attn_init_cache(spec.attn, batch, max_len, dtype, device)
+    if _has_ssm(spec):
+        c["ssm"] = ssm_init_cache(spec.ssm, batch, dtype, device)
+    return c
 
 
-# --- segments ---------------------------------------------------------------------
+# --- segments ----------------------------------------------------------------
 
 def segment_init(spec: LayerSpec, count: int, d_model: int, *,
                  generator: torch.Generator,
@@ -100,13 +170,16 @@ def segment_init(spec: LayerSpec, count: int, d_model: int, *,
 
 
 def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
+                    positions: Optional[torch.Tensor] = None,
                     mode: str = "train", caches: Optional[List] = None,
+                    cache_index: Optional[int] = None,
                     ) -> Tuple[torch.Tensor, Optional[List]]:
     """Run a segment's layers in order. Returns (x, per-layer caches),
     the caches None in train."""
     new_caches = []
     for i, layer_p in enumerate(params):
-        x, c = layer_forward(layer_p, x, spec, mode,
-                             caches[i] if caches is not None else None)
+        x, c = layer_forward(layer_p, x, spec, positions, mode,
+                             caches[i] if caches is not None else None,
+                             cache_index)
         new_caches.append(c)
     return x, (new_caches if mode != "train" else None)

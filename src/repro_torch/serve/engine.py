@@ -21,7 +21,7 @@ from ..telemetry import KIND_DECODE, KIND_PREFILL, TelemetryRecorder
 
 @dataclasses.dataclass
 class ServeConfig:
-    max_len: int = 4096
+    max_len: int = 4096          # absolute positions: meta + prompt + new
     max_new_tokens: int = 32
     cache_dtype: torch.dtype = torch.bfloat16
 
@@ -46,6 +46,14 @@ class ServeEngine:
         """Greedy-decode max_new_tokens for each request in the batch;
         ``batch["tokens"]`` is a (B, S) integer array or tensor."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        need = (self.cfg.meta_tokens + tokens.shape[1]
+                + self.scfg.max_new_tokens - 1)
+        if need > self.scfg.max_len:
+            raise ValueError(
+                f"max_len {self.scfg.max_len} does not cover {need} "
+                f"positions ({self.cfg.meta_tokens} meta + "
+                f"{tokens.shape[1]} prompt + {self.scfg.max_new_tokens - 1}"
+                " decoded)")
         with self.telemetry.timed(0, KIND_PREFILL, 0):
             logits, caches, index = prefill(
                 self.cfg, self.params, {"tokens": tokens},

@@ -164,3 +164,76 @@ def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
                       bc_dtype=torch.float16)
     with pytest.raises(TypeError):
         ssd_fused(*args, chunk=16)
+
+
+FLASH_SHAPES = [  # b, s, H, Hkv, hd, causal, window
+    (2, 37, 4, 4, 8, True, 0),       # s below one tile, H == Hkv
+    (2, 37, 5, 1, 64, True, 8),      # padded query rows see no real key
+    (1, 300, 10, 2, 64, True, 16),   # window below a tile, H / Hkv = 5
+    (1, 300, 8, 1, 128, False, 0),   # non-causal, H / Hkv = 8, hd 128
+    (1, 300, 4, 2, 32, True, 500),   # window above s
+    (1, 130, 4, 4, 16, True, 1),     # each query sees only itself
+    (1, 1100, 5, 1, 64, True, 1024),  # hymba's heads and window
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_on_card(cuda, shape, dtype):
+    """Within rtol = atol = 2e-4 of the plain version in float32 (the
+    reference's own tolerance, tests/test_kernels.py); in bfloat16 both
+    round float32 results once, so they differ by at most one rounding
+    step (rtol 2^-7)."""
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    b, s, H, Hkv, hd, causal, window = shape
+    rng = np.random.default_rng(s + H)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(cuda, dtype) for n in (H, Hkv, Hkv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol = 2e-4 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=2e-4)
+
+
+def test_flash_attention_kernel_reads_strided_inputs(cuda):
+    """q, k and v as views of one fused projection (B, S, H + 2 Hkv, hd):
+    the kernel reads them through their strides, without copies."""
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.normal(size=(2, 200, 7, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :5], qkv[:, :, 5:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, window=64)
+    want = flash_attention_plain(q, k, v, window=64)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=2e-4)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.flashattn import flash_attention
+
+    def qkv(hd, H=2, Hkv=1, dtype=torch.float32):
+        return [torch.zeros(1, 16, n, hd, device=cuda, dtype=dtype)
+                for n in (H, Hkv, Hkv)]
+    for hd in (136, 12, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(*qkv(hd))
+    with pytest.raises(TypeError):
+        flash_attention(*qkv(64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="KV heads"):
+        flash_attention(*qkv(64, H=3, Hkv=2))
+    _, k, v = qkv(64)
+    q = torch.zeros(1, 16, 2, 128, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(q, k, v)

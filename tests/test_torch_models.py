@@ -3,9 +3,10 @@
 Weights come from the JAX package's ``init_params`` (or ``ssm_init``)
 and cross through ``repro_torch.models.convert``; inputs come from numpy
 seeds. Everything runs in float32 on the CPU, where the port's SSD scan
-takes its plain version. Tolerance: rtol = atol = 1e-4 on activations,
-logits and caches (float32 sums in another order; the SSD scan's own
-tolerance), unless a test states another. Generated tokens are equal.
+and attention take their plain versions. Tolerance: rtol = atol = 1e-4 on
+activations, logits and caches (float32 sums in another order; the SSD
+scan's own tolerance), unless a test states another. Generated tokens are
+equal. mamba2-370m and hymba-1.5b are the architectures ported so far.
 """
 
 import dataclasses
@@ -18,13 +19,15 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
+from repro.models import layers as ref_layers
 from repro.models import model as ref_model
 from repro.models import ssm as ref_ssm
 from repro.serve import ServeConfig as RefServeConfig
 from repro.serve import ServeEngine as RefServeEngine
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
-from repro_torch.models import model, ssm
+from repro_torch.models import attention, layers, model, ssm
 from repro_torch.models.convert import from_reference
+from repro_torch.models.frontends import assemble
 from repro_torch.models.transformer import LayerSpec, layer_init
 from repro_torch.serve import ServeConfig, ServeEngine
 
@@ -61,6 +64,15 @@ def _cut(cfg_ref, cfg, layers):
                                 dtype=jnp.float32),
             dataclasses.replace(cfg, plan=((spec, layers),),
                                 dtype=torch.float32))
+
+
+def _hymba_cut(cfg_ref, cfg):
+    """hymba with depth cut to its first global layer and one window
+    layer, float32 compute."""
+    plan_r = ((cfg_ref.plan[0][0], 1), (cfg_ref.plan[1][0], 1))
+    plan = ((cfg.plan[0][0], 1), (cfg.plan[1][0], 1))
+    return (dataclasses.replace(cfg_ref, plan=plan_r, dtype=jnp.float32),
+            dataclasses.replace(cfg, plan=plan, dtype=torch.float32))
 
 
 # --- SSM block --------------------------------------------------------------
@@ -194,6 +206,167 @@ def test_real_widths_two_layers_match_reference():
         _close(c["ssm"]["state"], caches_r[0]["ssm"]["state"][layer])
 
 
+# --- hymba: hybrid layers, attention caches, meta tokens ---------------------
+
+def _hymba_smoke(seed=0):
+    cfg_ref = ref_get_smoke_config("hymba-1.5b")
+    cfg = get_smoke_config("hymba-1.5b")
+    return (cfg_ref, cfg) + _pair(cfg_ref, cfg, seed)
+
+
+def _close_caches(caches, caches_r):
+    for seg, seg_r in zip(caches, caches_r):
+        for layer, c in enumerate(seg):
+            for part in c:
+                for k, v in c[part].items():
+                    _close(v, seg_r[part][k][layer])
+
+
+def test_hymba_prefill_and_decode_match_reference():
+    """The smoke hymba (global, 2 window-8 layers, global; 8 meta tokens)
+    prefilled with 13 prompt tokens, so the window layers' rings wrap,
+    then two decode steps: logits, the index (meta tokens counted) and
+    every cache."""
+    cfg_ref, cfg, params_ref, params = _hymba_smoke()
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 15))
+    lg_r, caches_r, idx_r = ref_model.prefill(
+        cfg_ref, params_ref, {"tokens": jnp.asarray(toks[:, :13], jnp.int32)},
+        max_len=32, cache_dtype=jnp.float32)
+    lg, caches, idx = model.prefill(
+        cfg, params, {"tokens": torch.from_numpy(toks[:, :13])}, max_len=32,
+        cache_dtype=torch.float32)
+    assert idx == int(idx_r) == 8 + 13
+    _close(lg, lg_r)
+    _close_caches(caches, caches_r)
+    assert tuple(caches[1][0]["attn"]["k"].shape) == (2, 8, 1, 8)
+    assert tuple(caches[0][0]["attn"]["k"].shape) == (2, 32, 1, 8)
+    for t in (13, 14):
+        lg_r, caches_r = ref_model.decode_step(
+            cfg_ref, params_ref, jnp.asarray(toks[:, t:t + 1], jnp.int32),
+            caches_r, idx_r + t - 13)
+        lg, caches = model.decode_step(
+            cfg, params, torch.from_numpy(toks[:, t:t + 1]), caches,
+            idx + t - 13)
+        _close(lg, lg_r)
+    _close_caches(caches, caches_r)
+
+
+@pytest.mark.parametrize("prompt", [4, 12])
+def test_hymba_decode_continues_a_prefill(prompt):
+    """prefill(N) + decode == prefill(N + 1) in the port: the meta-token
+    and ring bookkeeping (tests/test_serve.py's contract), before and
+    after the window-8 rings wrap (8 meta + 4 or 12 prompt positions)."""
+    _, cfg, _, params = _hymba_smoke(1)
+    toks = torch.from_numpy(np.random.default_rng(prompt).integers(
+        0, cfg.vocab, (2, prompt + 1)))
+    lg_full, _, _ = model.prefill(cfg, params, {"tokens": toks}, 64,
+                                  torch.float32)
+    _, caches, idx = model.prefill(cfg, params, {"tokens": toks[:, :-1]},
+                                   64, torch.float32)
+    lg, _ = model.decode_step(cfg, params, toks[:, -1:], caches, idx)
+    _close(lg, lg_full)
+
+
+def test_hymba_decode_from_an_empty_cache_matches_reference():
+    cfg_ref, cfg, params_ref, params = _hymba_smoke(3)
+    caches_r = ref_model.init_cache(cfg_ref, 1, 16, dtype=jnp.float32)
+    caches = model.init_cache(cfg, 1, 16, torch.float32, "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 10))
+    for t in range(10):          # past the window: the rings wrap
+        lg_r, caches_r = ref_model.decode_step(
+            cfg_ref, params_ref, jnp.asarray(toks[:, t:t + 1], jnp.int32),
+            caches_r, t)
+        lg, caches = model.decode_step(
+            cfg, params, torch.from_numpy(toks[:, t:t + 1]), caches, t)
+        _close(lg, lg_r)
+    _close_caches(caches, caches_r)
+
+
+def test_hymba_engine_tokens_match_reference():
+    cfg_ref, cfg, params_ref, params = _hymba_smoke(2)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 12))
+    want = RefServeEngine(cfg_ref, params_ref, RefServeConfig(
+        max_len=64, max_new_tokens=6, cache_dtype=jnp.float32)).generate(
+        {"tokens": jnp.asarray(toks, jnp.int32)})
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_len=64, max_new_tokens=6, cache_dtype=torch.float32),
+        device="cpu")
+    np.testing.assert_array_equal(eng.generate({"tokens": toks}),
+                                  np.asarray(want))
+    with pytest.raises(ValueError, match="does not cover"):
+        ServeEngine(cfg, params, ServeConfig(max_len=24, max_new_tokens=6),
+                    device="cpu").generate({"tokens": toks})
+
+
+def test_hymba_real_widths_two_layers_match_reference():
+    """hymba-1.5b's widths (d_model 1600, 25 heads over 5 KV heads of 64,
+    50 SSD heads, d_ff 5504, vocab 32001, 128 meta tokens) with depth cut
+    to its first global layer and one window-1024 layer: batch 1, a
+    1000-token prompt, so 1,128 positions pass the window."""
+    cfg_ref, cfg = _hymba_cut(ref_get_config("hymba-1.5b"),
+                              get_config("hymba-1.5b"))
+    params_ref, params = _pair(cfg_ref, cfg, seed=6)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (1, 1000))
+    lg_r, caches_r, idx_r = ref_model.prefill(
+        cfg_ref, params_ref, {"tokens": jnp.asarray(toks, jnp.int32)},
+        max_len=1136, cache_dtype=jnp.float32)
+    lg, caches, idx = model.prefill(cfg, params,
+                                    {"tokens": torch.from_numpy(toks)}, 1136,
+                                    torch.float32)
+    assert idx == int(idx_r) == 1128
+    assert tuple(lg.shape) == (1, 32001)
+    _close(lg, lg_r)
+    assert tuple(caches[1][0]["attn"]["k"].shape) == (1, 1024, 5, 64)
+    for seg in (0, 1):
+        for k in ("k", "v"):
+            _close(caches[seg][0]["attn"][k], caches_r[seg]["attn"][k][0])
+        _close(caches[seg][0]["ssm"]["state"],
+               caches_r[seg]["ssm"]["state"][0])
+
+
+def test_hymba_params_have_the_reference_structure():
+    """init_params builds the converter's tree for the bfloat16 hybrid
+    plan (attention, SSM, FFN, norms, gains, meta tokens), with the
+    reference's parameter count; the converter casts meta_tokens to the
+    model dtype as cast_params does."""
+    cfg_ref, cfg = _hymba_cut(ref_get_config("hymba-1.5b"),
+                              get_config("hymba-1.5b"))
+    cfg_ref = dataclasses.replace(cfg_ref, vocab=64)
+    cfg = dataclasses.replace(cfg, vocab=64, dtype=torch.bfloat16)
+    shapes = jax.eval_shape(lambda: ref_model.init_params(
+        cfg_ref, jax.random.PRNGKey(0)))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    want = from_reference(cfg, zeros, "cpu")
+    got = model.init_params(cfg, seed=0, device="cpu")
+
+    def sig(t):
+        if isinstance(t, dict):
+            return {k: sig(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [sig(v) for v in t]
+        return (tuple(t.shape), t.dtype)
+    assert sig(got) == sig(want)
+    assert model.param_count(got) == ref_model.param_count(shapes)
+    layer = got["segments"][0][0]
+    assert set(layer) == {"norm1", "attn", "ssm", "norm_attn", "norm_ssm",
+                          "gain_attn", "gain_ssm", "norm2", "ffn"}
+    assert layer["attn"]["wq"].shape == (1600, 25, 64)
+    assert layer["gain_attn"].dtype == torch.float32
+    assert got["meta_tokens"].dtype == want["meta_tokens"].dtype == \
+        torch.bfloat16
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu", "relu", "relu2"])
+@pytest.mark.parametrize("gated", [True, False])
+def test_ffn_matches_reference(activation, gated):
+    rng = np.random.default_rng(8)
+    p_ref = ref_layers.ffn_init(jax.random.PRNGKey(8), 16, 40, gated)
+    p = _torch_tree(_np_tree(p_ref))
+    x = rng.normal(size=(2, 5, 16)).astype(np.float32)
+    want = ref_layers.ffn_apply(p_ref, jnp.asarray(x), activation)
+    _close(layers.ffn_apply(p, torch.from_numpy(x), activation), want)
+
+
 # --- parameters, configs, layer kinds ----------------------------------------
 
 def test_init_params_has_the_reference_structure():
@@ -241,36 +414,92 @@ def test_converter_refuses_a_tree_of_another_plan():
                        tree, "cpu")
 
 
+def _fields(obj, cls):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
 def test_configs_match_reference():
-    assert ARCH_NAMES == ["mamba2-370m"]
-    for get, ref_get in ((get_config, ref_get_config),
-                         (get_smoke_config, ref_get_smoke_config)):
-        cfg, ref = get("mamba2-370m"), ref_get("mamba2-370m")
-        assert (cfg.name, cfg.d_model, cfg.vocab, cfg.n_layers) == \
-            (ref.name, ref.d_model, ref.vocab, ref.n_layers)
-        (spec, _), = cfg.plan
-        (spec_r, _), = ref.plan
-        fields = [f.name for f in dataclasses.fields(ssm.SSMConfig)]
-        assert {f: getattr(spec.ssm, f) for f in fields} == \
-            {f: getattr(spec_r.ssm, f) for f in fields}
-    assert get_config("mamba2-370m").dtype == torch.bfloat16
+    """Every field of the model config (but the dtype's type), of each
+    segment's LayerSpec and of its SSM and attention configs, and the
+    segment counts, for the full and the smoke config of each ported
+    architecture."""
+    assert ARCH_NAMES == ["mamba2-370m", "hymba-1.5b"]
+    for arch, get, ref_get in (
+            (arch, get, ref_get) for arch in ARCH_NAMES
+            for get, ref_get in ((get_config, ref_get_config),
+                                 (get_smoke_config, ref_get_smoke_config))):
+        cfg, ref = get(arch), ref_get(arch)
+        shared = [f.name for f in dataclasses.fields(model.ModelConfig)
+                  if f.name not in ("plan", "dtype")]
+        assert {f: getattr(cfg, f) for f in shared} == \
+            {f: getattr(ref, f) for f in shared}
+        assert str(cfg.dtype).split(".")[-1] == jnp.dtype(ref.dtype).name
+        assert cfg.n_layers == ref.n_layers
+        assert [c for _, c in cfg.plan] == [c for _, c in ref.plan]
+        for (spec, _), (spec_r, _) in zip(cfg.plan, ref.plan):
+            for f in ("kind", "d_ff", "activation", "gated", "norm"):
+                assert getattr(spec, f) == getattr(spec_r, f)
+            assert spec.moe is None and spec_r.moe is None
+            assert _fields(spec.ssm, ssm.SSMConfig) == \
+                _fields(spec_r.ssm, ssm.SSMConfig)
+            assert (spec.attn is None) == (spec_r.attn is None)
+            if spec.attn is not None:
+                assert _fields(spec.attn, attention.AttnConfig) == \
+                    _fields(spec_r.attn, attention.AttnConfig)
+        assert get_config(arch).dtype == torch.bfloat16
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("hymba-1.5b")
+        get_config("deepseek-v2-236b")
+
+
+_ATTN = attention.AttnConfig(d_model=16, n_heads=2, n_kv_heads=1,
+                             head_dim=8)
+_SSM = ssm.SSMConfig(d_model=16, d_state=8, head_dim=8, chunk=8)
 
 
 @pytest.mark.parametrize("spec,err", [
-    (LayerSpec(kind="attn"), NotImplementedError),
-    (LayerSpec(kind="hybrid"), NotImplementedError),
-    (LayerSpec(kind="ssm", ssm=ssm.SSMConfig(d_model=16), moe=object()),
-     NotImplementedError),
-    (LayerSpec(kind="ssm", ssm=ssm.SSMConfig(d_model=16), d_ff=32),
-     NotImplementedError),
+    (LayerSpec(kind="attn", attn=dataclasses.replace(_ATTN,
+                                                     kv_lora_rank=4)),
+     NotImplementedError),                                    # MLA
+    (LayerSpec(kind="hybrid", ssm=_SSM,
+               attn=dataclasses.replace(_ATTN, rope="mrope")),
+     NotImplementedError),                                    # M-RoPE
+    (LayerSpec(kind="ssm", ssm=_SSM, moe=object()), NotImplementedError),
+    (LayerSpec(kind="attn", attn=_ATTN, moe=object(), d_ff=32),
+     NotImplementedError),                                    # MoE
     (LayerSpec(kind="ssm"), ValueError),
+    (LayerSpec(kind="hybrid", ssm=_SSM), ValueError),         # no attn
 ])
 def test_unported_layer_kinds_raise(spec, err):
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(err):
         layer_init(spec, 16, generator=gen, device=CPU)
+
+
+@pytest.mark.parametrize("frontend", ["audio", "vlm"])
+def test_unported_frontends_raise(frontend):
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"),
+                              frontend=frontend)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        assemble(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
+
+
+@pytest.mark.parametrize("spec", [
+    LayerSpec(kind="attn", attn=_ATTN, d_ff=24),
+    LayerSpec(kind="ssm", ssm=_SSM, d_ff=24, gated=False,
+              activation="gelu"),
+], ids=["attn+ffn", "ssm+ffn"])
+def test_layers_that_now_build(spec):
+    """Attention blocks and the dense FFN build, with the reference's
+    parameter tree."""
+    gen = torch.Generator().manual_seed(0)
+    p = layer_init(spec, 16, generator=gen, device=CPU)
+    assert ("attn" in p) == (spec.kind == "attn")
+    assert set(p["ffn"]) == ({"w_up", "w_down", "w_gate"} if spec.gated
+                             else {"w_up", "w_down"})
+    x = torch.randn(2, 5, 16, generator=gen)
+    from repro_torch.models.transformer import layer_forward
+    y, cache = layer_forward(p, x, spec, mode="prefill")
+    assert y.shape == x.shape and set(cache) == {spec.kind}
 
 
 def test_serve_cli_on_the_host(capsys):
