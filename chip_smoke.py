@@ -19,8 +19,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              with window 0, windows of 1, 8 and 16 and one above S,
              non-causal, H / Hkv = 1, 5 and 8, hd 8, 32, 64 and 128, and
              S = 37 with window 8, whose padded query rows see no key,
-             in bfloat16 and float32);
-4. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
+             in bfloat16 and float32; rolling_stats at n = 1 with window
+             1, window 16 above n = 5, n = 1,000 with window 100, window
+             = n = 1,024, a ragged n = 2,049 with window 64, window 1,500
+             above the 1,024-output tile at n = 3,000, and window 1 at
+             n = 100, on normal and lognormal(10, 1) stall-like values);
+4. micro   — the calls of the reference's kernel micro-bench
+             (benchmarks/kernels_bench.py), with its seed, through the
+             port's entry points: binstats over 65,536 events into 512
+             bins, iqr_fences over 4,096 scores, rolling_stats over 32,768
+             values with window 64. The counters are zeroed just before
+             and read just after; each of the three must launch, and each
+             is held against its plain version on those tensors;
+5. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
              Table-1-sized synthetic trace (8 ranks x 105k kernels + 13.4k
              memcpys, 120 s, 10 ms bins x 4 devices, 3 metrics, moments +
              quantile sketch, p99 fences), backend "torch". The launch
@@ -30,9 +41,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              exact "serial" backend on the same store. The inputs each
              wrapper received are kept, and every kernel is then held
              against its plain version on exactly those tensors;
-5. delta   — a store grown by an append: the delta aggregation on the card
+6. stall   — rolling_stats with window 1,024 over each source rank's
+             memory-stall series of the main phase's trace, in start
+             order (8 ranks x 105,000 values): the series a Fig-1a user
+             smooths. The counters are zeroed just before and read just
+             after (8 launches); each call is held against the plain
+             version. The float32 drift of the reference oracle's formula
+             (one float32 prefix over the whole series) is printed beside;
+7. delta   — a store grown by an append: the delta aggregation on the card
              must equal a cold one bit for bit;
-6. serve   — mamba2-370m at full width and depth (48 layers, d_model
+8. serve   — mamba2-370m at full width and depth (48 layers, d_model
              1024, vocab 50280) in bfloat16, random weights drawn on the
              card from --seed, through ``ServeEngine.generate``: 8
              requests of 2048 prompt tokens, 32 new tokens each. The
@@ -44,7 +62,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              bfloat16 tolerance below) and first tokens. Device kernel
              time by name for one prefill and 8 decode steps is read
              with torch.profiler;
-7. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
+9. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
              3 global and 29 with window 1024, d_model 1600, vocab 32001,
              128 meta tokens) in bfloat16, random weights drawn on the card
              from --seed, through ``ServeEngine.generate``: 8 requests of
@@ -58,9 +76,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-8. times   — each kernel, its plain version and a one-call PyTorch
+10. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, timed with CUDA events at the
-             main path's shapes, beside the kernel's bound.
+             main path's shapes, beside the kernel's bound and the device
+             kernel time of a call under torch.profiler; binstats'
+             timestamp form and rolling_stats at the micro phase's calls,
+             rolling_stats also at one rank's stall series (105,000
+             values, window 1,024).
 
 Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
 rtol 1e-5 (atomics and summation order differ); histogram totals exact
@@ -71,7 +93,9 @@ rtol = atol = 2e-4 (the reference's own), bfloat16 one rounding step;
 serving logits, computed in bfloat16 through 48 (mamba2) or 32 (hymba)
 layers, max |kernel - plain| <= 0.5 and mean <= 0.05, and each request's
 first token equal unless the plain logits' top-2 gap is below 0.5; the
-same logits bound for hymba's decode continuation.
+same logits bound for hymba's decode continuation; rolling_stats, both
+columns, rtol 1e-4 and atol 1e-4 * max(1, max|x|) (the reference's
+rtol = atol = 1e-4, scaled for stall-magnitude values).
 
 The last two lines of standard output are a JSON ``kernels`` record and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card and the ``src/``
@@ -98,6 +122,7 @@ METRICS = ("k_stall", "m_duration", "m_bytes")
 RTOL = 1e-5
 SSD_TOL = 1e-4
 FLASH_TOL = 2e-4
+ROLLING_TOL = 1e-4
 BF16_RTOL = 2 ** -7
 LOGIT_MAX_TOL = 0.5
 LOGIT_MEAN_TOL = 0.05
@@ -115,6 +140,12 @@ FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, True, 0), (2, 37, 5, 1, 64, True, 8),
                      (1, 300, 4, 2, 32, True, 500),
                      (1, 130, 4, 4, 16, True, 1),
                      (1, 1100, 5, 5, 64, True, 1024))
+# n, window
+ROLLING_EDGE_SHAPES = ((1, 1), (5, 16), (1000, 100), (1024, 1024),
+                       (2049, 64), (3000, 1500), (100, 1))
+MICRO_EVENTS, MICRO_BINS, MICRO_SCORES = 65_536, 512, 4_096
+MICRO_SERIES, MICRO_WINDOW = 32_768, 64
+STALL_WINDOW = 1024
 
 
 def log(msg: str) -> None:
@@ -198,6 +229,25 @@ def flash_err(got, want) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def rolling_err(got, want, x) -> float:
+    """Raise unless two (N, 2) rolling (mean, std) tables agree within
+    rtol 1e-4 and atol 1e-4 * max(1, max|x|); return the largest absolute
+    difference."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"rolling: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.double().cpu(), want.double().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("rolling: non-finite values")
+    atol = ROLLING_TOL * max(1.0, float(x.abs().max()))
+    diff = (g - w).abs()
+    if bool((diff > atol + ROLLING_TOL * w.abs()).any()):
+        raise AssertionError(f"rolling differs: max abs {float(diff.max())}"
+                             f" (atol {atol})")
+    return float(diff.max())
+
+
 def iqr_err(got, want) -> float:
     import torch
     for key in ("sorted", "flags", "stats"):
@@ -227,6 +277,7 @@ def phase_kernels(dev):
     from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.rolling import ops as ro
     from repro_torch.kernels.ssd import ops as sd
 
     rng = np.random.default_rng(1)
@@ -282,8 +333,116 @@ def phase_kernels(dev):
             note("flash_attention", flash_err(
                 fa.flash_attention(q, k, v, **kw),
                 fa.flash_attention_plain(q, k, v, **kw)))
+    for n, window in ROLLING_EDGE_SHAPES:
+        for x in (rng.normal(0, 1, n), rng.lognormal(10, 1, n)):
+            x = torch.from_numpy(x.astype(np.float32)).to(dev)
+            note("rolling_stats", rolling_err(
+                ro.rolling_stats(x, window=window),
+                ro.rolling_stats_plain(x, window=window), x))
     torch.cuda.synchronize()
     return worst
+
+
+def phase_micro(dev):
+    """The reference micro-bench's calls (benchmarks/kernels_bench.py),
+    with its seed and draws in its order, through the port's entry points;
+    returns (launches, |kernel - plain| by kernel, the calls' tensors)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as K
+
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    ts = t(rng.uniform(0, 1e9, MICRO_EVENTS).astype(np.float32))
+    vals = t(rng.normal(100, 20, MICRO_EVENTS).astype(np.float32))
+    valid = torch.ones(MICRO_EVENTS, dtype=torch.bool, device=dev)
+    scores = t(np.abs(rng.normal(10, 4, MICRO_SCORES)).astype(np.float32))
+    occ = scores != 0
+    x = t(rng.normal(0, 1, MICRO_SERIES).astype(np.float32))
+    bs_kw = {"total_ns": 1e9, "n_bins": MICRO_BINS}
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    moments = K.binstats(ts, vals, valid, **bs_kw)
+    fences = K.iqr_fences(scores, occ)
+    stats = K.rolling_stats(x, window=MICRO_WINDOW)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"micro: launches {launches}")
+    for name in ("binstats", "iqr_fences", "rolling_stats"):
+        if launches[name] != 1:
+            raise AssertionError(f"the micro-bench call of {name} launched "
+                                 f"it {launches[name]} times, expected 1")
+    if moments.shape != (MICRO_BINS, 5) or int(moments[:, 0].sum()) != \
+            MICRO_EVENTS:
+        raise AssertionError("binstats: bad shape or lost events")
+    errs = {"binstats": moments_err(moments,
+                                    K.binstats_plain(ts, vals, valid,
+                                                     **bs_kw)),
+            "iqr_fences": iqr_err(fences, K.iqr_fences_plain(scores, occ)),
+            "rolling_stats": rolling_err(
+                stats, K.rolling_stats_plain(x, window=MICRO_WINDOW), x)}
+    log(f"micro: binstats {MICRO_EVENTS} events x {MICRO_BINS} bins, "
+        f"iqr_fences {MICRO_SCORES} scores (q1 {float(fences['q1']):.6f}, "
+        f"q3 {float(fences['q3']):.6f}, {int(fences['flags'].sum())} "
+        f"flags), rolling_stats {MICRO_SERIES} values window "
+        f"{MICRO_WINDOW}; largest |kernel - plain| {errs}")
+    shapes = {"binstats": ((ts, vals, valid), bs_kw),
+              "rolling_stats": (x, MICRO_WINDOW)}
+    return launches, errs, shapes
+
+
+def _oracle_f32(x, window):
+    """The reference oracle's formula as it computes it: one float32
+    prefix over the whole series (only to show its drift)."""
+    import torch
+    n = x.shape[0]
+    zero = x.new_zeros(1)
+    cs = torch.cat([zero, torch.cumsum(x, 0)])
+    cs2 = torch.cat([zero, torch.cumsum(x * x, 0)])
+    i = torch.arange(n, device=x.device)
+    lo = (i - window + 1).clamp_min(0)
+    n_eff = (i + 1).clamp_max(window).to(torch.float32)
+    mean = (cs[i + 1] - cs[lo]) / n_eff
+    var = ((cs2[i + 1] - cs2[lo]) / n_eff - mean * mean).clamp_min(0.0)
+    return torch.stack([mean, var.sqrt()], dim=1)
+
+
+def phase_stall(dev, stalls):
+    """rolling_stats(window=1024) over each rank's stall series; returns
+    (launches, |kernel - plain|, the first rank's call)."""
+    import torch
+
+    import repro_torch.kernels as K
+
+    xs = [torch.from_numpy(s).to(dev) for s in stalls]
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = [K.rolling_stats(x, window=STALL_WINDOW) for x in xs]
+    torch.cuda.synchronize()
+    launches = counters["rolling_stats"].launches
+    if launches != len(xs):
+        raise AssertionError(f"{len(xs)} stall series launched rolling_stats"
+                             f" {launches} times")
+    err, drift = 0.0, [0.0, 0.0]
+    for x, out in zip(xs, outs):
+        want = K.rolling_stats_plain(x, window=STALL_WINDOW)
+        err = max(err, rolling_err(out, want, x))
+        d = (_oracle_f32(x, STALL_WINDOW) - want).abs().amax(0) / \
+            x.abs().max()
+        drift = [max(a, float(b)) for a, b in zip(drift, d)]
+    log(f"stall: rolling_stats window {STALL_WINDOW} over {len(xs)} ranks x "
+        f"{xs[0].shape[0]} stall values (max {float(max(x.max() for x in xs))}"
+        f" ns), {launches} launches; largest |kernel - plain| {err}; the "
+        f"oracle's float32 formula drifts by max |dmean| / max|x| "
+        f"{drift[0]:.3e}, max |dstd| / max|x| {drift[1]:.3e}")
+    return launches, err, (xs[0], STALL_WINDOW)
 
 
 def _ssd_inputs(rng, shape, bc_dtype, dev):
@@ -348,11 +507,13 @@ def _launch_counters():
     from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.rolling import ops as ro
     from repro_torch.kernels.ssd import ops as sd
     return {"binstats_flat": bs.binstats_flat, "binstats": bs.binstats,
             "histbin_flat": hb.histbin_flat, "histbin": hb.histbin,
             "iqr_fences": iq.iqr_fences, "ssd_fused": sd.ssd_fused,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "rolling_stats": ro.rolling_stats}
 
 
 def phase_main(args, work):
@@ -443,7 +604,12 @@ def phase_main(args, work):
     torch.cuda.synchronize()
     shapes = {"binstats_flat": args_bs, "histbin_flat": args_hb,
               "iqr_fences": (args_iq, kw_iq), "ts": ts_args}
-    return launches, errs, shapes
+    # each source rank's kernel memory-stall durations (float32 ns) in
+    # start order, for the stall phase
+    stalls = [tr.kernels.memory_stall[np.argsort(tr.kernels.start,
+                                                 kind="stable")]
+              for tr in ds.traces]
+    return launches, errs, shapes, stalls
 
 
 class _Plain:
@@ -684,6 +850,7 @@ def _plain(name):
     from repro_torch.kernels.flashattn import ops as fa
     from repro_torch.kernels.histbin import ops as hb
     from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.kernels.rolling import ops as ro
     from repro_torch.kernels.ssd import ops as sd
     return {"binstats_flat": bs.binstats_flat_plain,
             "binstats": bs.binstats_plain,
@@ -691,7 +858,8 @@ def _plain(name):
             "histbin": hb.histbin_plain,
             "iqr_fences": iq.iqr_fences_plain,
             "ssd_fused": sd.ssd_fused_plain,
-            "flash_attention": fa.flash_attention_plain}[name]
+            "flash_attention": fa.flash_attention_plain,
+            "rolling_stats": ro.rolling_stats_plain}[name]
 
 
 def _ts_inputs(flat_args, n_bins):
@@ -785,7 +953,11 @@ def phase_times(shapes):
         nbytes = _nbytes(*inputs) + _nbytes(*out)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ops_per_s * 1e3
+        # device kernel time of one wrapper call, under torch.profiler:
+        # the part of "ms" that is not host time between launches
+        _, busy, _ = _device_profile(lambda: [call() for _ in range(20)])
         rows[name] = {
+            "device_ms": None if busy is None else busy / 20,
             "ms": _time_ms(call), "plain_ms": _time_ms(plain),
             "library_ms": None if library is None else _time_ms(library),
             "bound_ms": max(t_bytes, t_ops),
@@ -826,13 +998,43 @@ def phase_times(shapes):
            [res["sorted"], res["flags"], res["stats"]], [scores, occ],
            n_iqr * max(math.log2(n_iqr), 1.0))
 
-    (ts, vals, valid), kw = shapes["ts"]
-    for name in ("binstats", "histbin"):
+    # the timestamp forms: binstats at the micro-bench's call (its path),
+    # and both at the main path's rows binned by synthetic timestamps
+    for row, name, key in (("binstats", "binstats", "binstats"),
+                           ("binstats/table1", "binstats", "ts"),
+                           ("histbin", "histbin", "ts")):
+        (ts, vals, valid), kw = shapes[key]
         out = counters[name](ts, vals, valid, **kw)
-        record(name, lambda name=name: counters[name](ts, vals, valid, **kw),
-               lambda name=name: _plain(name)(ts, vals, valid, **kw), None,
-               [out], [ts, vals, valid], (6 if name == "binstats" else 4)
-               * vals.numel())
+        record(row, lambda n=name, a=(ts, vals, valid), k=kw:
+               counters[n](*a, **k),
+               lambda n=name, a=(ts, vals, valid), k=kw: _plain(n)(*a, **k),
+               None, [out], [ts, vals, valid],
+               (6 if name == "binstats" else 4) * vals.numel())
+
+    # rolling_stats: the micro-bench's call and one rank's stall series.
+    # Bound: x read and (N, 2) written once (12 N bytes), or about 10
+    # float32 operations per value; yardstick: the window sums of x and
+    # x^2 as one grouped conv1d with a ones filter (full float32, TF32
+    # off), which leaves out the division, the variance and the sqrt.
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for row in ("rolling_stats", "rolling_stats/stall"):
+            x, window = shapes[row]
+            out = counters["rolling_stats"](x, window=window)
+            lib = _window_sums(x, window)
+            want = _plain("rolling_stats")(x, window=window)
+            n_eff = torch.arange(1, x.shape[0] + 1, device=x.device
+                                 ).clamp_max(window)
+            lib_err = float((lib()[0, 0] / n_eff - want[:, 0]).abs().max())
+            log(f"times: {row}: conv1d yardstick's window mean vs plain, "
+                f"largest |diff| {lib_err}")
+            record(row, lambda x=x, w=window: counters["rolling_stats"](
+                x, window=w),
+                lambda x=x, w=window: _plain("rolling_stats")(x, window=w),
+                lib, [out], [x], 10 * x.numel())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
     # ssd: the serving paths' first-layer calls (mamba2, hymba). Bound:
     # its own inputs read and outputs written once, or 2q^2 N + 2q^2 P +
@@ -879,6 +1081,16 @@ def phase_times(shapes):
     return rows
 
 
+def _window_sums(x, window):
+    """One torch.nn.functional.conv1d call giving the trailing-window sums
+    of x and x^2 (a timing yardstick only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    xx = F.pad(torch.stack([x, x * x])[None], (window - 1, 0))
+    ones = torch.ones(2, 1, window, device=x.device)
+    return lambda: F.conv1d(xx, ones, groups=2)
+
+
 def _visible_pairs(s, causal, window):
     """(query, key) pairs the masks leave visible in one (batch, head)."""
     import numpy as np
@@ -919,10 +1131,13 @@ SOURCES = {
                   "src/repro/kernels/ssd/kernel.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flashattn.cu",
                         "src/repro/kernels/flashattn/kernel.py:30"),
+    "rolling_stats": ("src/repro_torch/csrc/rolling.cu",
+                      "src/repro/kernels/rolling/kernel.py:25"),
 }
-# the kernels timed at a second call of a path, reported beside the first
-ALSO = {"ssd_fused": "ssd_fused/hymba",
-        "flash_attention": "flash_attention/global"}
+# the kernels timed at a second call, reported beside the first
+ALSO = {"binstats": "binstats/table1", "ssd_fused": "ssd_fused/hymba",
+        "flash_attention": "flash_attention/global",
+        "rolling_stats": "rolling_stats/stall"}
 
 
 def main() -> int:
@@ -962,15 +1177,29 @@ def main() -> int:
     torch.cuda.set_device(dev)
     edge = phase_kernels(dev)
     log(f"kernels at edge shapes, largest |kernel - plain|: {edge}")
+    m_launches, m_errs, m_shapes = phase_micro(dev)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches, errs, shapes = phase_main(args, work)
+        launches, errs, shapes, stalls = phase_main(args, work)
         log(f"kernels on the main path's inputs, largest |kernel - plain|:"
             f" {errs}")
+        s_launches, s_err, shapes["rolling_stats/stall"] = phase_stall(
+            dev, stalls)
+        del stalls
         phase_delta(args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # binstats' timestamp form and rolling_stats run on the micro path; the
+    # main path's timestamp-form inputs stay as a second timing row
+    shapes.update(m_shapes)
+    launches["binstats/table1"] = launches["binstats"]
+    launches["binstats"] = m_launches["binstats"]
+    launches["rolling_stats"] = m_launches["rolling_stats"]
+    launches["rolling_stats/stall"] = s_launches
+    for name in ("binstats", "iqr_fences"):
+        errs[name] = max(errs[name], m_errs[name])
+    errs["rolling_stats"] = max(m_errs["rolling_stats"], s_err)
     serve_launches, serve_errs, calls = phase_serve(args, dev,
                                                     "mamba2-370m", "serve")
     launches["ssd_fused"] = serve_launches["ssd_fused"]
@@ -1008,8 +1237,9 @@ def main() -> int:
             continue                   # the same row as its window call
         floor = (f", fp32 CUDA-core floor {t['fp32_floor_ms']:.4f}"
                  if "fp32_floor_ms" in t else "")
-        log(f"time {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-            f"library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
+        log(f"time {name}: {t['ms']:.4f} ms (device kernels "
+            f"{t['device_ms']} ms per call under the profiler, plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
             f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
             f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), "
             f"{launches.get(name, launches[name.split('/')[0]])} launch(es) "

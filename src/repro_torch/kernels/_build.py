@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("binstats", "flashattn", "histbin", "iqr", "ssd")
+SOURCES = ("binstats", "flashattn", "histbin", "iqr", "rolling", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

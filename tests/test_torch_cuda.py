@@ -237,3 +237,46 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
     q = torch.zeros(1, 16, 2, 128, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="strides"):
         flash_attention(q, k, v)
+
+
+ROLLING_SHAPES = [  # n, window
+    (1, 1), (5, 16),                 # one value; window above n
+    (1000, 100), (1024, 1024),       # window == n == one tile
+    (2049, 64),                      # ragged last tile
+    (3000, 1500),                    # window above the 1024-output tile
+    (100, 1), (32768, 64),           # window 1; the micro-bench's call
+]
+
+
+@pytest.mark.parametrize("shape", ROLLING_SHAPES, ids=str)
+@pytest.mark.parametrize("kind", ["normal", "stall"])
+def test_rolling_kernel_on_card(cuda, shape, kind):
+    """Both columns within rtol = 1e-4 and atol = 1e-4 * max(1, max|x|)
+    of the plain version (the reference's rtol = atol = 1e-4, scaled for
+    stall-magnitude values); the kernel's float64 prefixes start at each
+    tile's halo, the plain version's at the series start."""
+    from repro_torch.kernels.rolling import rolling_stats, rolling_stats_plain
+    n, window = shape
+    rng = np.random.default_rng(n + window)
+    x = (rng.normal(0, 1, n) if kind == "normal"
+         else rng.lognormal(10, 1, n)).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    before = rolling_stats.launches
+    got = rolling_stats(xt, window=window)
+    assert rolling_stats.launches == before + 1
+    want = rolling_stats_plain(xt, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(np.abs(x).max())))
+
+
+def test_rolling_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.rolling import rolling_stats
+    with pytest.raises(ValueError, match="window"):
+        rolling_stats(torch.ones(8, device=cuda), window=0)
+    with pytest.raises(ValueError, match="empty"):
+        rolling_stats(torch.ones(0, device=cuda), window=4)
+    with pytest.raises(ValueError, match="series"):
+        rolling_stats(torch.ones(2, 4, device=cuda), window=2)

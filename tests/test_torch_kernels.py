@@ -31,6 +31,7 @@ from repro_torch.kernels.binstats import (binstats, binstats_flat,
                                           binstats_flat_plain)
 from repro_torch.kernels.histbin import histbin, histbin_flat
 from repro_torch.kernels.iqr import iqr_fences
+from repro_torch.kernels.rolling import rolling_stats
 from test_torch_cuda import RTOL, assert_hist_close, assert_moments_close
 
 
@@ -218,3 +219,5 @@ def test_wrappers_refuse_other_devices():
         binstats_flat(torch.empty(8, dtype=torch.int32, device="meta"),
                       meta, 4, torch.empty(8, dtype=torch.bool,
                                            device="meta"))
+    with pytest.raises(ValueError):
+        rolling_stats(meta, window=4)
