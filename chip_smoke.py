@@ -7,7 +7,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. card    — name and power limit, as nvidia-smi reports them;
 2. build   — compile every CUDA source of the port with nvcc, one process
-             per source, all started together;
+             per source, all started together, beside a second compile of
+             flashattn.cu with -Xptxas -v; print the counts of HGMMA
+             (wgmma) and UTMALDG (TMA load) instructions in the flashattn
+             library's SASS (cuobjdump -sass) and the registers and spill
+             bytes of each tensor-core instantiation; fail if either count
+             is 0 or an instantiation spills;
 3. kernels — every kernel entry point against its plain PyTorch version
              on the card at edge shapes (ragged N, all rows invalid, n_seg
              not a multiple of 128 with empty segments, M = 1 and 3; iqr
@@ -67,7 +72,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              128 meta tokens) in bfloat16, random weights drawn on the card
              from --seed, through ``ServeEngine.generate``: 8 requests of
              2048 prompt tokens, 32 new tokens each. The prefill must
-             launch flash_attention and ssd_fused once per layer. The
+             launch flash_attention and ssd_fused once per layer, every
+             flash_attention launch on the tensor-core kernel. The
              kernels are held against their plain versions on the path's
              own first global and first window layer's attention inputs
              and first layer's SSD inputs; a prefill and a generation
@@ -79,10 +85,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 10. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, timed with CUDA events at the
              main path's shapes, beside the kernel's bound and the device
-             kernel time of a call under torch.profiler; binstats'
-             timestamp form and rolling_stats at the micro phase's calls,
-             rolling_stats also at one rank's stall series (105,000
-             values, window 1,024).
+             kernel time of a call under torch.profiler (events, profiler,
+             events, profiler: both read twice in turn; "ms" is the first
+             event reading; the profiler's sum is divided by the calls it
+             recorded, which may be fewer than the 20 it watched);
+             binstats' timestamp form and rolling_stats at
+             the micro phase's calls, rolling_stats also at one rank's
+             stall series (105,000 values, window 1,024).
 
 Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
 rtol 1e-5 (atomics and summation order differ); histogram totals exact
@@ -268,6 +277,52 @@ def phase_card():
     return out[0].strip()
 
 
+def _ptxas_report(build):
+    """Start a second compile of csrc/flashattn.cu with ``-Xptxas -v``
+    (beside the build, into a temporary directory); the returned function
+    waits for it and returns {kernel: (registers, spill bytes)} for the
+    tensor-core kernel's instantiations."""
+    import re
+    out = tempfile.mkdtemp(prefix="ptxas_")
+    proc = subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         os.path.join(out, "flashattn.so"), str(build.CSRC / "flashattn.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        log_text, _ = proc.communicate(timeout=600)
+        shutil.rmtree(out, ignore_errors=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log_text}")
+        report, name, spill = {}, None, 0
+        for line in log_text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name and "flash_fwd_wgmma" in name:
+                hd = re.search(r"flash_fwd_wgmmaILi(\d+)E", name)
+                report[f"flash_fwd_wgmma<{hd.group(1) if hd else '?'}>"] = (
+                    int(m.group(1)), spill)
+        return report
+    return wait
+
+
+def _sass_counts(lib_path, build, ops=("HGMMA", "UTMALDG")):
+    """How many SASS instructions of each kind the library holds
+    (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout.splitlines()
+    return {op: sum(op in line for line in sass) for op in ops}
+
+
 def phase_kernels(dev):
     """Every entry point against its plain version at edge shapes."""
     import numpy as np
@@ -365,8 +420,7 @@ def phase_micro(dev):
     bs_kw = {"total_ns": 1e9, "n_bins": MICRO_BINS}
     counters = _launch_counters()
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     moments = K.binstats(ts, vals, valid, **bs_kw)
     fences = K.iqr_fences(scores, occ)
     stats = K.rolling_stats(x, window=MICRO_WINDOW)
@@ -422,8 +476,7 @@ def phase_stall(dev, stalls):
     xs = [torch.from_numpy(s).to(dev) for s in stalls]
     counters = _launch_counters()
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     outs = [K.rolling_stats(x, window=STALL_WINDOW) for x in xs]
     torch.cuda.synchronize()
     launches = counters["rolling_stats"].launches
@@ -516,6 +569,15 @@ def _launch_counters():
             "rolling_stats": ro.rolling_stats}
 
 
+def _zero(counters):
+    """Set every launch count to 0, flash_attention's tensor-core count
+    too."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "wgmma_launches"):
+            fn.wgmma_launches = 0
+
+
 def phase_main(args, work):
     import numpy as np
     import torch
@@ -532,8 +594,7 @@ def phase_main(args, work):
     cap = Capture(((distributed, "binstats_flat"),
                    (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        _zero(counters)
         t0 = time.perf_counter()
         res = VariabilityPipeline(_cfg(args, "torch")).run(paths, store)
         torch.cuda.synchronize()
@@ -688,11 +749,11 @@ def phase_serve(args, dev, arch, tag):
     cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
                   key=_flash_key)
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        _zero(counters)
         tokens = engine.generate({"tokens": prompts})
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
+        wgmma = counters["flash_attention"].wgmma_launches
     finally:
         cap.close()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -701,12 +762,17 @@ def phase_serve(args, dev, arch, tag):
               if e.kind == KIND_PREFILL]
     dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
               if e.kind == KIND_DECODE]
-    log(f"{tag}: launches {launches}")
+    log(f"{tag}: launches {launches}; flash_attention on the tensor-core "
+        f"kernel {wgmma}")
     for name, want in _expected_launches(cfg).items():
         if launches[name] != want:
             raise AssertionError(f"the prefill launched {name} "
                                  f"{launches[name]} times, expected one per "
                                  f"layer that runs it ({want})")
+    if wgmma != launches["flash_attention"]:
+        raise AssertionError(f"{launches['flash_attention']} flash_attention "
+                             f"launches, {wgmma} of them on the tensor-core "
+                             "kernel: every bfloat16 call should be")
     if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
@@ -823,7 +889,7 @@ def _continuation(cfg, params, dev, seed, tag):
 
 def _device_profile(fn):
     """Run ``fn`` under torch.profiler; return (host wall ms, summed device
-    kernel ms or None when the profiler saw none, the five kernels with the
+    kernel ms or None when the profiler saw none, the eight kernels with the
     most device time as (name, ms, launches))."""
     import torch
     from torch.autograd import DeviceType
@@ -842,7 +908,7 @@ def _device_profile(fn):
     kern.sort(key=lambda e: -e.self_device_time_total)
     return (wall, sum(e.self_device_time_total for e in kern) / 1e3,
             [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-             for e in kern[:5]])
+             for e in kern[:8]])
 
 
 def _plain(name):
@@ -943,6 +1009,7 @@ def phase_times(shapes):
     import torch
 
     from repro_torch.core.reducers import N_BUCKETS
+    from repro_torch.kernels.binstats.ops import _ts_bins
     from repro_torch.kernels.histbin.ops import bucketize
 
     counters = _launch_counters()
@@ -953,12 +1020,22 @@ def phase_times(shapes):
         nbytes = _nbytes(*inputs) + _nbytes(*out)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ops_per_s * 1e3
-        # device kernel time of one wrapper call, under torch.profiler:
-        # the part of "ms" that is not host time between launches
-        _, busy, _ = _device_profile(lambda: [call() for _ in range(20)])
+        # a wrapper call by CUDA events (what a caller sees, "ms") and the
+        # device kernel time of a call under torch.profiler, each read twice
+        # in turn: events, profiler, events, profiler. The profiler may
+        # record fewer than the 20 calls it watches, so its sum is divided
+        # by the calls it saw: the launches of its top kernel, which each
+        # call launches once
+        ev, dev_ms, seen = [], [], []
+        for _ in range(2):
+            ev.append(_time_ms(call))
+            _, busy, top = _device_profile(lambda: [call() for _ in range(20)])
+            seen.append(top[0][2] if top else 0)
+            dev_ms.append(None if busy is None else busy / seen[-1])
         rows[name] = {
-            "device_ms": None if busy is None else busy / 20,
-            "ms": _time_ms(call), "plain_ms": _time_ms(plain),
+            "ms": ev[0], "ms_again": ev[1], "device_ms": dev_ms[0],
+            "device_ms_again": dev_ms[1], "profiled_calls": seen,
+            "plain_ms": _time_ms(plain),
             "library_ms": None if library is None else _time_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -999,16 +1076,32 @@ def phase_times(shapes):
            n_iqr * max(math.log2(n_iqr), 1.0))
 
     # the timestamp forms: binstats at the micro-bench's call (its path),
-    # and both at the main path's rows binned by synthetic timestamps
+    # and both at the main path's rows binned by synthetic timestamps;
+    # yardsticks as for the flat forms, over the same bins: scatter_reduce_
+    # (sums only) and bincount over the fused (metric, bin, bucket) index
     for row, name, key in (("binstats", "binstats", "binstats"),
                            ("binstats/table1", "binstats", "ts"),
                            ("histbin", "histbin", "ts")):
         (ts, vals, valid), kw = shapes[key]
         out = counters[name](ts, vals, valid, **kw)
+        v2 = vals.reshape(-1, vals.shape[-1])
+        m, n_bins = v2.shape[0], kw["n_bins"]
+        bins = _ts_bins(ts, kw["total_ns"], n_bins).long()
+        if name == "binstats":
+            idx = bins.expand(m, -1)
+            library = (lambda idx=idx, v2=v2, m=m, n_bins=n_bins:
+                       torch.zeros(m, n_bins, device=v2.device)
+                       .scatter_reduce_(1, idx, v2, "sum"))
+        else:
+            fused = ((torch.arange(m, device=v2.device)[:, None] * n_bins
+                      + bins[None, :]) * N_BUCKETS + bucketize(v2)
+                     ).reshape(-1)
+            library = (lambda fused=fused, size=m * n_bins * N_BUCKETS:
+                       torch.bincount(fused, minlength=size))
         record(row, lambda n=name, a=(ts, vals, valid), k=kw:
                counters[n](*a, **k),
                lambda n=name, a=(ts, vals, valid), k=kw: _plain(n)(*a, **k),
-               None, [out], [ts, vals, valid],
+               library, [out], [ts, vals, valid],
                (6 if name == "binstats" else 4) * vals.numel())
 
     # rolling_stats: the micro-bench's call and one rank's stall series.
@@ -1168,11 +1261,21 @@ def main() -> int:
     card = phase_card()
     log(card)
     t0 = time.perf_counter()
+    ptxas = _ptxas_report(_build)
     built = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
     log(f"build: {time.perf_counter() - t0:.2f}s "
         f"(nvcc per source: {built})")
+    sass = _sass_counts(_build.lib_path("flashattn"), _build)
+    regs = ptxas()
+    log(f"build: flashattn SASS instructions {sass}; tensor-core kernel "
+        f"(registers, spill bytes) {regs}")
+    if not all(sass.values()):
+        raise AssertionError(f"flashattn's SASS lacks {sass}: the kernel "
+                             "does not run on wgmma with TMA loads")
+    if not regs or any(sp for _, sp in regs.values()):
+        raise AssertionError(f"the tensor-core kernel spills: {regs}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     edge = phase_kernels(dev)
@@ -1237,9 +1340,12 @@ def main() -> int:
             continue                   # the same row as its window call
         floor = (f", fp32 CUDA-core floor {t['fp32_floor_ms']:.4f}"
                  if "fp32_floor_ms" in t else "")
-        log(f"time {name}: {t['ms']:.4f} ms (device kernels "
-            f"{t['device_ms']} ms per call under the profiler, plain "
-            f"{t['plain_ms']:.4f}, library {t['library_ms']}, bound {t['bound_ms']:.4f} by "
+        log(f"time {name}: {t['ms']:.4f} ms, again {t['ms_again']:.4f} "
+            f"(device kernels {t['device_ms']}, again "
+            f"{t['device_ms_again']} ms per call under the profiler, which "
+            f"saw {t['profiled_calls']} of 20 calls; plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']}, bound "
+            f"{t['bound_ms']:.4f} by "
             f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
             f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), "
             f"{launches.get(name, launches[name.split('/')[0]])} launch(es) "

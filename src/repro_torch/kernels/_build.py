@@ -52,7 +52,7 @@ def nvcc_path() -> str:
                        "built on this machine")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{tag[:12]}.so"
@@ -64,7 +64,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     raises with the compiler's output if any of them fails."""
     import time
 
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -84,7 +84,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        os.replace(tmp, _lib_path(name))
+        os.replace(tmp, lib_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
@@ -97,7 +97,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build_all([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
         return lib
 

@@ -11,10 +11,13 @@ when ``causal`` and ``i - j < window`` when ``window > 0``; a row that
 sees no key gives 0. ``scale`` defaults to ``hd ** -0.5``.
 
 :func:`flash_attention` given CPU tensors runs
-:func:`flash_attention_plain`; given CUDA tensors it launches the kernel
-(source ``repro_torch/csrc/flashattn.cu``) on q, k and v as they lie, through
-their strides, or raises. ``flash_attention.launches`` counts kernel
-launches.
+:func:`flash_attention_plain`; given CUDA tensors it launches a kernel of
+``repro_torch/csrc/flashattn.cu`` on q, k and v as they lie, through their
+strides, or raises. The kernel follows the dtype: bfloat16 runs the
+tensor-core kernel (``flash_attn_bf16``: wgmma products, K/V streamed by
+TMA), float32 the CUDA-core kernel (``flash_attn_f32``).
+``flash_attention.launches`` counts every kernel launch and
+``flash_attention.wgmma_launches`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel takes bfloat16 or float32 q, k and v of one dtype, a head
     dimension that is a multiple of 8 up to 128, a contiguous last
     dimension, other strides that are multiples of 8 and 16-byte aligned
-    data; it raises on anything else."""
+    data, and in bfloat16 a positive scale; it raises on anything else."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -115,30 +118,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"that are multiples of {ALIGN}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data not 16-byte aligned")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores and not _scale(hd, scale) > 0:
+        raise ValueError(f"scale {scale}: the bfloat16 kernel takes a "
+                         "positive scale")
     lib = _lib()
+    fn = lib.flash_attn_bf16 if tensor_cores else lib.flash_attn_f32
     out = torch.empty((b, s, H, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_long * 9)(*q.stride()[:3], *k.stride()[:3],
                                   *v.stride()[:3])
     with torch.cuda.device(q.device):
-        code = lib.flash_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), int(q.dtype == torch.bfloat16),
-                              b, s, H, Hkv, hd, strides, _scale(hd, scale),
-                              int(causal), int(window), stream_ptr(q.device))
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, s, H, Hkv, hd, strides, _scale(hd, scale), int(causal),
+                  int(window), stream_ptr(q.device))
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += tensor_cores
     _build.check(code, "flash_attention")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flashattn")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attn.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                   ctypes.POINTER(ctypes.c_long),
-                                   ctypes.c_float, i, i, p]
-        lib.flash_attn.restype = i
+        for fn in (lib.flash_attn_bf16, lib.flash_attn_f32):
+            fn.argtypes = [p, p, p, p, i, i, i, i, i,
+                           ctypes.POINTER(ctypes.c_long), ctypes.c_float, i,
+                           i, p]
+            fn.restype = i
         lib._typed = True
     return lib

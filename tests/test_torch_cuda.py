@@ -174,6 +174,10 @@ FLASH_SHAPES = [  # b, s, H, Hkv, hd, causal, window
     (1, 300, 4, 2, 32, True, 500),   # window above s
     (1, 130, 4, 4, 16, True, 1),     # each query sees only itself
     (1, 1100, 5, 1, 64, True, 1024),  # hymba's heads and window
+    (1, 2176, 25, 5, 64, True, 1024),  # one hymba window layer, batch 1
+    (1, 2176, 25, 5, 64, True, 0),    # one hymba global layer, batch 1
+    (1, 300, 6, 3, 8, False, 0),      # hd 8 zero-filled to 16, 3 key tiles
+    (2, 260, 4, 1, 16, True, 100),    # hd 16, window across tile edges
 ]
 
 
@@ -184,7 +188,8 @@ def test_flash_attention_kernel_on_card(cuda, shape, dtype):
     """Within rtol = atol = 2e-4 of the plain version in float32 (the
     reference's own tolerance, tests/test_kernels.py); in bfloat16 both
     round float32 results once, so they differ by at most one rounding
-    step (rtol 2^-7)."""
+    step (rtol 2^-7). bfloat16 runs the tensor-core kernel, float32 the
+    CUDA-core one."""
     from repro_torch.kernels.flashattn import (flash_attention,
                                                flash_attention_plain)
     b, s, H, Hkv, hd, causal, window = shape
@@ -192,8 +197,11 @@ def test_flash_attention_kernel_on_card(cuda, shape, dtype):
     q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
         np.float32)).to(cuda, dtype) for n in (H, Hkv, Hkv))
     before = flash_attention.launches
+    before_tc = flash_attention.wgmma_launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
+    assert flash_attention.wgmma_launches == before_tc + (
+        dtype == torch.bfloat16)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -205,7 +213,8 @@ def test_flash_attention_kernel_on_card(cuda, shape, dtype):
 
 def test_flash_attention_kernel_reads_strided_inputs(cuda):
     """q, k and v as views of one fused projection (B, S, H + 2 Hkv, hd):
-    the kernel reads them through their strides, without copies."""
+    the tensor-core kernel's tensor maps read them through their strides,
+    without copies."""
     from repro_torch.kernels.flashattn import (flash_attention,
                                                flash_attention_plain)
     rng = np.random.default_rng(2)
@@ -213,7 +222,9 @@ def test_flash_attention_kernel_reads_strided_inputs(cuda):
         np.float32)).to(cuda, torch.bfloat16)
     q, k, v = qkv[:, :, :5], qkv[:, :, 5:6], qkv[:, :, 6:]
     assert not q.is_contiguous()
+    before_tc = flash_attention.wgmma_launches
     got = flash_attention(q, k, v, window=64)
+    assert flash_attention.wgmma_launches == before_tc + 1
     want = flash_attention_plain(q, k, v, window=64)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=2 ** -7,
