@@ -75,7 +75,9 @@ def iqr_detect(scores: np.ndarray, k: float = 1.5, top_k: int = 5,
     """Tukey-fence detection over per-bin scores.
 
     Q1/Q3, the fences and the flags come from the ``iqr`` kernel on
-    ``device`` (float32); ranking the flagged bins stays on the host.
+    ``device`` in float64, rounded as the reference's ``np.percentile``
+    rounds them (equal bit for bit); ranking the flagged bins stays on the
+    host.
     ``boundaries`` (n_bins+1,) converts flagged bin indices into time
     windows (the paper reports anomalous *shards*, i.e. time intervals).
     """
@@ -92,7 +94,7 @@ def iqr_detect(scores: np.ndarray, k: float = 1.5, top_k: int = 5,
     fenced = occupied if occupied.any() else np.ones_like(occupied)
     dev = resolve_device(device)
     out = iqr_fences(
-        torch.as_tensor(scores, dtype=torch.float32, device=dev),
+        torch.as_tensor(scores, dtype=torch.float64, device=dev),
         torch.as_tensor(fenced, device=dev), k_factor=k)
     q1, q3, iqr, lo, hi = (float(x) for x in out["stats"][:5].cpu())
     # the kernel flags fenced bins; a bin left out of the fences (score

@@ -71,7 +71,8 @@ def binstats_local(bin_ids: torch.Tensor, values: torch.Tensor,
     sharing one ``bin_ids``/``valid`` vector. Bin ids are clipped into
     ``[0, n_bins)``; invalid rows are weightless; empty bins carry the
     ±3.4e38 sentinels. On CUDA tensors ``bin_ids`` must be non-decreasing
-    (segment-ordered rows)."""
+    (segment-ordered rows); unordered rows leave a NaN count, read without
+    a synchronisation in the call (``kernels.binstats.ops.disordered``)."""
     return binstats_flat(bin_ids, values, n_bins,
                          _valid_or_all(valid, bin_ids))
 

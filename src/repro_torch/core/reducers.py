@@ -314,12 +314,17 @@ class BinStats(MergeableReducer):
     @classmethod
     def device_reduce(cls, seg_ids, values, n_seg: int, device,
                       valid) -> np.ndarray:
+        from ..kernels.binstats.ops import disordered
         from .distributed import distributed_moments_flat
         out = distributed_moments_flat(
             _on(seg_ids, torch.int32, device),
             _on(values, torch.float32, device), n_seg,
-            valid=_on(valid, torch.bool, device))
-        return np.moveaxis(out.cpu().numpy(), 0, 1)   # (n_seg, M, 5)
+            valid=_on(valid, torch.bool, device)).cpu().numpy()
+        # the kernel's order verdict arrives in this copy (a NaN count)
+        if disordered(out):
+            raise ValueError("binstats_flat: rows are not segment-ordered "
+                             "(seg must be non-decreasing on CUDA tensors)")
+        return np.moveaxis(out, 0, 1)   # (n_seg, M, 5)
 
     @classmethod
     def from_device_block(cls, block: np.ndarray) -> "BinStats":

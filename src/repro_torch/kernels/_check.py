@@ -22,5 +22,9 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 
 def stream_ptr(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer handle, read
+    without building a ``torch.cuda.Stream`` object: the handle is all a
+    launch needs."""
+    idx = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx)

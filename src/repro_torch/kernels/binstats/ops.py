@@ -6,8 +6,14 @@ Two functions, each with a plain version beside it:
 * :func:`binstats_flat` — moments over an arbitrary flat segment space
   (the phase-2 path, :func:`repro_torch.core.distributed.binstats_local`).
   On a CUDA tensor the rows must arrive segment-ordered (``seg``
-  non-decreasing once clipped); the kernel walks each segment's rows in
-  row order, so each cell is a fixed-order function of its own rows.
+  non-decreasing once clipped); each segment's rows are read by a group
+  of lanes numbered from the segment's first row and combined in a fixed
+  tree, so each cell is a fixed-order function of its own rows. The
+  kernel checks the order in the same launch and the call does not wait
+  for it: rows out of order leave NaN in the count of at least one cell
+  (counts are otherwise exact integers), which the caller sees in its own
+  copy of the table. ``BinStats.device_reduce`` raises ``ValueError`` on
+  it.
 * :func:`binstats` — the TPU kernel's own contract: float32 timestamps
   relative to the trace start are binned in-kernel.
 
@@ -15,19 +21,17 @@ Layout and sentinels follow :class:`repro_torch.core.reducers.BinStats`:
 the last axis is (count, sum, sumsq, min, max); a segment without valid
 rows has min = 3.4e38 and max = -3.4e38. A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel (source
-``repro_torch/csrc/binstats.cu``) or raises. ``<wrapper>.launches``
-counts kernel launches.
+``repro_torch/csrc/binstats.cu``) through a PyTorch operator written in
+C++ (``csrc/ops.cpp``: checks, allocation, stream and launch in one call)
+or raises. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from .. import _build
-from .._check import check_tensor, stream_ptr
 
 POS_CAP = 3.4e38
 NEG_CAP = -3.4e38
@@ -80,37 +84,32 @@ def binstats_flat(seg: torch.Tensor, values: torch.Tensor, n_seg: int,
     seg    : (N,) int32 segment ids; on CUDA, segment-ordered
     values : (N,) or (M, N) float32 — all metrics share ``seg``/``valid``
     valid  : (N,) bool — invalid rows are weightless
-    Returns (n_seg, 5), or (M, n_seg, 5) for 2-D ``values``."""
+    Returns (n_seg, 5), or (M, n_seg, 5) for 2-D ``values``. On CUDA the
+    call returns without waiting for the kernel; unordered rows show as a
+    NaN count (see :func:`disordered`)."""
+    if values.device.type == "cuda":
+        out = _operator("binstats_flat")(seg, values, n_seg, valid)
+        binstats_flat.launches += 1
+        return out
     if n_seg < 1:
         raise ValueError(f"n_seg must be >= 1, got {n_seg}")
     if values.device.type == "cpu":
         return binstats_flat_plain(seg, values, n_seg, valid)
-    if values.device.type != "cuda":
-        raise ValueError(f"binstats_flat: unsupported device {values.device}")
-    dev = values.device
-    vals, squeeze = _as_2d(values)
-    check_tensor(vals, "values", torch.float32, 2, dev)
-    m, n = vals.shape
-    check_tensor(seg, "seg", torch.int32, 1, dev)
-    check_tensor(valid, "valid", torch.bool, 1, dev)
-    if seg.shape[0] != n or valid.shape[0] != n:
-        raise ValueError(f"seg {tuple(seg.shape)} / valid "
-                         f"{tuple(valid.shape)} do not match values "
-                         f"{tuple(vals.shape)}")
-    lib = _lib()
-    offsets = torch.empty(n_seg + 1, dtype=torch.int32, device=dev)
-    err = torch.empty(1, dtype=torch.int32, device=dev)
-    out = torch.empty((m, n_seg, STATS), dtype=torch.float32, device=dev)
-    code = lib.binstats_flat(seg.data_ptr(), vals.data_ptr(),
-                             valid.data_ptr(), n, n_seg, m,
-                             offsets.data_ptr(), err.data_ptr(),
-                             out.data_ptr(), stream_ptr(dev))
-    binstats_flat.launches += 1
-    _build.check(code, "binstats_flat")
-    if int(err.item()):
-        raise ValueError("binstats_flat: rows are not segment-ordered "
-                         "(seg must be non-decreasing on CUDA tensors)")
-    return out[0] if squeeze else out
+    raise ValueError(f"binstats_flat: unsupported device {values.device}")
+
+
+binstats_flat.launches = 0
+
+
+def disordered(table) -> bool:
+    """Whether a :func:`binstats_flat` table (a tensor or an array) came
+    from rows out of segment order: the kernel leaves NaN in the count of
+    at least one cell then. Reading a CUDA tensor waits for the kernel;
+    read the copy you make anyway."""
+    counts = table[..., 0]
+    if isinstance(counts, torch.Tensor):
+        return bool(torch.isnan(counts).any())
+    return bool(np.isnan(counts).any())
 
 
 binstats_flat.launches = 0
@@ -146,45 +145,30 @@ def binstats(rel_ts: torch.Tensor, values: torch.Tensor,
     Returns (n_bins, 5), or (M, n_bins, 5) for 2-D ``values``. On CUDA the
     sums ride float atomics, so their rounding depends on arrival order
     (rtol 1e-5 against the plain version); counts, min and max are
-    exact."""
+    exact. A table of ``n_bins * (1 + 4 M) * 4`` bytes up to 227 KB takes
+    one launch (one thread-block cluster, private tables in shared
+    memory); a larger one three."""
+    if values.device.type == "cuda":
+        out = _operator("binstats_ts")(rel_ts, values, valid,
+                                       float(total_ns), n_bins)
+        binstats.launches += 1
+        return out
     if n_bins < 1:
         raise ValueError(f"n_bins must be >= 1, got {n_bins}")
     if values.device.type == "cpu":
         return binstats_plain(rel_ts, values, valid, total_ns=total_ns,
                               n_bins=n_bins)
-    if values.device.type != "cuda":
-        raise ValueError(f"binstats: unsupported device {values.device}")
-    dev = values.device
-    vals, squeeze = _as_2d(values)
-    check_tensor(vals, "values", torch.float32, 2, dev)
-    m, n = vals.shape
-    check_tensor(rel_ts, "rel_ts", torch.float32, 1, dev)
-    check_tensor(valid, "valid", torch.bool, 1, dev)
-    if rel_ts.shape[0] != n or valid.shape[0] != n:
-        raise ValueError("rel_ts / valid do not match values")
-    lib = _lib()
-    cnt = torch.empty(n_bins, dtype=torch.int32, device=dev)
-    out = torch.empty((m, n_bins, STATS), dtype=torch.float32, device=dev)
-    code = lib.binstats_ts(rel_ts.data_ptr(), vals.data_ptr(),
-                           valid.data_ptr(), n, m, n_bins,
-                           float(np.float32(n_bins / total_ns)),
-                           cnt.data_ptr(), out.data_ptr(), stream_ptr(dev))
-    binstats.launches += 1
-    _build.check(code, "binstats")
-    return out[0] if squeeze else out
+    raise ValueError(f"binstats: unsupported device {values.device}")
 
 
 binstats.launches = 0
+_OPS = {}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("binstats")
-    if not getattr(lib, "_typed", False):
-        p, i, l, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
-                      ctypes.c_float)
-        lib.binstats_flat.argtypes = [p, p, p, l, i, i, p, p, p, p]
-        lib.binstats_flat.restype = i
-        lib.binstats_ts.argtypes = [p, p, p, l, i, i, f, p, p, p]
-        lib.binstats_ts.restype = i
-        lib._typed = True
-    return lib
+def _operator(name: str):
+    """The C++ operator ``torch.ops.repro_torch.<name>`` (``csrc/ops.cpp``),
+    which checks, allocates, takes the current stream and launches."""
+    op = _OPS.get(name)
+    if op is None:
+        op = _OPS[name] = getattr(_build.operators(), name).default
+    return op

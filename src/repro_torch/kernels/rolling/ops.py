@@ -7,18 +7,16 @@ Contract (``repro/kernels/rolling``): ``x`` (N,) is cast to float32;
 with ``n_eff = min(i + 1, window)``; any ``window >= 1``. The Pallas
 kernel's ``block`` and ``interpret`` arguments tile the TPU and have no
 counterpart here. A wrapper given a CPU tensor runs the plain version;
-given a CUDA tensor it launches the kernel (``repro_torch/csrc/rolling.cu``)
-or raises. ``rolling_stats.launches`` counts kernel launches.
+given a CUDA tensor it launches the kernel (``repro_torch/csrc/rolling.cu``,
+through the operator of ``csrc/ops.cpp``) or raises.
+``rolling_stats.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from .._check import check_tensor, stream_ptr
 
 
 def _check_args(x: torch.Tensor, window: int) -> None:
@@ -54,31 +52,30 @@ def rolling_stats_plain(x: torch.Tensor, *, window: int) -> torch.Tensor:
 
 
 def rolling_stats(x: torch.Tensor, *, window: int) -> torch.Tensor:
-    """Trailing-window rolling mean/std: (N,) -> (N, 2) float32."""
+    """Trailing-window rolling mean/std: (N,) -> (N, 2) float32.
+
+    On CUDA the call is one PyTorch operator written in C++
+    (``torch.ops.repro_torch.rolling_stats``, ``csrc/ops.cpp``), which
+    checks the arguments, casts ``x`` to contiguous float32 if it is not,
+    allocates the output, takes the current stream and launches."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        if type(window) is not int:
+            _check_args(x, window)
+            window = int(window)
+        out = _operator()(x, window)
+        rolling_stats.launches += 1
+        return out
     _check_args(x, window)
     if x.device.type == "cpu":
         return rolling_stats_plain(x, window=window)
-    if x.device.type != "cuda":
-        raise ValueError(f"rolling_stats: unsupported device {x.device}")
-    dev = x.device
-    x = x.to(torch.float32).contiguous()
-    check_tensor(x, "x", torch.float32, 1, dev)
-    out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=dev)
-    code = _lib().rolling_stats(x.data_ptr(), x.shape[0], int(window),
-                                out.data_ptr(), stream_ptr(dev))
-    rolling_stats.launches += 1
-    _build.check(code, "rolling_stats")
-    return out
+    raise ValueError(f"rolling_stats: unsupported device {x.device}")
 
 
 rolling_stats.launches = 0
+_OP = []
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rolling")
-    if not getattr(lib, "_typed", False):
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.rolling_stats.argtypes = [p, ll, ll, p, p]
-        lib.rolling_stats.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+def _operator():
+    if not _OP:
+        _OP.append(_build.operators().rolling_stats.default)
+    return _OP[0]

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.reducers import BinStats
 from repro_torch.kernels.binstats import (binstats, binstats_flat,
                                           binstats_flat_plain,
                                           binstats_plain)
+from repro_torch.kernels.binstats.ops import _ts_bins, disordered
 from repro_torch.kernels.histbin import (histbin, histbin_flat,
                                          histbin_flat_plain, histbin_plain)
 from repro_torch.kernels.iqr import iqr_fences, iqr_fences_plain
@@ -38,6 +40,29 @@ def assert_moments_close(got, want):
     np.testing.assert_array_equal(got[..., 0], want[..., 0])
     np.testing.assert_allclose(got[..., 1:3], want[..., 1:3], rtol=RTOL)
     np.testing.assert_array_equal(got[..., 3:5], want[..., 3:5])
+
+
+def assert_sums_within_summation_bound(got, want, idx, vals, valid,
+                                       n_cells):
+    """Moments of cells that sum thousands of rows: counts, min and max
+    equal the plain version's; each float32 sum lies within the worst-case
+    bound of float32 summation in any order, (n_c + 2) * 2^-24 * sum|term|
+    over the cell's n_c rows, of the float64 sum of the same terms. (A
+    relative tolerance between two float32 sums taken in different orders
+    holds for short cells only: the plain version adds in ``index_add_``'s
+    order, the kernel in a lane tree or by atomics.)"""
+    got = np.asarray(got, np.float64).reshape(-1, n_cells, 5)
+    want = np.asarray(want, np.float64).reshape(-1, n_cells, 5)
+    np.testing.assert_array_equal(got[..., [0, 3, 4]], want[..., [0, 3, 4]])
+    x = np.asarray(vals, np.float64).reshape(-1, len(idx))
+    ok = np.asarray(valid, np.float64)
+    rows = np.bincount(idx, minlength=n_cells)
+    for j in range(x.shape[0]):
+        for ch, terms in ((1, x[j] * ok), (2, x[j] * x[j] * ok)):
+            exact = np.bincount(idx, weights=terms, minlength=n_cells)
+            mass = np.bincount(idx, weights=np.abs(terms), minlength=n_cells)
+            bound = (rows + 2) * 2.0 ** -24 * mass
+            assert (np.abs(got[j, :, ch] - exact) <= bound).all()
 
 
 def assert_hist_close(got, want, max_moved=1e-3):
@@ -74,8 +99,108 @@ def test_binstats_kernels_on_card(cuda):
     got = binstats(t[0], t[1], t[2], total_ns=1e9, n_bins=333)
     want = binstats_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=333)
     assert_moments_close(got.cpu(), want.cpu())
+    # unordered rows: the kernel's verdict is a NaN count, read from the
+    # copy the caller makes; the main path raises on it
+    flipped = binstats_flat(t[3].flip(0).contiguous(), t[1], 1003, t[2])
+    assert disordered(flipped.cpu()) and not disordered(got.cpu())
     with pytest.raises(ValueError):
-        binstats_flat(t[3].flip(0).contiguous(), t[1], 1003, t[2])
+        BinStats.device_reduce(t[3].flip(0).contiguous(), t[1], 1003,
+                               cuda, t[2])
+
+
+@pytest.mark.parametrize("n_bins,m", [(1, 1), (512, 1), (4097, 3),
+                                      (12_000, 1), (12_000, 3)])
+def test_binstats_ts_table_sizes_on_card(cuda, n_bins, m):
+    """One bin, the micro call's 512, the largest table one cluster holds
+    (4,097 x 3 metrics, 213 KB) and the Table-1 form's 12,000 bins, which
+    take the three-launch path."""
+    ts, vals, valid, _ = _events(13, 65_536, m, 10)
+    t = [torch.from_numpy(x).to(cuda) for x in (ts, vals, valid)]
+    got = binstats(t[0], t[1], t[2], total_ns=1e9, n_bins=n_bins)
+    want = binstats_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=n_bins)
+    if n_bins > 1:
+        assert_moments_close(got.cpu(), want.cpu())
+    else:                                 # 65,536 rows in one cell
+        idx = _ts_bins(t[0], 1e9, n_bins).long().cpu().numpy()
+        assert_sums_within_summation_bound(got.cpu(), want.cpu(), idx, vals,
+                                           valid, n_bins)
+
+
+@pytest.mark.parametrize("case", ["one_segment", "empty_segments",
+                                  "long_segment", "all_invalid"])
+def test_binstats_flat_edges_on_card(cuda, case):
+    """One segment holding every row, mostly empty segments, a segment far
+    longer than a group's stride, and no valid row."""
+    rng = np.random.default_rng(14)
+    n, n_seg = {"one_segment": (70_001, 1), "empty_segments": (50, 5000),
+                "long_segment": (40_000, 7), "all_invalid": (999, 30)}[case]
+    seg = np.sort(rng.integers(0, n_seg, n)).astype(np.int32)
+    if case == "long_segment":
+        seg[100:39_000] = 3
+        seg = np.sort(seg)
+    vals = rng.lognormal(8.0, 2.0, (2, n)).astype(np.float32)
+    valid = (np.zeros(n, bool) if case == "all_invalid"
+             else rng.random(n) > 0.1)
+    t = [torch.from_numpy(x).to(cuda) for x in (seg, vals, valid)]
+    got = binstats_flat(t[0], t[1], n_seg, t[2])
+    assert not disordered(got.cpu())
+    want = binstats_flat_plain(t[0], t[1], n_seg, t[2]).cpu()
+    if case in ("one_segment", "long_segment"):   # tens of thousands of rows
+        assert_sums_within_summation_bound(got.cpu(), want, seg, vals,
+                                           valid, n_seg)
+    else:
+        assert_moments_close(got.cpu(), want)
+
+
+def _device_ops(fn):
+    """The device activities (kernels, memsets, copies) of one call, read
+    after a warm-up cycle (a profiler opened cold misses the device
+    activity of its first few hundred microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(2_000_000)       # about 1 ms ahead of the call
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.name
+            and not e.name.startswith("ProfilerStep")]
+
+
+def test_binstats_calls_launch_one_kernel(cuda):
+    """The micro call of the timestamp form and a flat call are each one
+    kernel on the device: no memset, no second kernel."""
+    ts, vals, valid, seg = _events(15, 65_536, 1, 512)
+    t = [torch.from_numpy(x).to(cuda) for x in (ts, vals, valid, seg)]
+    ops = _device_ops(lambda: binstats(t[0], t[1][0], t[2], total_ns=1e9,
+                                       n_bins=512))
+    assert len(ops) == 1 and "binstats_ts_cluster_kernel" in ops[0], ops
+    ops = _device_ops(lambda: binstats_flat(t[3], t[1], 512, t[2]))
+    assert len(ops) == 1 and "binstats_seg_kernel" in ops[0], ops
+
+
+def test_binstats_flat_does_not_wait_for_its_kernel(cuda):
+    """The call returns while its kernel still waits behind a queued
+    sleep: nothing inside it synchronises."""
+    ts, vals, valid, seg = _events(16, 70_001, 3, 1000)
+    t = [torch.from_numpy(x).to(cuda) for x in (vals, valid, seg)]
+    binstats_flat(t[2], t[0], 1000, t[1])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    out = binstats_flat(t[2], t[0], 1000, t[1])
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    torch.cuda.synchronize()
+    assert_moments_close(out.cpu(),
+                         binstats_flat_plain(t[2], t[0], 1000, t[1]).cpu())
 
 
 def test_histbin_kernels_on_card(cuda):
@@ -86,6 +211,22 @@ def test_histbin_kernels_on_card(cuda):
     assert_hist_close(
         histbin(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu(),
         histbin_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu())
+
+
+@pytest.mark.parametrize("n", [1, 2, 12_000, 40_000])
+def test_iqr_kernel_float64_on_card(cuda, n):
+    """The float64 form (the analysis path's) equals its plain version
+    exactly: one CTA up to 16,384 keys, the multi-launch path above."""
+    rng = np.random.default_rng(17)
+    s = np.clip(rng.lognormal(np.log(1e7), 0.8, n), 1e6, 1e8)
+    occ = rng.random(n) < 0.8
+    s_t, o_t = torch.from_numpy(s).to(cuda), torch.from_numpy(occ).to(cuda)
+    got = iqr_fences(s_t, o_t)
+    want = iqr_fences_plain(s_t, o_t)
+    assert got["stats"].dtype == torch.float64
+    for key in ("sorted", "flags", "stats"):
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      want[key].cpu().numpy())
 
 
 @pytest.mark.parametrize("n", [1, 1000, 16384, 40000])

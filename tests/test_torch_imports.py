@@ -93,9 +93,13 @@ def test_entry_points_default_to_the_card():
 
 
 def test_every_cuda_source_is_built():
+    """Every source under csrc/ goes into exactly one library: a ctypes
+    library of its own, or the library of PyTorch operators."""
     from repro_torch.kernels import _build
-    assert _build.SOURCES == tuple(
-        p.stem for p in sorted((PORT / "csrc").glob("*.cu")))
+    built = sorted(p.name for name in _build.LIBRARIES
+                   for p in _build.inputs(name))
+    assert built == sorted(p.name for p in (PORT / "csrc").iterdir()
+                           if p.suffix in (".cu", ".cpp"))
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_tree(tmp_path):

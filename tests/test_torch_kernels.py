@@ -190,8 +190,7 @@ def test_iqr_detect_matches_reference(case):
     want = ref_anomaly.iqr_detect(scores, boundaries=bounds)
     got = anomaly.iqr_detect(scores, boundaries=bounds, device="cpu")
     for key in ("q1", "q3", "iqr", "lo_fence", "hi_fence"):
-        np.testing.assert_allclose(getattr(got, key), getattr(want, key),
-                                   rtol=RTOL, atol=1e-6)
+        assert getattr(got, key) == getattr(want, key), key
     np.testing.assert_array_equal(got.flags, want.flags)
     np.testing.assert_array_equal(got.top_idx, want.top_idx)
     np.testing.assert_array_equal(got.top_windows, want.top_windows)
