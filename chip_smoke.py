@@ -8,20 +8,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. card    — name and power limit, as nvidia-smi reports them;
 2. build   — compile every CUDA source of the port with nvcc, one process
              per source, all started together (each library's seconds are
-             printed), beside a second compile of flashattn.cu,
-             binstats.cu, iqr.cu and rolling.cu with -Xptxas -v; print the
-             counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-             the flashattn library's SASS (cuobjdump -sass) and the
-             registers and spill bytes of each tensor-core instantiation
-             and of the binstats, iqr and rolling kernels; fail if either
-             count is 0 or a tensor-core instantiation spills;
+             printed), beside a second compile of flashattn.cu, ssd.cu,
+             binstats.cu, histbin.cu, iqr.cu and rolling.cu with -Xptxas
+             -v; print the counts of HGMMA (wgmma) and UTMALDG (TMA load)
+             instructions in the flashattn and ssd libraries' SASS
+             (cuobjdump -sass) and the registers and spill bytes of each
+             tensor-core instantiation (flash_fwd_wgmma, ssd_wgmma) and of
+             the other kernels; fail if a count is 0 or a tensor-core
+             instantiation spills;
 3. kernels — every kernel entry point against its plain PyTorch version
              on the card at edge shapes (ragged N, all rows invalid, n_seg
              not a multiple of 128 with empty segments, M = 1 and 3; iqr
              at n = 1, a non-power-of-two n, no occupied bin, and a table
              above the single-block limit; ssd with S not a multiple of
              the chunk, G == H and G < H, P/N 8/16, 64/16 and 64/128,
-             chunks 8, 16 and 128, bfloat16 and float32 B/C;
+             chunks 8, 16 and 128, bfloat16 and float32 B/C with float32
+             x, and bfloat16 x, B and C, whose chunk-128 shapes must run
+             the tensor-core kernel;
              flash_attention with S not a multiple of the tile, causal
              with window 0, windows of 1, 8 and 16 and one above S,
              non-causal, H / Hkv = 1, 5 and 8, hd 8, 32, 64 and 128, and
@@ -30,7 +33,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              holding every row, with 50,000 mostly empty segments and with
              one segment far longer than a lane group's stride, and
              unordered rows, which must leave a NaN count and raise in
-             BinStats.device_reduce; binstats at 1 bin and 12,000 bins
+             BinStats.device_reduce; histbin_flat with one segment holding
+             every row, 50,000 mostly empty segments, ids below 0 and at
+             or above n_seg, no valid row, and unordered rows, which must
+             leave NaN counts and raise in QuantileSketch.device_reduce;
+             binstats at 1 bin and 12,000 bins
              (1 and 3 metrics); iqr_fences in float64 at n = 1, 2, 12,000
              and 40,000 (the multi-launch path), equal to the float64
              plain version; rolling_stats at n = 1 with window
@@ -69,7 +76,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              card from --seed, through ``ServeEngine.generate``: 8
              requests of 2048 prompt tokens, 32 new tokens each. The
              counters are zeroed just before and read just after; the
-             prefill must launch ssd_fused once per layer. The kernel is
+             prefill must launch ssd_fused once per layer, every launch on
+             the tensor-core kernel (48 of 48). The kernel is
              held against its plain version on the first layer's own
              inputs, and a prefill and a generation through the plain
              version must give the same last-token logits (within the
@@ -82,7 +90,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              from --seed, through ``ServeEngine.generate``: 8 requests of
              2048 prompt tokens, 32 new tokens each. The prefill must
              launch flash_attention and ssd_fused once per layer, every
-             flash_attention launch on the tensor-core kernel. The
+             launch of both on its tensor-core kernel (32 of 32 each). The
              kernels are held against their plain versions on the path's
              own first global and first window layer's attention inputs
              and first layer's SSD inputs; a prefill and a generation
@@ -106,13 +114,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              rows, iqr_fences at the main path's float64 call and at the
              same scores in float32;
 11. host trace — time.perf_counter_ns around each step of the
-             rolling_stats, binstats and binstats_flat wrappers (checks,
-             allocations, library lookup, stream lookup, binding call and
-             launch, result check) over 10,000 calls at their path shapes,
-             nothing synchronised inside a call; today's steps (the C++
-             operator), the same C entries through lean ctypes steps, and
-             the earlier ctypes wrapper's steps replayed, each beside the
-             whole wrapper call.
+             rolling_stats, binstats, binstats_flat and histbin_flat
+             wrappers (checks, allocations, library lookup, stream lookup,
+             binding call and launch, result check) over 10,000 calls at
+             their path shapes, nothing synchronised inside a call;
+             today's steps (the C++ operator), the same C entries through
+             lean ctypes steps, and the earlier ctypes wrapper's steps
+             replayed, each beside the whole wrapper call.
 
 Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
 rtol 1e-5 (atomics and summation order differ), and for the edge cases
@@ -336,13 +344,23 @@ def phase_card():
 
 
 # kernels whose registers and spills the build phase prints, by a piece
-# of their mangled name: the tensor-core attention kernel's instantiations
-# (a spill there fails the run) and the binstats, iqr and rolling kernels
-PTXAS_SOURCES = ("flashattn", "binstats", "iqr", "rolling")
+# of their mangled name: the tensor-core attention and SSD kernels'
+# instantiations (a spill there fails the run) and the binstats, histbin,
+# iqr, rolling and CUDA-core SSD kernels
+PTXAS_SOURCES = ("flashattn", "ssd", "binstats", "histbin", "iqr", "rolling")
+TENSOR_CORE = ("flash_fwd_wgmma", "ssd_wgmma")
 PTXAS_KERNELS = (("flash_fwd_wgmmaILi16E", "flash_fwd_wgmma<16>"),
                  ("flash_fwd_wgmmaILi32E", "flash_fwd_wgmma<32>"),
                  ("flash_fwd_wgmmaILi64E", "flash_fwd_wgmma<64>"),
                  ("flash_fwd_wgmmaILi128E", "flash_fwd_wgmma<128>"),
+                 ("ssd_wgmmaILi16E", "ssd_wgmma<16>"),
+                 ("ssd_wgmmaILi32E", "ssd_wgmma<32>"),
+                 ("ssd_wgmmaILi64E", "ssd_wgmma<64>"),
+                 ("ssd_wgmmaILi128E", "ssd_wgmma<128>"),
+                 ("ssd_scan_kernelIfE", "ssd_scan_kernel<float>"),
+                 ("ssd_scan_kernelI13__nv_bfloat16E",
+                  "ssd_scan_kernel<bf16>"),
+                 ("histbin_seg_kernel", "histbin_seg_kernel"),
                  ("binstats_seg_kernel", "binstats_seg_kernel"),
                  ("binstats_ts_cluster_kernel", "binstats_ts_cluster_kernel"),
                  ("iqr_smem_kernelIfE", "iqr_smem_kernel<float>"),
@@ -466,20 +484,38 @@ def phase_kernels(dev):
         note("binstats", moments_err(got, want) if n_bins > 1 else
              summation_err(got, want, bs._ts_bins(ts, 1e9, n_bins), vals,
                            valid))
-    # unordered rows: a NaN count in the table, and the main path's
-    # reducer raises on it
+    # histbin_flat: one segment holding every row, mostly empty segments,
+    # ids below 0 and at or above n_seg (dropped), no valid row
+    for n, m, n_seg, lo, hi, invalid in ((70_001, 2, 1, 0, 1, False),
+                                         (1_001, 1, 50_000, 0, 50_000,
+                                          False),
+                                         (9_000, 3, 300, -40, 340, False),
+                                         (999, 3, 30, 0, 30, True)):
+        seg = torch.from_numpy(np.sort(rng.integers(lo, hi, n))
+                               .astype(np.int32)).to(dev)
+        _, vals, valid, _ = rows(n, m, n_seg, invalid)
+        note("histbin_flat", hist_err(
+            hb.histbin_flat(seg, vals, n_seg, valid),
+            hb.histbin_flat_plain(seg, vals, n_seg, valid)))
+    # unordered rows: NaN counts in the table, and the main path's
+    # reducers raise on them
     seg, vals, valid, _ = rows(1001, 3, 1000)
     flipped = seg.flip(0).contiguous()
     if not bs.disordered(bs.binstats_flat(flipped, vals, 1000, valid)
                          .cpu()):
         raise AssertionError("binstats_flat did not flag unordered rows")
-    from repro_torch.core.reducers import BinStats
-    try:
-        BinStats.device_reduce(flipped, vals, 1000, dev, valid)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("unordered rows did not raise on the path")
+    if not hb.disordered(hb.histbin_flat(flipped, vals, 1000, valid)
+                         .cpu()):
+        raise AssertionError("histbin_flat did not flag unordered rows")
+    from repro_torch.core.reducers import BinStats, QuantileSketch
+    for reducer in (BinStats, QuantileSketch):
+        try:
+            reducer.device_reduce(flipped, vals, 1000, dev, valid)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"unordered rows did not raise in "
+                                 f"{reducer.__name__}.device_reduce")
     for n, frac in ((1, 1.0), (12_000, 0.7), (5_000, 0.0),
                     (100_000, 0.6)):
         s = torch.from_numpy(
@@ -495,12 +531,24 @@ def phase_kernels(dev):
         occ = torch.from_numpy(rng.random(n) < 0.8).to(dev)
         note("iqr_fences", iqr_err(iq.iqr_fences(s, occ),
                                    iq.iqr_fences_plain(s, occ)))
+    # ssd: float32 x with float32 and bfloat16 B/C (the CUDA-core kernel),
+    # and bfloat16 x, B and C (the tensor-core kernel where chunk, P and N
+    # allow it: held to the tensor-core count)
+    tc_before = sd.ssd_fused.wgmma_launches
+    tc_want = 0
     for b, s, H, P, G, N, chunk in SSD_EDGE_SHAPES:
-        for bc in (torch.float32, torch.bfloat16):
-            args = _ssd_inputs(rng, (b, s, H, P, G, N), bc, dev)
+        for x_dtype, bc in ((torch.float32, torch.float32),
+                            (torch.float32, torch.bfloat16),
+                            (torch.bfloat16, torch.bfloat16)):
+            args = _ssd_inputs(rng, (b, s, H, P, G, N), bc, dev, x_dtype)
+            tc_want += (x_dtype == torch.bfloat16 and chunk == 128
+                        and P % 16 == 0 and P <= 64 and N % 16 == 0)
             note("ssd_fused", ssd_err(sd.ssd_fused(*args, chunk=chunk),
                                       sd.ssd_fused_plain(*args,
                                                          chunk=chunk)))
+    if sd.ssd_fused.wgmma_launches - tc_before != tc_want:
+        raise AssertionError(f"{sd.ssd_fused.wgmma_launches - tc_before} "
+                             f"tensor-core ssd launches, expected {tc_want}")
     for b, s, H, Hkv, hd, causal, window in FLASH_EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd))
@@ -620,14 +668,15 @@ def phase_stall(dev, stalls):
     return launches, err, (xs[0], STALL_WINDOW)
 
 
-def _ssd_inputs(rng, shape, bc_dtype, dev):
-    """Model-layout inputs of ssd_fused: float32 x, dt in [0.01, 0.1]."""
+def _ssd_inputs(rng, shape, bc_dtype, dev, x_dtype=None):
+    """Model-layout inputs of ssd_fused: x in ``x_dtype`` (float32 by
+    default), dt in [0.01, 0.1]."""
     import torch
     b, s, H, P, G, N = shape
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(a.astype("float32")).to(dev, dtype)
-    return (t(rng.normal(size=(b, s, H, P))),
+    return (t(rng.normal(size=(b, s, H, P)), x_dtype or torch.float32),
             t(rng.uniform(0.01, 0.1, (b, s, H))), t(rng.uniform(-1, 1, H)),
             t(rng.normal(size=(b, s, G, N)), bc_dtype),
             t(rng.normal(size=(b, s, G, N)), bc_dtype),
@@ -692,8 +741,8 @@ def _launch_counters():
 
 
 def _zero(counters):
-    """Set every launch count to 0, flash_attention's tensor-core count
-    too."""
+    """Set every launch count to 0, the tensor-core counts of
+    flash_attention and ssd_fused too."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "wgmma_launches"):
@@ -876,6 +925,7 @@ def phase_serve(args, dev, arch, tag):
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         wgmma = counters["flash_attention"].wgmma_launches
+        ssd_tc = counters["ssd_fused"].wgmma_launches
     finally:
         cap.close()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -885,16 +935,17 @@ def phase_serve(args, dev, arch, tag):
     dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
               if e.kind == KIND_DECODE]
     log(f"{tag}: launches {launches}; flash_attention on the tensor-core "
-        f"kernel {wgmma}")
+        f"kernel {wgmma}, ssd_fused on the tensor-core kernel {ssd_tc}")
     for name, want in _expected_launches(cfg).items():
         if launches[name] != want:
             raise AssertionError(f"the prefill launched {name} "
                                  f"{launches[name]} times, expected one per "
                                  f"layer that runs it ({want})")
-    if wgmma != launches["flash_attention"]:
-        raise AssertionError(f"{launches['flash_attention']} flash_attention "
-                             f"launches, {wgmma} of them on the tensor-core "
-                             "kernel: every bfloat16 call should be")
+    for name, tc in (("flash_attention", wgmma), ("ssd_fused", ssd_tc)):
+        if tc != launches[name]:
+            raise AssertionError(f"{launches[name]} {name} launches, {tc} "
+                                 "of them on the tensor-core kernel: every "
+                                 "bfloat16 call of the path should be")
     if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
@@ -1011,7 +1062,7 @@ def _continuation(cfg, params, dev, seed, tag):
 
 def _device_profile(fn):
     """Run ``fn`` under torch.profiler; return (host wall ms, summed device
-    kernel ms or None when the profiler saw none, the eight kernels with the
+    kernel ms or None when the profiler saw none, the ten kernels with the
     most device time as (name, ms, launches))."""
     import torch
     from torch.autograd import DeviceType
@@ -1031,7 +1082,7 @@ def _device_profile(fn):
     kern.sort(key=lambda e: -e.self_device_time_total)
     return (wall, sum(e.self_device_time_total for e in kern) / 1e3,
             [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-             for e in kern[:8]])
+             for e in kern[:10]])
 
 
 def kernel_names(source):
@@ -1310,6 +1361,81 @@ def _binstats_steps(args, flat, variant):
             ("result check" + sync, done)]
 
 
+def _histbin_steps(args, variant):
+    """The histbin_flat wrapper's host steps, as :func:`_rolling_steps`:
+    ``op`` today's (the C++ operator), ``ctypes`` the same C entry with
+    lean Python steps, ``before`` the earlier ctypes wrapper's steps replayed
+    (``_as_2d``, three ``check_tensor`` calls, the locked library lookup,
+    ``torch.empty``, the raw stream, the call, the result check and the
+    ``out[0]`` view of 1-D values)."""
+    import torch
+
+    from repro_torch.core.reducers import N_BUCKETS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._check import check_tensor, stream_ptr
+    from repro_torch.kernels.binstats import ops as bs
+
+    seg, values, n_seg, valid = args
+    if variant == "op":
+        def checks(st):
+            if values.device.type != "cuda":
+                raise AssertionError("not a CUDA call")
+
+        def lookup(st):
+            st["op"] = bs._operator("histbin_flat")
+
+        def call(st):
+            st["out"] = st["op"](seg, values, n_seg, valid)
+        return [("checks", checks), ("lookup", lookup),
+                ("operator call (C++ checks, at::empty, stream, launch)",
+                 call)]
+
+    def checks(st):
+        if n_seg < 1 or values.device.type != "cuda":
+            raise AssertionError("not a CUDA call")
+        vals, _ = bs._as_2d(values)
+        if variant == "before":
+            check_tensor(vals, "values", torch.float32, 2, values.device)
+            check_tensor(seg, "seg", torch.int32, 1, values.device)
+            check_tensor(valid, "valid", torch.bool, 1, values.device)
+        elif not (vals.is_contiguous() and seg.is_contiguous()
+                  and valid.is_contiguous()):
+            raise AssertionError("arguments")
+        if seg.shape[0] != vals.shape[1] or valid.shape[0] != vals.shape[1]:
+            raise AssertionError("shapes")
+        st["mn"] = vals.shape
+
+    def lookup(st):
+        if variant == "before":
+            lib = _build.load("ops")
+            getattr(lib, "_typed", False)
+            st["fn"] = lib.histbin_flat
+        else:
+            st["fn"] = _build.function("ops", "histbin_flat",
+                                       C_ARGS["binstats_flat"])
+
+    def alloc(st):
+        st["out"] = torch.empty((st["mn"][0], n_seg, N_BUCKETS),
+                                dtype=torch.float32, device=values.device)
+
+    def stream(st):
+        st["s"] = stream_ptr(values.device)
+
+    def launch(st):
+        m, n = st["mn"]
+        st["code"] = st["fn"](seg.data_ptr(), values.data_ptr(),
+                              valid.data_ptr(), n, n_seg, m,
+                              st["out"].data_ptr(), st["s"])
+
+    def done(st):
+        _build.check(st["code"], "histbin_flat")
+        if variant == "before" and values.dim() == 1:
+            st["out"][0]
+    return [("checks", checks), ("lookup", lookup), ("alloc", alloc),
+            ("stream", stream), ("binding+launch", launch),
+            ("result check", done)]
+
+
 def phase_host_trace(shapes):
     """Host time per step of the rolling_stats, binstats and binstats_flat
     wrappers at their path shapes: today's steps (the C++ operator), the
@@ -1318,10 +1444,12 @@ def phase_host_trace(shapes):
     beside the whole wrapper call timed the same way."""
     import repro_torch.kernels as K
     from repro_torch.kernels.binstats import binstats_flat
+    from repro_torch.kernels.histbin import histbin_flat
 
     x, window = shapes["rolling_stats"]
     (ts, vals, valid), kw = shapes["binstats"]
     flat = shapes["binstats_flat"]
+    hflat = shapes["histbin_flat"]
     cases = (
         ("rolling_stats", f"{x.shape[0]} values, window {window}",
          lambda st: K.rolling_stats(x, window=window),
@@ -1334,6 +1462,10 @@ def phase_host_trace(shapes):
          f"{tuple(flat[1].shape)} values, {flat[2]} segments",
          lambda st: binstats_flat(*flat),
          lambda variant: _binstats_steps(flat, True, variant)),
+        ("histbin_flat", f"{hflat[0].shape[0]} rows, "
+         f"{tuple(hflat[1].shape)} values, {hflat[2]} segments",
+         lambda st: histbin_flat(*hflat),
+         lambda variant: _histbin_steps(hflat, variant)),
     )
     out = {}
     for name, what, call, steps in cases:
@@ -1718,16 +1850,17 @@ def main() -> int:
     _build.operators()
     log(f"build: {time.perf_counter() - t0:.2f}s "
         f"(nvcc seconds per library: {built})")
-    sass = _sass_counts(_build.lib_path("flashattn"), _build)
+    sass = {lib: _sass_counts(_build.lib_path(lib), _build)
+            for lib in ("flashattn", "ssd")}
     regs = ptxas()
-    log(f"build: flashattn SASS instructions {sass}; (registers, spill "
-        f"bytes) {regs}")
-    if not all(sass.values()):
-        raise AssertionError(f"flashattn's SASS lacks {sass}: the kernel "
-                             "does not run on wgmma with TMA loads")
-    wgmma = {k: v for k, v in regs.items() if k.startswith("flash_fwd_wgmma")}
-    if not wgmma or any(sp for _, sp in wgmma.values()):
-        raise AssertionError(f"the tensor-core kernel spills: {wgmma}")
+    log(f"build: SASS instructions {sass}; (registers, spill bytes) {regs}")
+    for lib, counts in sass.items():
+        if not all(counts.values()):
+            raise AssertionError(f"{lib}'s SASS lacks {counts}: its kernel "
+                                 "does not run on wgmma with TMA loads")
+    wgmma = {k: v for k, v in regs.items() if k.startswith(TENSOR_CORE)}
+    if len(wgmma) != 8 or any(sp for _, sp in wgmma.values()):
+        raise AssertionError(f"a tensor-core kernel spills: {wgmma}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     edge = phase_kernels(dev)

@@ -17,7 +17,8 @@ tensors:
     must be segment-ordered (the phase-2 producer orders them; see
     :func:`repro_torch.core.aggregation.compute_lane_partials_torch`);
   * :func:`distributed_histogram_flat` and the grouped form — the
-    ``histbin`` kernel's flat form (rows in any order);
+    ``histbin`` kernel's flat form; on CUDA the rows must be
+    segment-ordered too (the same ordered upload feeds both reducers);
   * :func:`distributed_binstats` — the ``binstats`` kernel's timestamp
     form (float32 timestamps relative to the trace start);
   * :func:`distributed_iqr` — the ``iqr`` kernel.
@@ -139,7 +140,9 @@ def distributed_histogram_flat(seg_ids: torch.Tensor, values: torch.Tensor,
                                valid: Optional[torch.Tensor] = None,
                                ) -> torch.Tensor:
     """Collaborative quantile-sketch bucket counts over an arbitrary flat
-    segment space: (n_metrics, n_seg, N_BUCKETS) float32 counts."""
+    segment space: (n_metrics, n_seg, N_BUCKETS) float32 counts. On CUDA
+    tensors ``seg_ids`` must be non-decreasing (unordered rows leave NaN
+    counts)."""
     local = histbin_flat(seg_ids, values, n_seg,
                          _valid_or_all(valid, seg_ids))
     return _collaborative_sum(local, dim=1)
@@ -167,7 +170,8 @@ def distributed_histogram_grouped(bin_ids: torch.Tensor,
                                   valid: Optional[torch.Tensor] = None,
                                   ) -> torch.Tensor:
     """One-pass multi-metric × group-by bucket counts: returns
-    (n_metrics, n_bins, n_groups, N_BUCKETS)."""
+    (n_metrics, n_bins, n_groups, N_BUCKETS). On CUDA tensors the fused
+    ids must be non-decreasing."""
     flat = bin_ids * n_groups + group_ids
     out = distributed_histogram_flat(flat, values, n_bins * n_groups,
                                      valid=valid)

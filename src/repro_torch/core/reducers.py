@@ -386,9 +386,11 @@ class QuantileSketch(MergeableReducer):
     ``counts`` is (n_bins, N_BUCKETS) in the 1-D case or
     (n_bins, n_groups, n_metrics, N_BUCKETS) for the grouped tensor — the
     bucket axis is always LAST. Merging is pure elementwise addition,
-    which makes the sketch exact under any partitioning/merge order and
-    lets the device backend count it with integer atomics in any row
-    order.
+    which makes the sketch exact under any partitioning/merge order. The
+    device backend counts segment-ordered rows with shared-memory integer
+    atomics, one block per range of segments, and writes each count once;
+    rows out of order reach :meth:`device_reduce` as NaN counts, and it
+    raises.
 
     Quantile answers carry bounded relative error
     :data:`QUANTILE_REL_ERR` for values within the covered range (the
@@ -456,12 +458,17 @@ class QuantileSketch(MergeableReducer):
     @classmethod
     def device_reduce(cls, seg_ids, values, n_seg: int, device,
                       valid) -> np.ndarray:
+        from ..kernels.histbin.ops import disordered
         from .distributed import distributed_histogram_flat
         out = distributed_histogram_flat(
             _on(seg_ids, torch.int32, device),
             _on(values, torch.float32, device), n_seg,
-            valid=_on(valid, torch.bool, device))
-        return np.moveaxis(out.cpu().numpy(), 0, 1)   # (n_seg, M, NB)
+            valid=_on(valid, torch.bool, device)).cpu().numpy()
+        # the kernel's order verdict arrives in this copy (NaN counts)
+        if disordered(out):
+            raise ValueError("histbin_flat: rows are not segment-ordered "
+                             "(seg must be non-decreasing on CUDA tensors)")
+        return np.moveaxis(out, 0, 1)   # (n_seg, M, NB)
 
     @classmethod
     def from_device_block(cls, block: np.ndarray) -> "QuantileSketch":

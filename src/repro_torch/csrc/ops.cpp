@@ -1,15 +1,19 @@
-// PyTorch operators for the binstats and rolling kernels.
+// PyTorch operators for the binstats, histbin and rolling kernels.
 //
 // A wrapper call through ctypes spent most of its host time in Python
 // around one launch: argument checks, torch.empty, the stream lookup and
 // the ctypes conversion (chip_smoke.py's host trace). Here each operator
 // does all of that in C++ and launches through the kernels' own C entry
-// points (binstats.cu, rolling.cu, linked into the same library):
+// points (binstats.cu, histbin.cu, rolling.cu, linked into the same
+// library):
 //
 //   torch.ops.repro_torch.rolling_stats(x, window)
 //   torch.ops.repro_torch.binstats_flat(seg, values, n_seg, valid)
 //   torch.ops.repro_torch.binstats_ts(rel_ts, values, valid, total_ns,
 //                                     n_bins)
+//   torch.ops.repro_torch.histbin_flat(seg, values, n_seg, valid)
+//   torch.ops.repro_torch.histbin_ts(rel_ts, values, valid, total_ns,
+//                                    n_bins)
 //
 // Each checks its arguments (ValueError / TypeError as the plain
 // versions' callers expect), allocates its output with at::empty on the
@@ -36,11 +40,17 @@ long binstats_ts_scratch(int n_bins, int n_metrics);
 int binstats_ts(const float* rel_ts, const float* values,
                 const uint8_t* valid, long n, int n_metrics, int n_bins,
                 float inv_width, int* cnt, float* out, void* stream);
+int histbin_flat(const int* seg, const float* values, const uint8_t* valid,
+                 long n, int n_seg, int n_metrics, float* out, void* stream);
+int histbin_ts(const float* rel_ts, const float* values, const uint8_t* valid,
+               long n, int n_bins, int n_metrics, float inv_width, float* out,
+               void* stream);
 }
 
 namespace {
 
 constexpr int64_t kStats = 5;
+constexpr int64_t kBuckets = 384;   // histbin.cu's N_BUCKETS
 
 void check_vector(const at::Tensor& t, const char* name,
                   c10::ScalarType dtype, const at::Tensor& like,
@@ -140,6 +150,54 @@ at::Tensor binstats_ts_op(const at::Tensor& rel_ts, const at::Tensor& values,
   return out;
 }
 
+// (n_seg, 384) for 1-D values, (M, n_seg, 384) for 2-D ones
+at::Tensor histogram_out(const at::Tensor& values, int64_t n_seg) {
+  return values.dim() == 1
+             ? at::empty({n_seg, kBuckets}, values.options())
+             : at::empty({values.size(0), n_seg, kBuckets}, values.options());
+}
+
+at::Tensor histbin_flat_op(const at::Tensor& seg, const at::Tensor& values,
+                           int64_t n_seg, const at::Tensor& valid) {
+  TORCH_CHECK_VALUE(n_seg >= 1, "n_seg must be >= 1, got ", n_seg);
+  check_values(values);
+  const int64_t n = values.size(-1);
+  const int64_t m = values.dim() == 1 ? 1 : values.size(0);
+  check_vector(seg, "seg", at::kInt, values, n);
+  check_vector(valid, "valid", at::kBool, values, n);
+  const c10::cuda::CUDAGuard guard(values.device());
+  at::Tensor out = histogram_out(values, n_seg);
+  check_launch(histbin_flat(seg.data_ptr<int>(), values.data_ptr<float>(),
+                            reinterpret_cast<const uint8_t*>(
+                                valid.data_ptr<bool>()),
+                            (long)n, (int)n_seg, (int)m,
+                            out.data_ptr<float>(), stream_of(values)),
+               "histbin_flat");
+  return out;
+}
+
+at::Tensor histbin_ts_op(const at::Tensor& rel_ts, const at::Tensor& values,
+                         const at::Tensor& valid, double total_ns,
+                         int64_t n_bins) {
+  TORCH_CHECK_VALUE(n_bins >= 1, "n_bins must be >= 1, got ", n_bins);
+  check_values(values);
+  const int64_t n = values.size(-1);
+  const int64_t m = values.dim() == 1 ? 1 : values.size(0);
+  check_vector(rel_ts, "rel_ts", at::kFloat, values, n);
+  check_vector(valid, "valid", at::kBool, values, n);
+  const c10::cuda::CUDAGuard guard(values.device());
+  at::Tensor out = histogram_out(values, n_bins);
+  // float32(n_bins / total_ns), as the plain version bins
+  const float inv_width = (float)((double)n_bins / total_ns);
+  check_launch(histbin_ts(rel_ts.data_ptr<float>(), values.data_ptr<float>(),
+                          reinterpret_cast<const uint8_t*>(
+                              valid.data_ptr<bool>()),
+                          (long)n, (int)n_bins, (int)m, inv_width,
+                          out.data_ptr<float>(), stream_of(values)),
+               "histbin");
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -148,10 +206,16 @@ TORCH_LIBRARY(repro_torch, m) {
         " -> Tensor");
   m.def("binstats_ts(Tensor rel_ts, Tensor values, Tensor valid, "
         "float total_ns, int n_bins) -> Tensor");
+  m.def("histbin_flat(Tensor seg, Tensor values, int n_seg, Tensor valid)"
+        " -> Tensor");
+  m.def("histbin_ts(Tensor rel_ts, Tensor values, Tensor valid, "
+        "float total_ns, int n_bins) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("rolling_stats", &rolling_stats_op);
   m.impl("binstats_flat", &binstats_flat_op);
   m.impl("binstats_ts", &binstats_ts_op);
+  m.impl("histbin_flat", &histbin_flat_op);
+  m.impl("histbin_ts", &histbin_ts_op);
 }

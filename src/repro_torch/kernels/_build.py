@@ -8,8 +8,8 @@ Two kinds of library, both for ``sm_90a``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
-* :data:`OPERATORS` — ``ops.cpp`` with the ``binstats`` and ``rolling``
-  kernels — is one library of PyTorch operators (``TORCH_LIBRARY``),
+* :data:`OPERATORS` — ``ops.cpp`` with the ``binstats``, ``histbin`` and
+  ``rolling`` kernels — is one library of PyTorch operators (``TORCH_LIBRARY``),
   loaded with ``torch.ops.load_library``: a call checks its arguments,
   allocates its output, takes the current stream and launches in C++.
   ``ops.cpp`` is the only file that includes PyTorch's headers, and
@@ -39,8 +39,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flashattn", "histbin", "iqr", "ssd")
-OPERATORS = ("ops.cpp", "binstats.cu", "rolling.cu")
+SOURCES = ("flashattn", "iqr", "ssd")
+OPERATORS = ("ops.cpp", "binstats.cu", "histbin.cu", "rolling.cu")
 LIBRARIES = SOURCES + ("ops",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -102,10 +102,12 @@ binstats_flat.launches = 0
 
 
 def disordered(table) -> bool:
-    """Whether a :func:`binstats_flat` table (a tensor or an array) came
-    from rows out of segment order: the kernel leaves NaN in the count of
-    at least one cell then. Reading a CUDA tensor waits for the kernel;
-    read the copy you make anyway."""
+    """Whether a :func:`binstats_flat` or
+    :func:`repro_torch.kernels.histbin.histbin_flat` table (a tensor or an
+    array) came from rows out of segment order: the kernels leave NaN at
+    index 0 of the last axis of at least one cell then (the count; bucket
+    0, of which histbin's kernel fills every bucket). Reading a CUDA tensor
+    waits for the kernel; read the copy you make anyway."""
     counts = table[..., 0]
     if isinstance(counts, torch.Tensor):
         return bool(torch.isnan(counts).any())

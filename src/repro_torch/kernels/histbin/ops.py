@@ -3,8 +3,16 @@ their plain PyTorch versions.
 
 * :func:`histbin_flat` — counts over an arbitrary flat segment space (the
   quantile reducer's phase-2 path,
-  :func:`repro_torch.core.distributed.distributed_histogram_flat`). Rows
-  may come in any order; ids outside ``[0, n_seg)`` are dropped.
+  :func:`repro_torch.core.distributed.distributed_histogram_flat`). Ids
+  outside ``[0, n_seg)`` and invalid rows are dropped. On a CUDA tensor
+  the rows must arrive segment-ordered (``seg`` non-decreasing; ids below
+  0 first, ids at or above ``n_seg`` last): one launch counts each block's
+  segments in shared memory and writes every cell once. The kernel checks
+  the order in the same launch and the call does not wait for it: rows
+  out of order leave NaN in every bucket of at least one segment, which
+  the caller sees in its own copy of the table (:func:`disordered`);
+  ``QuantileSketch.device_reduce`` raises ``ValueError`` on it. The plain
+  version takes any order.
 * :func:`histbin` — the TPU kernel's own contract: float32 timestamps
   relative to the trace start are binned (and clipped) in-kernel.
 
@@ -12,21 +20,20 @@ Bucket: ``clip(floor(log2(max(v, 1)) * 8), 0, 383)`` in float32, as
 :func:`repro_torch.core.distributed.bucketize`. Counts come back as
 float32, bucket axis last, ready for ``QuantileSketch(counts=...)``. A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel (``repro_torch/csrc/histbin.cu``) or raises.
+launches the kernel (``repro_torch/csrc/histbin.cu``) through a PyTorch
+operator written in C++ (``csrc/ops.cpp``) or raises.
 ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import numpy as np
 import torch
 
 from ...core.reducers import N_BUCKETS, SUBDIV, V_FLOOR
-from .. import _build
-from .._check import check_tensor, stream_ptr
-from ..binstats.ops import _as_2d, _ts_bins
+# disordered: the order verdict of a flat table, read the same way for
+# both kernels (NaN at index 0 of the last axis)
+from ..binstats.ops import (_as_2d, _operator, _ts_bins,  # noqa: F401
+                            disordered)
 
 
 def bucketize(values: torch.Tensor) -> torch.Tensor:
@@ -57,33 +64,21 @@ def histbin_flat(seg: torch.Tensor, values: torch.Tensor, n_seg: int,
                  valid: torch.Tensor) -> torch.Tensor:
     """Per-(metric, segment) bucket counts.
 
-    seg    : (N,) int32 segment ids (any order)
+    seg    : (N,) int32 segment ids; on CUDA, segment-ordered
     values : (N,) or (M, N) float32
     valid  : (N,) bool
-    Returns (n_seg, 384), or (M, n_seg, 384) for 2-D ``values``."""
+    Returns (n_seg, 384), or (M, n_seg, 384) for 2-D ``values``. On CUDA
+    the call returns without waiting for the kernel; unordered rows show
+    as NaN counts (see :func:`disordered`)."""
+    if values.device.type == "cuda":
+        out = _operator("histbin_flat")(seg, values, n_seg, valid)
+        histbin_flat.launches += 1
+        return out
     if n_seg < 1:
         raise ValueError(f"n_seg must be >= 1, got {n_seg}")
     if values.device.type == "cpu":
         return histbin_flat_plain(seg, values, n_seg, valid)
-    if values.device.type != "cuda":
-        raise ValueError(f"histbin_flat: unsupported device {values.device}")
-    dev = values.device
-    vals, squeeze = _as_2d(values)
-    check_tensor(vals, "values", torch.float32, 2, dev)
-    m, n = vals.shape
-    check_tensor(seg, "seg", torch.int32, 1, dev)
-    check_tensor(valid, "valid", torch.bool, 1, dev)
-    if seg.shape[0] != n or valid.shape[0] != n:
-        raise ValueError("seg / valid do not match values")
-    lib = _lib()
-    out = torch.empty((m, n_seg, N_BUCKETS), dtype=torch.float32,
-                      device=dev)
-    code = lib.histbin_flat(seg.data_ptr(), vals.data_ptr(),
-                            valid.data_ptr(), n, n_seg, m, out.data_ptr(),
-                            stream_ptr(dev))
-    histbin_flat.launches += 1
-    _build.check(code, "histbin_flat")
-    return out[0] if squeeze else out
+    raise ValueError(f"histbin_flat: unsupported device {values.device}")
 
 
 histbin_flat.launches = 0
@@ -106,42 +101,16 @@ def histbin(rel_ts: torch.Tensor, values: torch.Tensor,
     Returns (n_bins, 384), or (M, n_bins, 384) for 2-D ``values``."""
     if n_bins < 1:
         raise ValueError(f"n_bins must be >= 1, got {n_bins}")
+    if values.device.type == "cuda":
+        out = _operator("histbin_ts")(rel_ts, values, valid,
+                                      float(total_ns), n_bins)
+        histbin.launches += 1
+        return out
     if values.device.type == "cpu":
         return histbin_plain(rel_ts, values, valid, total_ns=total_ns,
                              n_bins=n_bins)
-    if values.device.type != "cuda":
-        raise ValueError(f"histbin: unsupported device {values.device}")
-    dev = values.device
-    vals, squeeze = _as_2d(values)
-    check_tensor(vals, "values", torch.float32, 2, dev)
-    m, n = vals.shape
-    check_tensor(rel_ts, "rel_ts", torch.float32, 1, dev)
-    check_tensor(valid, "valid", torch.bool, 1, dev)
-    if rel_ts.shape[0] != n or valid.shape[0] != n:
-        raise ValueError("rel_ts / valid do not match values")
-    lib = _lib()
-    out = torch.empty((m, n_bins, N_BUCKETS), dtype=torch.float32,
-                      device=dev)
-    code = lib.histbin_ts(rel_ts.data_ptr(), vals.data_ptr(),
-                          valid.data_ptr(), n, n_bins, m,
-                          float(np.float32(n_bins / total_ns)),
-                          out.data_ptr(), stream_ptr(dev))
-    histbin.launches += 1
-    _build.check(code, "histbin")
-    return out[0] if squeeze else out
+    raise ValueError(f"histbin: unsupported device {values.device}")
 
 
 histbin.launches = 0
 
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("histbin")
-    if not getattr(lib, "_typed", False):
-        p, i, l, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
-                      ctypes.c_float)
-        lib.histbin_flat.argtypes = [p, p, p, l, i, i, p, p]
-        lib.histbin_flat.restype = i
-        lib.histbin_ts.argtypes = [p, p, p, l, i, i, f, p, p]
-        lib.histbin_ts.restype = i
-        lib._typed = True
-    return lib

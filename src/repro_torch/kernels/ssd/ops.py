@@ -11,10 +11,10 @@ Everything inside the scan is float32: dt, A, x̄ = dt·x, the decay
 exponents and the state.
 
 :func:`ssd_fused` given CPU tensors runs :func:`ssd_fused_plain`; given
-CUDA tensors it reorders to the kernel's head-major layout, pads the
-sequence to a multiple of ``chunk`` with ``dtA = 0`` (the identity step),
-launches the kernel (source ``repro_torch/csrc/ssd.cu``) or raises.
-``ssd_fused.launches`` counts kernel launches.
+CUDA tensors it launches one of the two kernels of
+``repro_torch/csrc/ssd.cu`` or raises (see :func:`ssd_fused` for which).
+``ssd_fused.launches`` counts kernel launches and
+``ssd_fused.wgmma_launches`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from .. import _build
 from .._check import check_tensor, stream_ptr
 
-P_TILE = 64       # the kernel's limits (csrc/ssd.cu)
+P_TILE = 64       # the CUDA-core kernel's limits (csrc/ssd.cu)
 MAX_CHUNK = 128
 MAX_STATE = 128
+TC_CHUNK = 128    # the tensor-core kernel's chunk
 
 
 def _check_shapes(xs, dt, A_log, B, C, D) -> None:
@@ -102,9 +103,24 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     """SSD chunk scan plus ``D·x`` (the TPU kernel's contract,
     ``repro/kernels/ssd/ops.py::ssd_fused``).
 
-    B and C reach the kernel as they come, in bfloat16 or float32. The
-    kernel takes chunk <= 128, N <= 128 and P at most 64 or a multiple of
-    64; it raises on anything else."""
+    On CUDA tensors the kernel is chosen by a fixed rule, with no fallback
+    on failure:
+
+    * bfloat16 ``xs``, ``B`` and ``C`` with ``chunk == 128``, P a multiple
+      of 16 up to 64 and N a multiple of 16 up to 128 (the serving path's
+      calls) run the tensor-core kernel ``ssd_wgmma``. It reads the model
+      layout in place (``xs``, ``B`` and ``C`` through their strides, which
+      must be multiples of 8 elements with a contiguous last dimension),
+      computes ``dt·(-exp(A_log))`` and its chunk cumsum itself, masks the
+      ragged last chunk with ``dt = 0`` and writes ``y`` in bfloat16 and
+      the state in float32: one launch, no copies. Counted in
+      ``ssd_fused.wgmma_launches``.
+    * Everything else (float32 inputs, other shapes) runs the CUDA-core
+      kernel ``ssd_scan_kernel`` on head-major float32 copies of
+      ``x̄ = dt·x`` and ``dtA``, the sequence padded to a multiple of
+      ``chunk``; B and C reach it in bfloat16 or float32. It takes
+      chunk <= 128, N <= 128 and P at most 64 or a multiple of 64, and
+      raises on anything else."""
     if xs.device.type == "cpu":
         return ssd_fused_plain(xs, dt, A_log, B, C, D, chunk=chunk)
     if xs.device.type != "cuda":
@@ -124,6 +140,8 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     if Pd > P_TILE and Pd % P_TILE:
         raise ValueError(f"head_dim {Pd}: the kernel takes P <= {P_TILE} or "
                          f"a multiple of {P_TILE}")
+    if _tensor_core_call(xs, B, C, chunk):
+        return _ssd_wgmma(xs, dt, A_log, B, C, D)
     dev = xs.device
     f32 = torch.float32
     dtf = dt.to(f32)
@@ -161,6 +179,54 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
 
 
 ssd_fused.launches = 0
+ssd_fused.wgmma_launches = 0
+
+
+def _tensor_core_call(xs, B, C, chunk) -> bool:
+    """Whether :func:`ssd_fused` runs the tensor-core kernel (its docstring
+    gives the rule)."""
+    bf = torch.bfloat16
+    Pd, N = xs.shape[3], B.shape[3]
+    return (xs.dtype == bf and B.dtype == bf and C.dtype == bf
+            and chunk == TC_CHUNK and Pd % 16 == 0 and 16 <= Pd <= P_TILE
+            and N % 16 == 0 and 16 <= N <= MAX_STATE)
+
+
+def _ssd_wgmma(xs, dt, A_log, B, C, D):
+    """One launch of ``ssd_wgmma`` on the model-layout tensors."""
+    b, s, H, Pd = xs.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = xs.device
+    f32 = torch.float32
+    for t, name in ((xs, "xs"), (B, "B"), (C, "C")):
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or \
+                t.data_ptr() % 16:
+            raise ValueError(f"{name}: strides {t.stride()}: the tensor-core "
+                             "kernel takes a contiguous last dimension, "
+                             "other strides multiples of 8 and a 16-byte "
+                             "aligned start")
+    dtf = dt.to(f32).contiguous()
+    a_log = A_log.to(f32).contiguous()
+    d = D.to(f32).contiguous()
+    for t, name in ((dtf, "dt"), (a_log, "A_log"), (d, "D")):
+        check_tensor(t, name, f32, t.dim(), dev)
+    y = torch.empty((b, s, H, Pd), dtype=xs.dtype, device=dev)
+    state = torch.empty((b, H, Pd, N), dtype=f32, device=dev)
+    strides = (ctypes.c_long * 9)(*xs.stride()[:3], *B.stride()[:3],
+                                  *C.stride()[:3])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.ssd_scan_bf16(xs.data_ptr(), dtf.data_ptr(),
+                                 a_log.data_ptr(), B.data_ptr(),
+                                 C.data_ptr(), d.data_ptr(), y.data_ptr(),
+                                 state.data_ptr(), b, s, H, Pd, G, N,
+                                 strides, stream_ptr(dev))
+    ssd_fused.launches += 1
+    ssd_fused.wgmma_launches += 1
+    _build.check(code, "ssd_fused")
+    return y, state
 
 
 def _lib() -> ctypes.CDLL:
@@ -169,5 +235,8 @@ def _lib() -> ctypes.CDLL:
         p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.ssd_scan.argtypes = [p, p, p, p, i, p, p, l, i, i, i, i, i, p]
         lib.ssd_scan.restype = i
+        lib.ssd_scan_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                      i, ctypes.POINTER(l), p]
+        lib.ssd_scan_bf16.restype = i
         lib._typed = True
     return lib

@@ -15,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.reducers import BinStats
+from repro_torch.core.reducers import BinStats, QuantileSketch
 from repro_torch.kernels.binstats import (binstats, binstats_flat,
                                           binstats_flat_plain,
                                           binstats_plain)
 from repro_torch.kernels.binstats.ops import _ts_bins, disordered
 from repro_torch.kernels.histbin import (histbin, histbin_flat,
                                          histbin_flat_plain, histbin_plain)
+from repro_torch.kernels.histbin.ops import disordered as hist_disordered
 from repro_torch.kernels.iqr import iqr_fences, iqr_fences_plain
 
 RTOL = 1e-5
@@ -204,13 +205,53 @@ def test_binstats_flat_does_not_wait_for_its_kernel(cuda):
 
 
 def test_histbin_kernels_on_card(cuda):
+    """Both forms against their plain versions; the flat form is one
+    kernel a call (no memset, no second kernel), and unordered ids leave
+    NaN counts, on which the main path's reducer raises."""
     ts, vals, valid, seg = _events(11, 70001, 3, 1000)
     t = [torch.from_numpy(x).to(cuda) for x in (ts, vals, valid, seg)]
-    assert_hist_close(histbin_flat(t[3], t[1], 1000, t[2]).cpu(),
+    got = histbin_flat(t[3], t[1], 1000, t[2])
+    assert not hist_disordered(got.cpu())
+    assert_hist_close(got.cpu(),
                       histbin_flat_plain(t[3], t[1], 1000, t[2]).cpu())
     assert_hist_close(
         histbin(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu(),
         histbin_plain(t[0], t[1], t[2], total_ns=1e9, n_bins=77).cpu())
+    ops = _device_ops(lambda: histbin_flat(t[3], t[1], 1000, t[2]))
+    assert len(ops) == 1 and "histbin_seg_kernel" in ops[0], ops
+    flipped = t[3].flip(0).contiguous()
+    assert hist_disordered(histbin_flat(flipped, t[1], 1000, t[2]).cpu())
+    with pytest.raises(ValueError):
+        QuantileSketch.device_reduce(flipped, t[1], 1000, cuda, t[2])
+
+
+@pytest.mark.parametrize("case", ["one_segment", "empty_segments",
+                                  "out_of_range", "all_invalid",
+                                  "ragged_block"])
+def test_histbin_flat_edges_on_card(cuda, case):
+    """One segment holding every row, mostly empty segments, ids below 0
+    and at or above n_seg (dropped; they lead and trail the ordered
+    rows), no valid row, and n_seg not a multiple of a block's 8
+    segments."""
+    rng = np.random.default_rng(18)
+    n, n_seg = {"one_segment": (70_001, 1), "empty_segments": (50, 5000),
+                "out_of_range": (9_000, 300), "all_invalid": (999, 30),
+                "ragged_block": (20_000, 1_003)}[case]
+    lo, hi = (-40, n_seg + 40) if case == "out_of_range" else (0, n_seg)
+    seg = np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+    vals = rng.lognormal(8.0, 2.0, (3, n)).astype(np.float32)
+    valid = (np.zeros(n, bool) if case == "all_invalid"
+             else rng.random(n) > 0.1)
+    t = [torch.from_numpy(x).to(cuda) for x in (seg, vals, valid)]
+    got = histbin_flat(t[0], t[1], n_seg, t[2]).cpu()
+    assert not hist_disordered(got)
+    assert_hist_close(got, histbin_flat_plain(t[0], t[1], n_seg,
+                                              t[2]).cpu())
+    if case == "out_of_range":
+        # a row of id -1 after a row of id 0 is disorder
+        bad = t[0].clone()
+        bad[-1] = -1
+        assert hist_disordered(histbin_flat(bad, t[1], n_seg, t[2]).cpu())
 
 
 @pytest.mark.parametrize("n", [1, 2, 12_000, 40_000])
@@ -274,18 +315,74 @@ def ssd_inputs(seed, b, s, H, P, G, N, dtype=torch.float32,
 def test_ssd_kernel_on_card(cuda, shape, bc_dtype):
     """y and the state within rtol = atol = 1e-4 of the plain version, the
     reference's own tolerance (tests/test_kernels.py): both sum in
-    float32, in another order."""
+    float32, in another order. float32 x runs the CUDA-core kernel."""
     from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
     b, s, H, P, G, N, chunk = shape
     args = ssd_inputs(sum(shape), b, s, H, P, G, N, bc_dtype=bc_dtype,
                       device=cuda)
     before = ssd_fused.launches
+    before_tc = ssd_fused.wgmma_launches
     yk, hk = ssd_fused(*args, chunk=chunk)
     assert ssd_fused.launches == before + 1
+    assert ssd_fused.wgmma_launches == before_tc
     yp, hp = ssd_fused_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     np.testing.assert_allclose(yk.cpu().numpy(), yp.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hk.cpu().numpy(), hp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _tensor_core_shape(P, N, chunk):
+    return chunk == 128 and P % 16 == 0 and P <= 64 and N % 16 == 0 and \
+        N <= 128
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES + [(2, 333, 3, 64, 3, 48, 128),
+                                                (1, 2176, 2, 64, 1, 16, 128)],
+                         ids=str)
+def test_ssd_kernel_bf16_on_card(cuda, shape):
+    """bfloat16 x, B and C (the serving path's types): chunk 128 with P and
+    N multiples of 16 runs the tensor-core kernel (counted in
+    ``wgmma_launches``), anything else the CUDA-core one. y in bfloat16
+    within one rounding step (rtol 2^-7, atol 1e-4) and the float32 state
+    within rtol = atol = 1e-4 of the plain version. The added shapes: a
+    ragged S with N = 48 (zero-filled to 64) and G == H, and hymba's S."""
+    from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
+    b, s, H, P, G, N, chunk = shape
+    bf = torch.bfloat16
+    args = ssd_inputs(sum(shape) + 1, b, s, H, P, G, N, dtype=bf,
+                      bc_dtype=bf, device=cuda)
+    before_tc = ssd_fused.wgmma_launches
+    yk, hk = ssd_fused(*args, chunk=chunk)
+    assert ssd_fused.wgmma_launches == before_tc + _tensor_core_shape(
+        P, N, chunk)
+    yp, hp = ssd_fused_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert yk.dtype == bf and hk.dtype == torch.float32
+    np.testing.assert_allclose(yk.float().cpu().numpy(),
+                               yp.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=1e-4)
+    np.testing.assert_allclose(hk.cpu().numpy(), hp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_reads_strided_inputs(cuda):
+    """x, B and C as views of wider tensors: the tensor-core kernel's
+    tensor maps read them through their strides, without copies."""
+    from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
+    bf = torch.bfloat16
+    xs, dt, A_log, B, C, D = ssd_inputs(4, 2, 300, 4, 128, 1, 64, dtype=bf,
+                                        bc_dtype=bf, device=cuda)
+    xs, B, C = xs[..., :64], B[..., :32], C[..., :32]
+    assert not xs.is_contiguous()
+    before_tc = ssd_fused.wgmma_launches
+    yk, hk = ssd_fused(xs, dt, A_log, B, C, D, chunk=128)
+    assert ssd_fused.wgmma_launches == before_tc + 1
+    yp, hp = ssd_fused_plain(xs, dt, A_log, B, C, D, chunk=128)
+    np.testing.assert_allclose(yk.float().cpu().numpy(),
+                               yp.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=1e-4)
     np.testing.assert_allclose(hk.cpu().numpy(), hp.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
 
