@@ -18,10 +18,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              instantiation spills;
 3. kernels — every kernel entry point against its plain PyTorch version
              on the card at edge shapes (ragged N, all rows invalid, n_seg
-             not a multiple of 128 with empty segments, M = 1 and 3; iqr
-             at n = 1, a non-power-of-two n, no occupied bin, and a table
-             above the single-block limit; ssd with S not a multiple of
-             the chunk, G == H and G < H, P/N 8/16, 64/16 and 64/128,
+             not a multiple of 128 with empty segments, M = 1 and 3; ssd
+             with S not a multiple of the chunk, G == H and G < H, P/N
+             8/16, 64/16 and 64/128,
              chunks 8, 16 and 128, bfloat16 and float32 B/C with float32
              x, and bfloat16 x, B and C, whose chunk-128 shapes must run
              the tensor-core kernel;
@@ -38,9 +37,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              or above n_seg, no valid row, and unordered rows, which must
              leave NaN counts and raise in QuantileSketch.device_reduce;
              binstats at 1 bin and 12,000 bins
-             (1 and 3 metrics); iqr_fences in float64 at n = 1, 2, 12,000
-             and 40,000 (the multi-launch path), equal to the float64
-             plain version; rolling_stats at n = 1 with window
+             (1 and 3 metrics); iqr_fences in float32 at n = 1, 1,000,
+             4,096, 5,000 with no occupied bin, 12,000, 16,384, 32,768,
+             32,769, 40,000 and 100,000, in float64 at n = 1, 2, 3, 4,096,
+             12,000, 16,384, 16,385, 40,000 and 120,000 (one cluster
+             launch up to 16,384 keys, the tile-and-merge path above),
+             tables of ties, negatives and -0.0, all scores equal and no
+             occupied bin at 12,000 and 40,000 in both types, and the
+             1e8-ns table of tests/test_torch_fences.py, each equal to the
+             plain version exactly; rolling_stats at n = 1 with window
              1, window 16 above n = 5, n = 1,000 with window 100, window
              = n = 1,024, a ragged n = 2,049 with window 64, window 1,500
              above the 1,024-output tile at n = 3,000, and window 1 at
@@ -111,18 +116,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              binstats' timestamp form and rolling_stats at the micro
              phase's calls, rolling_stats also at one rank's stall series
              (105,000 values, window 1,024), binstats also at the Table-1
-             rows, iqr_fences at the main path's float64 call and at the
-             same scores in float32;
+             rows, iqr_fences at the main path's float64 call, at the
+             same scores in float32, at the micro phase's float32 call and
+             at 120,000 seeded float64 scores (80% occupied), each with
+             torch.quantile as the yardstick; the profiler's own-kernel
+             count must be 1 a call up to 16,384 keys and at most 16 at
+             120,000;
 11. host trace — time.perf_counter_ns around each step of the
-             rolling_stats, binstats, binstats_flat and histbin_flat
-             wrappers (checks, allocations, library lookup, stream lookup,
-             binding call and launch, result check) over 10,000 calls at
-             their path shapes, nothing synchronised inside a call;
-             today's steps (the C++ operator), the same C entries through
-             lean ctypes steps, and the earlier ctypes wrapper's steps
-             replayed, each beside the whole wrapper call.
+             rolling_stats, binstats, binstats_flat, histbin_flat and
+             iqr_fences wrappers (checks, allocations, library lookup,
+             stream lookup, binding call and launch, result check) over
+             10,000 calls at their path shapes, nothing synchronised
+             inside a call; today's steps (the C++ operator), the same C
+             entries through lean ctypes steps (not for iqr_fences), and
+             the earlier ctypes wrapper's steps replayed, each beside the
+             whole wrapper call; then core.anomaly.iqr_detect at the main
+             path's call over 2,000 calls, split into host prep, upload,
+             kernel call, the two device-to-host reads and host ranking.
 
-Tolerances: counts, min, max, flags and iqr outputs exact; float32 sums
+Tolerances: counts, min, max, flags and iqr outputs (sorted table,
+flags, stats) exact; float32 sums
 rtol 1e-5 (atomics and summation order differ), and for the edge cases
 whose cells sum tens of thousands of rows (one segment, one long
 segment, one bin) each sum within float32's worst-case summation bound
@@ -363,8 +376,16 @@ PTXAS_KERNELS = (("flash_fwd_wgmmaILi16E", "flash_fwd_wgmma<16>"),
                  ("histbin_seg_kernel", "histbin_seg_kernel"),
                  ("binstats_seg_kernel", "binstats_seg_kernel"),
                  ("binstats_ts_cluster_kernel", "binstats_ts_cluster_kernel"),
-                 ("iqr_smem_kernelIfE", "iqr_smem_kernel<float>"),
-                 ("iqr_smem_kernelIdE", "iqr_smem_kernel<double>"),
+                 ("iqr_cluster_kernelIfLi0E",
+                  "iqr_cluster_kernel<float, single>"),
+                 ("iqr_cluster_kernelIdLi0E",
+                  "iqr_cluster_kernel<double, single>"),
+                 ("iqr_cluster_kernelIdLi1E",
+                  "iqr_cluster_kernel<double, tile>"),
+                 ("iqr_cluster_kernelIdLi2E",
+                  "iqr_cluster_kernel<double, finish>"),
+                 ("iqr_merge_kernelIdLi3E", "iqr_merge_kernel<double, 3>"),
+                 ("iqr_output_kernelIdE", "iqr_output_kernel<double>"),
                  ("rolling_kernel", "rolling_kernel"))
 
 
@@ -516,21 +537,33 @@ def phase_kernels(dev):
         else:
             raise AssertionError(f"unordered rows did not raise in "
                                  f"{reducer.__name__}.device_reduce")
-    for n, frac in ((1, 1.0), (12_000, 0.7), (5_000, 0.0),
-                    (100_000, 0.6)):
-        s = torch.from_numpy(
-            rng.lognormal(3.0, 0.6, n).astype(np.float32)).to(dev)
-        occ = torch.from_numpy(rng.random(n) < frac).to(dev)
+    # iqr: float32 (the TPU kernel's contract) and float64 (the analysis
+    # path's) against their plain versions exactly, one cluster launch up
+    # to 16,384 keys and the tile-and-merge path above, at ragged n, no
+    # occupied bin, all scores equal, ties, negatives and -0.0
+    def iqr_case(s, occ):
+        s = torch.from_numpy(s).to(dev)
+        occ = torch.from_numpy(occ).to(dev)
         note("iqr_fences", iqr_err(iq.iqr_fences(s, occ),
                                    iq.iqr_fences_plain(s, occ)))
-    # the float64 form (the analysis path's) equals its plain version
-    # exactly: one CTA up to 16,384 keys, the multi-launch path above
-    for n in (1, 2, 12_000, 40_000):
-        s = torch.from_numpy(np.clip(rng.lognormal(np.log(1e7), 0.8, n),
-                                     1e6, 1e8)).to(dev)
-        occ = torch.from_numpy(rng.random(n) < 0.8).to(dev)
-        note("iqr_fences", iqr_err(iq.iqr_fences(s, occ),
-                                   iq.iqr_fences_plain(s, occ)))
+    for n, frac in ((1, 1.0), (1_000, 0.8), (4_096, 0.8), (12_000, 0.7),
+                    (5_000, 0.0), (16_384, 0.8), (32_768, 0.8),
+                    (32_769, 0.8), (40_000, 0.8), (100_000, 0.6)):
+        iqr_case(rng.lognormal(3.0, 0.6, n).astype(np.float32),
+                 rng.random(n) < frac)
+    for n in (1, 2, 3, 4_096, 12_000, 16_384, 16_385, 40_000, 120_000):
+        iqr_case(np.clip(rng.lognormal(np.log(1e7), 0.8, n), 1e6, 1e8),
+                 rng.random(n) < 0.8)
+    for dtype in (np.float32, np.float64):
+        for n in (12_000, 40_000):
+            ties = (rng.integers(-40, 40, n) / 4).astype(dtype)
+            ties[rng.random(n) < 0.05] = -0.0
+            iqr_case(ties, rng.random(n) < 0.8)
+            iqr_case(np.full(n, 7.5, dtype), rng.random(n) < 0.8)
+            iqr_case(ties, np.zeros(n, bool))
+    # the 1e8-ns table of tests/test_torch_fences.py
+    iqr_case(np.array([1e8, 1e8 + 4, 1e8 + 8, 1e8 + 12, 1e8 + 16, 1e8 + 40]),
+             np.ones(6, bool))
     # ssd: float32 x with float32 and bfloat16 B/C (the CUDA-core kernel),
     # and bfloat16 x, B and C (the tensor-core kernel where chunk, P and N
     # allow it: held to the tensor-core count)
@@ -568,14 +601,12 @@ def phase_kernels(dev):
     return worst
 
 
-def phase_micro(dev):
-    """The reference micro-bench's calls (benchmarks/kernels_bench.py),
-    with its seed and draws in its order, through the port's entry points;
-    returns (launches, |kernel - plain| by kernel, the calls' tensors)."""
+def micro_inputs(dev):
+    """The reference micro-bench's inputs (benchmarks/kernels_bench.py),
+    with its seed and draws in its order: (ts, vals, valid, scores, occ,
+    x) on ``dev``."""
     import numpy as np
     import torch
-
-    import repro_torch.kernels as K
 
     rng = np.random.default_rng(0)
 
@@ -587,6 +618,30 @@ def phase_micro(dev):
     scores = t(np.abs(rng.normal(10, 4, MICRO_SCORES)).astype(np.float32))
     occ = scores != 0
     x = t(rng.normal(0, 1, MICRO_SERIES).astype(np.float32))
+    return ts, vals, valid, scores, occ, x
+
+
+def iqr_table(dev, n, seed):
+    """A float64 per-bin score table of nanosecond sums between 1e6 and
+    1e8, 80% of the bins occupied: (scores, occupied) on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = np.clip(rng.lognormal(np.log(1e7), 0.8, n), 1e6, 1e8)
+    occ = rng.random(n) < 0.8
+    return torch.from_numpy(s).to(dev), torch.from_numpy(occ).to(dev)
+
+
+def phase_micro(dev):
+    """The reference micro-bench's calls (benchmarks/kernels_bench.py),
+    with its seed and draws in its order, through the port's entry points;
+    returns (launches, |kernel - plain| by kernel, the calls' tensors)."""
+    import torch
+
+    import repro_torch.kernels as K
+
+    ts, vals, valid, scores, occ, x = micro_inputs(dev)
     bs_kw = {"total_ns": 1e9, "n_bins": MICRO_BINS}
     counters = _launch_counters()
     torch.cuda.synchronize()
@@ -616,7 +671,8 @@ def phase_micro(dev):
         f"flags), rolling_stats {MICRO_SERIES} values window "
         f"{MICRO_WINDOW}; largest |kernel - plain| {errs}")
     shapes = {"binstats": ((ts, vals, valid), bs_kw),
-              "rolling_stats": (x, MICRO_WINDOW)}
+              "rolling_stats": (x, MICRO_WINDOW),
+              "iqr_fences/micro": ((scores, occ), {})}
     return launches, errs, shapes
 
 
@@ -761,6 +817,7 @@ def phase_main(args, work):
     paths = write_synthetic_dbs(ds, os.path.join(work, "dbs"))
     store = os.path.join(work, "store")
     from repro_torch.core import anomaly, distributed
+    from repro_torch.kernels.iqr import ops as iq
     counters = _launch_counters()
     cap = Capture(((distributed, "binstats_flat"),
                    (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
@@ -779,7 +836,8 @@ def phase_main(args, work):
         f"phase 1 {gen.seconds:.3f}s, phase 2+3 "
         f"{wall - gen.seconds:.3f}s, total {wall:.3f}s")
     log(f"main: device batch {PRODUCER_STATS}")
-    log(f"main: launches {launches}")
+    log(f"main: launches {launches}; iqr_fences launches through "
+        f"torch.ops.{iq._operator()}")
     for name in ("binstats_flat", "histbin_flat", "iqr_fences"):
         if launches[name] < 1:
             raise AssertionError(f"main path never launched {name}")
@@ -1140,6 +1198,7 @@ def _split_profile(fn, own, calls=20):
 SPIN_CYCLES = 2_000_000   # torch.cuda._sleep: about 1 ms of the card
 TRACE_CALLS = 10_000
 TRACE_BATCH = 50          # calls between synchronisations, outside a call
+DETECT_CALLS = 2_000      # iqr_detect synchronises inside every call
 
 
 def _trace(steps, calls=TRACE_CALLS):
@@ -1436,12 +1495,140 @@ def _histbin_steps(args, variant):
             ("result check", done)]
 
 
+def _iqr_steps(scores, occ, variant):
+    """The iqr_fences wrapper's host steps, as :func:`_rolling_steps`:
+    ``op`` today's (the C++ operator, and the result dict with its six
+    named 0-d views from one ``unbind``), ``before`` the earlier ctypes
+    wrapper's steps replayed against the same C entry (its checks, two
+    ``check_tensor`` calls, the typed-function lookup, four
+    ``torch.empty``, the raw stream, the call, the result check and the
+    result dict with its six named 0-d views)."""
+    import ctypes as ct
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._check import check_tensor, stream_ptr
+    from repro_torch.kernels.iqr import ops as iq
+
+    if variant == "op":
+        def checks(st):
+            if not (isinstance(scores, torch.Tensor)
+                    and scores.device.type == "cuda"):
+                raise AssertionError("not a CUDA call")
+
+        def lookup(st):
+            st["op"] = iq._operator()
+
+        def call(st):
+            st["out"] = st["op"](scores, occ, 1.5)
+
+        def result(st):
+            iq._result(*st["out"])
+        return [("checks", checks), ("lookup", lookup),
+                ("operator call (C++ checks, at::empty, stream, launch)",
+                 call), ("result dict", result)]
+
+    f64 = scores.dtype == torch.float64
+    symbol, key = (("iqr_fences_f64", ct.c_double) if f64
+                   else ("iqr_fences", ct.c_float))
+
+    def checks(st):
+        if scores.dim() != 1 or scores.shape[0] < 1:
+            raise AssertionError("shape")
+        if scores.device.type == "cpu" or scores.device.type != "cuda":
+            raise AssertionError("not a CUDA call")
+        check_tensor(scores, "scores", scores.dtype, 1, scores.device)
+        check_tensor(occ, "occupied", torch.bool, 1, scores.device)
+        if occ.shape[0] != scores.shape[0] or scores.shape[0] >= 1 << 30:
+            raise AssertionError("shapes")
+
+    def lookup(st):
+        st["fn"] = _build.function("ops", symbol, [_P, _P, _I, _I, key, _P,
+                                                   _P, _P, _P, _P])
+
+    def alloc(st):
+        n = scores.shape[0]
+        n_p = iq.next_pow2(n)
+        nbytes = _build.load("ops").iqr_scratch_bytes(
+            n_p, scores.element_size())
+        dev = scores.device
+        st["n_p"] = n_p
+        st["scratch"] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                    device=dev)
+        st["srt"] = torch.empty(n, dtype=scores.dtype, device=dev)
+        st["flags"] = torch.empty(n, dtype=torch.int32, device=dev)
+        st["stats"] = torch.empty(8, dtype=scores.dtype, device=dev)
+
+    def stream(st):
+        st["s"] = stream_ptr(scores.device)
+
+    def launch(st):
+        st["code"] = st["fn"](scores.data_ptr(), occ.data_ptr(),
+                              scores.shape[0], st["n_p"], 1.5,
+                              st["scratch"].data_ptr(), st["srt"].data_ptr(),
+                              st["flags"].data_ptr(), st["stats"].data_ptr(),
+                              st["s"])
+
+    def done(st):
+        _build.check(st["code"], "iqr_fences")
+        out = {"sorted": st["srt"], "flags": st["flags"],
+               "stats": st["stats"]}
+        out.update({name: st["stats"][i]
+                    for i, name in enumerate(iq.STAT_NAMES)})
+    return [("checks", checks), ("lookup", lookup), ("alloc", alloc),
+            ("stream", stream), ("binding+launch", launch),
+            ("result check and dict", done)]
+
+
+def _iqr_detect_steps(scores_np, bounds, dev):
+    """``core.anomaly.iqr_detect``'s steps at the main path's call: host
+    prep, the upload, the kernel call, the two device-to-host reads (the
+    stats, then the flags) and the host ranking."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.iqr import iqr_fences
+
+    def prep(st):
+        st["scores"] = s = np.asarray(scores_np, np.float64)
+        occupied = s != 0.0
+        st["fenced"] = occupied if occupied.any() else np.ones_like(occupied)
+
+    def upload(st):
+        st["s_t"] = torch.as_tensor(st["scores"], dtype=torch.float64,
+                                    device=dev)
+        st["o_t"] = torch.as_tensor(st["fenced"], device=dev)
+
+    def call(st):
+        st["out"] = iqr_fences(st["s_t"], st["o_t"], k_factor=1.5)
+
+    def read_stats(st):
+        st["q"] = [float(x) for x in st["out"]["stats"][:5].cpu()]
+
+    def read_flags(st):
+        st["flags"] = st["out"]["flags"].cpu().numpy().astype(bool)
+
+    def rank(st):
+        s, lo, hi = st["scores"], st["q"][3], st["q"][4]
+        flags = st["flags"] | (~st["fenced"] & (s > hi))
+        exceed = np.where(flags, np.abs(s - np.clip(s, lo, hi)), -1.0)
+        top = np.argsort(-exceed, kind="stable")[:min(5, int(flags.sum()))]
+        np.stack([bounds[top], bounds[top + 1]], axis=1).astype(np.int64)
+    return [("host prep", prep), ("upload", upload),
+            ("kernel call", call), ("stats read (sync)", read_stats),
+            ("flags read", read_flags), ("host ranking", rank)]
+
+
 def phase_host_trace(shapes):
-    """Host time per step of the rolling_stats, binstats and binstats_flat
-    wrappers at their path shapes: today's steps (the C++ operator), the
-    same C entries through lean ctypes steps, and the earlier ctypes
-    wrapper's steps replayed,
-    beside the whole wrapper call timed the same way."""
+    """Host time per step of the rolling_stats, binstats, binstats_flat,
+    histbin_flat and iqr_fences wrappers at their path shapes: today's
+    steps (the C++ operator), the same C entries through lean ctypes steps
+    (not for iqr_fences), and the earlier ctypes wrapper's steps replayed,
+    beside the whole wrapper call timed the same way; then iqr_detect at
+    the main path's call, step by step."""
+    import numpy as np
+
     import repro_torch.kernels as K
     from repro_torch.kernels.binstats import binstats_flat
     from repro_torch.kernels.histbin import histbin_flat
@@ -1467,20 +1654,41 @@ def phase_host_trace(shapes):
          lambda st: histbin_flat(*hflat),
          lambda variant: _histbin_steps(hflat, variant)),
     )
+    (scores, occ), _ = shapes["iqr_fences"]
+    cases += (
+        ("iqr_fences", f"{scores.shape[0]} float64 scores",
+         lambda st: K.iqr_fences(scores, occ),
+         lambda variant: _iqr_steps(scores, occ, variant)),)
+    labels = {"op": "today's steps (C++ operator)",
+              "ctypes": "lean ctypes steps",
+              "before": "the earlier wrapper's steps replayed"}
     out = {}
     for name, what, call, steps in cases:
         res = {"call": _trace([("call", call)])[0]}
         parts = []
-        for variant, label in (("op", "today's steps (C++ operator)"),
-                               ("ctypes", "lean ctypes steps"),
-                               ("before",
-                                "the earlier wrapper's steps replayed")):
+        variants = (("op", "before") if name == "iqr_fences"
+                    else ("op", "ctypes", "before"))
+        for variant in variants:
+            label = labels[variant]
             total, per = res[variant] = _trace(steps(variant))
             parts.append(f"{label} {total / 1e3:.2f} us = " + ", ".join(
                 f"{k} {v / 1e3:.2f}" for k, v in per.items()))
         out[name] = res
         log(f"host trace {name} ({what}), mean over {TRACE_CALLS} calls: "
             f"wrapper call {res['call'] / 1e3:.2f} us; " + "; ".join(parts))
+    # iqr_detect at the main path's call: every call synchronises
+    from repro_torch.core import anomaly
+    s_np = scores.cpu().numpy()
+    bounds = np.arange(s_np.shape[0] + 1, dtype=np.int64) * 10_000_000
+    whole, _ = _trace([("call", lambda st: anomaly.iqr_detect(
+        s_np, boundaries=bounds))], DETECT_CALLS)
+    total, per = _trace(_iqr_detect_steps(s_np, bounds, scores.device),
+                        DETECT_CALLS)
+    out["iqr_detect"] = {"call": whole, "steps": (total, per)}
+    log(f"host trace iqr_detect ({s_np.shape[0]} scores), mean over "
+        f"{DETECT_CALLS} calls: whole call {whole / 1e3:.2f} us; steps "
+        f"{total / 1e3:.2f} us = " + ", ".join(
+            f"{k} {v / 1e3:.2f}" for k, v in per.items()))
     return out
 
 
@@ -1574,11 +1782,65 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def time_row(call, plain, library, out, inputs, ops, own,
+             ops_per_s=FP32_OPS_PER_S, calls=20):
+    """One row of the times phase: a wrapper call by CUDA events (what a
+    caller sees, "ms") beside its one-call yardstick, then the device time
+    of a call under torch.profiler (after a warm-up cycle) split into the
+    row's own kernels (``own``, launched from its library) and the
+    wrapper's other device work; the whole read twice, in turn. The bound
+    is the larger of ``inputs`` read and ``out`` written once over the
+    memory rate and ``ops`` over ``ops_per_s``."""
+    nbytes = _nbytes(*inputs) + _nbytes(*out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    ev, lib, dev_ms, other_ms, seen = [], [], [], [], []
+    for _ in range(2):
+        ev.append(_time_ms(call))
+        lib.append(None if library is None else _time_ms(library))
+        d, o, k, others = _split_profile(call, own, calls)
+        dev_ms.append(d)
+        other_ms.append(o)
+        seen.append(k)
+    return {
+        "ms": ev[0], "ms_again": ev[1], "device_ms": dev_ms[0],
+        "device_ms_again": dev_ms[1], "other_device_ms": other_ms[0],
+        "other_device_ms_again": other_ms[1], "own_launches": seen,
+        "kernels_per_call": max(seen) / calls,
+        "other_device_ops": others, "plain_ms": _time_ms(plain),
+        "library_ms": lib[0], "library_ms_again": lib[1],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
+        "ops_ms": t_ops}
+
+
+def iqr_row(fn, plain, scores, occ, kw=None):
+    """``time_row`` of the iqr wrapper ``fn`` on (scores, occ): the plain
+    version ``plain``, ``torch.quantile`` of the occupied scores as the
+    yardstick, n log2 n comparisons as its operations."""
+    import math
+
+    import torch
+    kw = kw or {}
+    res = fn(scores, occ, **kw)
+    n = scores.shape[0]
+    q = torch.tensor([0.25, 0.75], dtype=scores.dtype, device=scores.device)
+    occ_scores = scores[occ]
+    return time_row(lambda: fn(scores, occ, **kw),
+                    lambda: plain(scores, occ, **kw),
+                    lambda: torch.quantile(occ_scores, q),
+                    [res["sorted"], res["flags"], res["stats"]],
+                    [scores, occ], n * max(math.log2(n), 1.0),
+                    kernel_names("iqr"))
+
+
+IQR_120K = 120_000   # scores: 1 ms bins of the Table-1 trace
+
+
 def phase_times(shapes):
     """Kernel, plain version and a one-call yardstick at the main path's
     shapes, with each kernel's bound."""
-    import math
-
     import torch
 
     from repro_torch.core.reducers import N_BUCKETS
@@ -1588,34 +1850,8 @@ def phase_times(shapes):
     counters = _launch_counters()
     rows = {}
 
-    def record(name, call, plain, library, out, inputs, ops, own,
-               ops_per_s=FP32_OPS_PER_S):
-        nbytes = _nbytes(*inputs) + _nbytes(*out)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / ops_per_s * 1e3
-        # a wrapper call by CUDA events (what a caller sees, "ms") beside
-        # its one-call yardstick, then the device time of a call under
-        # torch.profiler (after a warm-up cycle) split into the row's own
-        # kernels (``own``, launched from its library) and the wrapper's
-        # other device work; the whole read twice, in turn
-        ev, lib, dev_ms, other_ms, seen = [], [], [], [], []
-        for _ in range(2):
-            ev.append(_time_ms(call))
-            lib.append(None if library is None else _time_ms(library))
-            d, o, k, others = _split_profile(call, own)
-            dev_ms.append(d)
-            other_ms.append(o)
-            seen.append(k)
-        rows[name] = {
-            "ms": ev[0], "ms_again": ev[1], "device_ms": dev_ms[0],
-            "device_ms_again": dev_ms[1], "other_device_ms": other_ms[0],
-            "other_device_ms_again": other_ms[1], "own_launches": seen,
-            "other_device_ops": others, "plain_ms": _time_ms(plain),
-            "library_ms": lib[0], "library_ms_again": lib[1],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops}
+    def record(name, *args, **kwargs):
+        rows[name] = time_row(*args, **kwargs)
 
     seg, vals, n_seg, valid = shapes["binstats_flat"]
     m, n = vals.shape
@@ -1638,21 +1874,24 @@ def phase_times(shapes):
            lambda: torch.bincount(fused, minlength=m * n_seg * N_BUCKETS),
            [out], [seg, vals, valid], 4 * m * n, kernel_names("histbin"))
 
-    # iqr_fences: the main path's float64 call, and the same scores in
-    # float32 (the TPU kernel's contract, the form the micro-bench calls)
+    # iqr_fences: the main path's float64 call, the same scores in float32
+    # (the TPU kernel's contract), the micro-bench's float32 call and a
+    # float64 table of 120,000 scores (the large-table path); one kernel a
+    # call up to 16,384 keys, at most 16 at 120,000
     (scores, occ), kw = shapes["iqr_fences"]
-    for row, s_ in (("iqr_fences", scores),
-                    ("iqr_fences/f32", scores.to(torch.float32))):
-        res = counters["iqr_fences"](s_, occ, **kw)
-        n_iqr = s_.shape[0]
-        q = torch.tensor([0.25, 0.75], dtype=s_.dtype, device=s_.device)
-        occ_scores = s_[occ]
-        record(row,
-               lambda s_=s_: counters["iqr_fences"](s_, occ, **kw),
-               lambda s_=s_: _plain("iqr_fences")(s_, occ, **kw),
-               lambda o=occ_scores, q=q: torch.quantile(o, q),
-               [res["sorted"], res["flags"], res["stats"]], [s_, occ],
-               n_iqr * max(math.log2(n_iqr), 1.0), kernel_names("iqr"))
+    (m_scores, m_occ), _ = shapes["iqr_fences/micro"]
+    for row, (s_, o_), most in (
+            ("iqr_fences", (scores, occ), 1),
+            ("iqr_fences/f32", (scores.to(torch.float32), occ), 1),
+            ("iqr_fences/micro", (m_scores, m_occ), 1),
+            ("iqr_fences/120k", iqr_table(scores.device, IQR_120K, 120),
+             16)):
+        rows[row] = iqr_row(counters["iqr_fences"], _plain("iqr_fences"),
+                            s_, o_, kw)
+        per_call = rows[row]["kernels_per_call"]
+        if not 1 <= per_call <= most:
+            raise AssertionError(f"{row}: {per_call} kernels a call, "
+                                 f"expected 1 to {most}")
 
     # the timestamp forms: binstats at the micro-bench's call (its path),
     # and both at the main path's rows binned by synthetic timestamps;
@@ -1809,10 +2048,12 @@ SOURCES = {
                       "src/repro/kernels/rolling/kernel.py:25"),
 }
 # the kernels timed at a second call, reported beside the first
-ALSO = {"binstats": "binstats/table1", "iqr_fences": "iqr_fences/f32",
-        "ssd_fused": "ssd_fused/hymba",
-        "flash_attention": "flash_attention/global",
-        "rolling_stats": "rolling_stats/stall"}
+ALSO = {"binstats": ("binstats/table1",),
+        "iqr_fences": ("iqr_fences/f32", "iqr_fences/micro",
+                       "iqr_fences/120k"),
+        "ssd_fused": ("ssd_fused/hymba",),
+        "flash_attention": ("flash_attention/global",),
+        "rolling_stats": ("rolling_stats/stall",)}
 
 
 def main() -> int:
@@ -1882,7 +2123,11 @@ def main() -> int:
     # main path's timestamp-form inputs stay as a second timing row
     shapes.update(m_shapes)
     launches["binstats/table1"] = launches["binstats"]
-    launches["iqr_fences/f32"] = m_launches["iqr_fences"]
+    # the float32 12,000 and the 120,000 tables are on no driven path: no
+    # count is taken for them, and the line says null
+    launches["iqr_fences/f32"] = None
+    launches["iqr_fences/micro"] = m_launches["iqr_fences"]
+    launches["iqr_fences/120k"] = None
     launches["binstats"] = m_launches["binstats"]
     launches["rolling_stats"] = m_launches["rolling_stats"]
     launches["rolling_stats/stall"] = s_launches
@@ -1917,16 +2162,18 @@ def main() -> int:
                "max_abs_err": max(errs[name], edge[name]),
                **{k: t[k] for k in keys}}
         if name in ALSO:
-            also = ALSO[name]
             row["also"] = {also: {
                 "launches": launches.get(also, launches[name]),
-                **{k: times[also][k] for k in keys}}}
+                **{k: times[also][k] for k in keys}} for also in ALSO[name]}
         kernels.append(row)
     for name, t in times.items():
         if name == "flash_attention":
             continue                   # the same row as its window call
         floor = (f", fp32 CUDA-core floor {t['fp32_floor_ms']:.4f}"
                  if "fp32_floor_ms" in t else "")
+        n = launches.get(name, launches[name.split('/')[0]])
+        path = ("on no driven path" if n is None else
+                f"{n} launch(es) of {name.split('/')[0]} on its path")
         log(f"time {name}: {t['ms']:.4f} ms, again {t['ms_again']:.4f} "
             f"(library {t['library_ms']}, again {t['library_ms_again']}; "
             f"device per call under the profiler: own kernels "
@@ -1934,12 +2181,12 @@ def main() -> int:
             f"other device work {t['other_device_ms']:.4f}, again "
             f"{t['other_device_ms_again']:.4f}, own launches seen "
             f"{t['own_launches']} in 20 calls, other device ops "
-            f"{t['other_device_ops']}; plain {t['plain_ms']:.4f}, bound "
+            f"{t['other_device_ops']}, own kernels a call "
+            f"{t['kernels_per_call']}; plain {t['plain_ms']:.4f}, bound "
             f"{t['bound_ms']:.4f} by "
             f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
-            f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), "
-            f"{launches.get(name, launches[name.split('/')[0]])} launch(es) "
-            f"of {name.split('/')[0]} on its path [{card}]")
+            f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), {path} "
+            f"[{card}]")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,15 +31,13 @@ nvcc; exits non-zero without either.
 
 from __future__ import annotations
 
-import argparse
 import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-SOURCE = ROOT / "src" / "repro_torch" / "csrc" / "ssd.cu"
-OUT = ROOT / "build" / "ssd_stages"
+import stage_variants
+
+SOURCE = stage_variants.ROOT / "src" / "repro_torch" / "csrc" / "ssd.cu"
+OUT = stage_variants.ROOT / "build" / "ssd_stages"
 SHAPES = {"mamba2": (8, 2048, 32, 64, 1, 128),
           "hymba": (8, 2176, 50, 64, 1, 16)}
 VARIANTS = {
@@ -68,36 +66,6 @@ VARIANTS = {
                        ("mma_ss<PT, 0, 0>(",
                         "if (a.nc < 0) mma_ss<PT, 0, 0>(")],
 }
-
-
-def variant_source(name: str) -> str:
-    text = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {old!r} not in ssd.cu")
-        text = text.replace(old, new)
-    return text
-
-
-def build_all() -> None:
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in VARIANTS:
-        cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(OUT / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    failed = []
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
 def time_variant(name: str, calls: int) -> None:
@@ -148,32 +116,6 @@ def time_variant(name: str, calls: int) -> None:
               flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--calls", type=int, default=20)
-    ap.add_argument("--variant", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.variant:
-        time_variant(args.variant, args.calls)
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("ssd_stage_times: no CUDA device", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    build_all()
-    order = list(VARIANTS)
-    for names in (order, order[::-1]):
-        for name in names:
-            subprocess.run([sys.executable, __file__, "--variant", name,
-                            "--calls", str(args.calls)], check=True,
-                           timeout=600)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(stage_variants.main(__file__, __doc__, SOURCE, OUT,
+                                 VARIANTS, time_variant, 20))

@@ -1,11 +1,11 @@
-// PyTorch operators for the binstats, histbin and rolling kernels.
+// PyTorch operators for the binstats, histbin, iqr and rolling kernels.
 //
 // A wrapper call through ctypes spent most of its host time in Python
 // around one launch: argument checks, torch.empty, the stream lookup and
 // the ctypes conversion (chip_smoke.py's host trace). Here each operator
 // does all of that in C++ and launches through the kernels' own C entry
-// points (binstats.cu, histbin.cu, rolling.cu, linked into the same
-// library):
+// points (binstats.cu, histbin.cu, iqr.cu, rolling.cu, linked into the
+// same library):
 //
 //   torch.ops.repro_torch.rolling_stats(x, window)
 //   torch.ops.repro_torch.binstats_flat(seg, values, n_seg, valid)
@@ -14,14 +14,16 @@
 //   torch.ops.repro_torch.histbin_flat(seg, values, n_seg, valid)
 //   torch.ops.repro_torch.histbin_ts(rel_ts, values, valid, total_ns,
 //                                    n_bins)
+//   torch.ops.repro_torch.iqr_fences(scores, occupied, k)
+//       -> (sorted, flags, stats)
 //
 // Each checks its arguments (ValueError / TypeError as the plain
-// versions' callers expect), allocates its output with at::empty on the
-// inputs' device, takes that device's current stream and launches; no
-// synchronisation. Registered for CUDA tensors only: the Python wrappers
-// send CPU tensors to the plain versions. This is the only source of the
-// port that includes PyTorch's headers; it is compiled by the host
-// compiler alone.
+// versions' callers expect), allocates its outputs (and any scratch) with
+// at::empty on the inputs' device, takes that device's current stream and
+// launches; no synchronisation. Registered for CUDA tensors only: the
+// Python wrappers send CPU tensors to the plain versions. This is the only
+// source of the port that includes PyTorch's headers; it is compiled by
+// the host compiler alone.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -30,6 +32,7 @@
 #include <torch/library.h>
 
 #include <cstdint>
+#include <tuple>
 
 extern "C" {
 int rolling_stats(const float* x, long long n, long long window, float* out,
@@ -45,6 +48,13 @@ int histbin_flat(const int* seg, const float* values, const uint8_t* valid,
 int histbin_ts(const float* rel_ts, const float* values, const uint8_t* valid,
                long n, int n_bins, int n_metrics, float inv_width, float* out,
                void* stream);
+long iqr_scratch_bytes(int n_p, int key_bytes);
+int iqr_fences(const float* scores, const uint8_t* occ, int n, int n_p,
+               float k, void* scratch, float* sorted, int* flags,
+               float* stats, void* stream);
+int iqr_fences_f64(const double* scores, const uint8_t* occ, int n, int n_p,
+                   double k, void* scratch, double* sorted, int* flags,
+                   double* stats, void* stream);
 }
 
 namespace {
@@ -54,13 +64,13 @@ constexpr int64_t kBuckets = 384;   // histbin.cu's N_BUCKETS
 
 void check_vector(const at::Tensor& t, const char* name,
                   c10::ScalarType dtype, const at::Tensor& like,
-                  int64_t n) {
+                  int64_t n, const char* like_name = "values") {
   TORCH_CHECK_TYPE(t.scalar_type() == dtype, name, ": dtype ",
                    t.scalar_type(), ", expected ", dtype);
   TORCH_CHECK_VALUE(t.device() == like.device(), name, ": on ", t.device(),
                     ", expected ", like.device());
   TORCH_CHECK_VALUE(t.dim() == 1 && t.size(0) == n, name, " ", t.sizes(),
-                    " does not match values ", like.sizes());
+                    " does not match ", like_name, " ", like.sizes());
   TORCH_CHECK_VALUE(t.is_contiguous(), name, ": not contiguous");
 }
 
@@ -198,6 +208,50 @@ at::Tensor histbin_ts_op(const at::Tensor& rel_ts, const at::Tensor& values,
   return out;
 }
 
+// (sorted, flags, stats): iqr.cu's contract, in the scores' dtype
+std::tuple<at::Tensor, at::Tensor, at::Tensor> iqr_fences_op(
+    const at::Tensor& scores, const at::Tensor& occupied, double k) {
+  TORCH_CHECK_VALUE(scores.is_cuda(), "scores: on ", scores.device(),
+                    ", expected a CUDA device");
+  const bool f64 = scores.scalar_type() == at::kDouble;
+  TORCH_CHECK_TYPE(f64 || scores.scalar_type() == at::kFloat,
+                   "scores: dtype ", scores.scalar_type(),
+                   ", expected Float or Double");
+  TORCH_CHECK_VALUE(scores.dim() == 1 && scores.size(0) >= 1,
+                    "scores must be a non-empty (n,) table, got ",
+                    scores.sizes());
+  TORCH_CHECK_VALUE(scores.is_contiguous(), "scores: not contiguous");
+  const int64_t n = scores.size(0);
+  TORCH_CHECK_VALUE(n < (int64_t(1) << 30), "iqr_fences: table of ", n,
+                    " entries is too large");
+  check_vector(occupied, "occupied", at::kBool, scores, n, "scores");
+  const c10::cuda::CUDAGuard guard(scores.device());
+  int n_p = 2;
+  while (n_p < n) n_p <<= 1;
+  const long bytes = iqr_scratch_bytes(n_p, f64 ? 8 : 4);
+  at::Tensor scratch;
+  if (bytes > 0)
+    scratch = at::empty({bytes}, scores.options().dtype(at::kByte));
+  void* scratch_ptr = bytes > 0 ? scratch.data_ptr() : nullptr;
+  at::Tensor sorted = at::empty({n}, scores.options());
+  at::Tensor flags = at::empty({n}, scores.options().dtype(at::kInt));
+  at::Tensor stats = at::empty({8}, scores.options());
+  const uint8_t* occ =
+      reinterpret_cast<const uint8_t*>(occupied.data_ptr<bool>());
+  void* stream = stream_of(scores);
+  const int code =
+      f64 ? iqr_fences_f64(scores.data_ptr<double>(), occ, (int)n, n_p, k,
+                           scratch_ptr, sorted.data_ptr<double>(),
+                           flags.data_ptr<int>(), stats.data_ptr<double>(),
+                           stream)
+          : iqr_fences(scores.data_ptr<float>(), occ, (int)n, n_p, (float)k,
+                       scratch_ptr, sorted.data_ptr<float>(),
+                       flags.data_ptr<int>(), stats.data_ptr<float>(),
+                       stream);
+  check_launch(code, "iqr_fences");
+  return {sorted, flags, stats};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(repro_torch, m) {
@@ -210,6 +264,8 @@ TORCH_LIBRARY(repro_torch, m) {
         " -> Tensor");
   m.def("histbin_ts(Tensor rel_ts, Tensor values, Tensor valid, "
         "float total_ns, int n_bins) -> Tensor");
+  m.def("iqr_fences(Tensor scores, Tensor occupied, float k)"
+        " -> (Tensor, Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
@@ -218,4 +274,5 @@ TORCH_LIBRARY_IMPL(repro_torch, CUDA, m) {
   m.impl("binstats_ts", &binstats_ts_op);
   m.impl("histbin_flat", &histbin_flat_op);
   m.impl("histbin_ts", &histbin_ts_op);
+  m.impl("iqr_fences", &iqr_fences_op);
 }

@@ -8,10 +8,11 @@ Two kinds of library, both for ``sm_90a``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
-* :data:`OPERATORS` — ``ops.cpp`` with the ``binstats``, ``histbin`` and
-  ``rolling`` kernels — is one library of PyTorch operators (``TORCH_LIBRARY``),
-  loaded with ``torch.ops.load_library``: a call checks its arguments,
-  allocates its output, takes the current stream and launches in C++.
+* :data:`OPERATORS` — ``ops.cpp`` with the ``binstats``, ``histbin``,
+  ``iqr`` and ``rolling`` kernels — is one library of PyTorch operators
+  (``TORCH_LIBRARY``), loaded with ``torch.ops.load_library``: a call
+  checks its arguments, allocates its outputs, takes the current stream
+  and launches in C++.
   ``ops.cpp`` is the only file that includes PyTorch's headers, and
   ``nvcc`` hands it to the host compiler alone, with torch's include
   paths, its C++ ABI flag, and links to ``c10``, ``c10_cuda``,
@@ -39,8 +40,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flashattn", "iqr", "ssd")
-OPERATORS = ("ops.cpp", "binstats.cu", "histbin.cu", "rolling.cu")
+SOURCES = ("flashattn", "ssd")
+OPERATORS = ("ops.cpp", "binstats.cu", "histbin.cu", "iqr.cu", "rolling.cu")
 LIBRARIES = SOURCES + ("ops",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

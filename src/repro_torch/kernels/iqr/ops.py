@@ -21,28 +21,21 @@ Two dtypes, and the arithmetic follows the scores':
   for bit.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel (``repro_torch/csrc/iqr.cu``) or raises.
-``iqr_fences.launches`` counts kernel launches.
+launches the kernel (``repro_torch/csrc/iqr.cu``) through a PyTorch
+operator written in C++ (``csrc/ops.cpp``) or raises.
+``iqr_fences.launches`` counts wrapper calls that launch.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 
 from .. import _build
-from .._check import check_tensor, stream_ptr
 
 POS_CAP = 3.4e38
 STAT_NAMES = ("q1", "q3", "iqr", "lo_fence", "hi_fence", "n_occ")
-SMEM_MAX_BYTES = 128 * 1024        # csrc/iqr.cu: the single-CTA limit
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SYMBOLS = {
-    torch.float32: ("iqr_fences", ctypes.c_float),
-    torch.float64: ("iqr_fences_f64", ctypes.c_double),
-}
 
 
 def next_pow2(n: int) -> int:
@@ -52,8 +45,10 @@ def next_pow2(n: int) -> int:
 
 def _result(srt: torch.Tensor, flags: torch.Tensor,
             stats: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``sorted``, ``flags``, ``stats`` and each named stat, a 0-d view of
+    ``stats`` (all six from one ``unbind``)."""
     out = {"sorted": srt, "flags": flags, "stats": stats}
-    out.update({name: stats[i] for i, name in enumerate(STAT_NAMES)})
+    out.update(zip(STAT_NAMES, stats.unbind()))
     return out
 
 
@@ -112,41 +107,29 @@ def iqr_fences(scores: torch.Tensor, occupied: torch.Tensor, *,
     (n,) int32, ``stats`` (8,) = (q1, q3, iqr, lo_fence, hi_fence, n_occ,
     0, 0), and each named stat as a 0-d tensor; ``sorted`` and ``stats``
     in the scores' dtype (float32 or float64; on CUDA any other dtype is
-    refused)."""
+    refused).
+
+    On CUDA the call is one PyTorch operator written in C++
+    (``torch.ops.repro_torch.iqr_fences``, ``csrc/ops.cpp``), which checks
+    the arguments, allocates the outputs (and, above 16,384 keys, the
+    sort's scratch), takes the current stream and launches."""
+    if isinstance(scores, torch.Tensor) and scores.device.type == "cuda":
+        srt, flags, stats = _operator()(scores, occupied, float(k_factor))
+        iqr_fences.launches += 1
+        return _result(srt, flags, stats)
     if scores.dim() != 1 or scores.shape[0] < 1:
         raise ValueError(f"scores must be a non-empty (n,) table, got "
                          f"{tuple(scores.shape)}")
     if scores.device.type == "cpu":
         return iqr_fences_plain(scores, occupied, k_factor=k_factor)
-    if scores.device.type != "cuda":
-        raise ValueError(f"iqr_fences: unsupported device {scores.device}")
-    dev = scores.device
-    if scores.dtype not in _SYMBOLS:
-        raise TypeError(f"scores: dtype {scores.dtype}, expected "
-                        "torch.float32 or torch.float64")
-    check_tensor(scores, "scores", scores.dtype, 1, dev)
-    check_tensor(occupied, "occupied", torch.bool, 1, dev)
-    n = scores.shape[0]
-    if occupied.shape[0] != n:
-        raise ValueError("occupied does not match scores")
-    if n >= 1 << 30:
-        raise ValueError(f"iqr_fences: table of {n} entries is too large")
-    symbol, key = _SYMBOLS[scores.dtype]
-    fn = _build.function("iqr", symbol, [_P, _P, _I, _I, key, _P, _P, _P,
-                                         _P, _P])
-    n_p = next_pow2(n)
-    single_cta = n_p * scores.element_size() <= SMEM_MAX_BYTES
-    keys = torch.empty(1 if single_cta else n_p, dtype=scores.dtype,
-                       device=dev)
-    srt = torch.empty(n, dtype=scores.dtype, device=dev)
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    stats = torch.empty(8, dtype=scores.dtype, device=dev)
-    code = fn(scores.data_ptr(), occupied.data_ptr(), n, n_p,
-              float(k_factor), keys.data_ptr(), srt.data_ptr(),
-              flags.data_ptr(), stats.data_ptr(), stream_ptr(dev))
-    iqr_fences.launches += 1
-    _build.check(code, "iqr_fences")
-    return _result(srt, flags, stats)
+    raise ValueError(f"iqr_fences: unsupported device {scores.device}")
 
 
 iqr_fences.launches = 0
+_OP = []
+
+
+def _operator():
+    if not _OP:
+        _OP.append(_build.operators().iqr_fences.default)
+    return _OP[0]

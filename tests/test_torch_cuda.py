@@ -254,33 +254,69 @@ def test_histbin_flat_edges_on_card(cuda, case):
         assert hist_disordered(histbin_flat(bad, t[1], n_seg, t[2]).cpu())
 
 
-@pytest.mark.parametrize("n", [1, 2, 12_000, 40_000])
+def assert_iqr_equal(got, want):
+    for key in ("sorted", "flags", "stats"):
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      want[key].cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4_096, 12_000, 16_384, 16_385,
+                               40_000, 120_000])
 def test_iqr_kernel_float64_on_card(cuda, n):
     """The float64 form (the analysis path's) equals its plain version
-    exactly: one CTA up to 16,384 keys, the multi-launch path above."""
+    exactly: one cluster launch up to 16,384 keys, the tile-and-merge path
+    above."""
     rng = np.random.default_rng(17)
     s = np.clip(rng.lognormal(np.log(1e7), 0.8, n), 1e6, 1e8)
     occ = rng.random(n) < 0.8
     s_t, o_t = torch.from_numpy(s).to(cuda), torch.from_numpy(occ).to(cuda)
     got = iqr_fences(s_t, o_t)
-    want = iqr_fences_plain(s_t, o_t)
     assert got["stats"].dtype == torch.float64
-    for key in ("sorted", "flags", "stats"):
-        np.testing.assert_array_equal(got[key].cpu().numpy(),
-                                      want[key].cpu().numpy())
+    assert_iqr_equal(got, iqr_fences_plain(s_t, o_t))
 
 
-@pytest.mark.parametrize("n", [1, 1000, 16384, 40000])
+@pytest.mark.parametrize("n", [1, 1000, 4096, 16384, 32768, 32769, 40000])
 def test_iqr_kernel_on_card(cuda, n):
     rng = np.random.default_rng(12)
     s = rng.lognormal(3.0, 0.5, n).astype(np.float32)
     occ = rng.random(n) < 0.8
     s_t, o_t = torch.from_numpy(s).to(cuda), torch.from_numpy(occ).to(cuda)
-    got = iqr_fences(s_t, o_t)
-    want = iqr_fences_plain(s_t, o_t)
-    for key in ("sorted", "flags", "stats"):
-        np.testing.assert_array_equal(got[key].cpu().numpy(),
-                                      want[key].cpu().numpy())
+    assert_iqr_equal(iqr_fences(s_t, o_t), iqr_fences_plain(s_t, o_t))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [6, 12_000, 40_000])
+def test_iqr_kernel_edge_tables_on_card(cuda, dtype, n):
+    """All scores equal, no occupied bin, ties with negatives and -0.0,
+    and the 1e8-ns table of test_torch_fences.py, at one launch and on the
+    tile-and-merge path."""
+    rng = np.random.default_rng(n)
+    ties = rng.integers(-40, 40, n) / 4
+    ties[rng.random(n) < 0.05] = -0.0
+    tables = [(np.full(n, 7.5), rng.random(n) < 0.8),
+              (ties, np.zeros(n, bool)),
+              (ties, rng.random(n) < 0.8)]
+    if n == 6:
+        tables.append((np.array([1e8, 1e8 + 4, 1e8 + 8, 1e8 + 12, 1e8 + 16,
+                                 1e8 + 40]), np.ones(6, bool)))
+    for s, occ in tables:
+        s_t = torch.from_numpy(s).to(cuda, dtype)
+        o_t = torch.from_numpy(occ).to(cuda)
+        assert_iqr_equal(iqr_fences(s_t, o_t), iqr_fences_plain(s_t, o_t))
+
+
+def test_iqr_kernel_refuses_bad_arguments(cuda):
+    """The operator raises on what the kernel does not take."""
+    s = torch.ones(8, device=cuda)
+    occ = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        iqr_fences(s.to(torch.float16), occ)
+    with pytest.raises(ValueError):
+        iqr_fences(s, occ[:7])
+    with pytest.raises(ValueError):
+        iqr_fences(s[::2], occ[:4])
+    with pytest.raises(ValueError):
+        iqr_fences(s.reshape(2, 4), occ)
 
 
 SSD_SHAPES = [  # b, s, H, P, G, N, chunk

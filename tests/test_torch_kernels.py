@@ -154,8 +154,12 @@ def _scores(seed, n, frac_occ=0.8):
     return s, occ
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 64, 1000, 4096])
+@pytest.mark.parametrize("n", [1, 2, 5, 64, 1000, 4096, 12_000, 16_385])
 def test_iqr_fences_matches_pallas(n):
+    """The port against the Pallas kernel in interpret mode, up to the
+    analysis path's 12,000 scores and one past the card's single-launch
+    limit: sorted table, flags and n_occ exact, the fences within RTOL
+    (float32 arithmetic in two libraries)."""
     s, occ = _scores(n, n)
     occ[0] = True                      # the Pallas kernel's contract
     want = ref_iqr_fences(jnp.asarray(s), jnp.asarray(occ))
@@ -174,6 +178,22 @@ def test_iqr_fences_no_occupied_bin_is_zero():
     got = iqr_fences(torch.ones(6), torch.zeros(6, dtype=torch.bool))
     assert got["stats"].tolist() == [0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0]
     assert not got["flags"].any()
+
+
+def test_iqr_fences_result_mapping():
+    """Every key is listed and readable; a named stat is stats[i]; an
+    unknown key raises KeyError."""
+    s, occ = _scores(3, 100)
+    got = iqr_fences(torch.from_numpy(s), torch.from_numpy(occ))
+    names = ("q1", "q3", "iqr", "lo_fence", "hi_fence", "n_occ")
+    assert list(got) == ["sorted", "flags", "stats", *names]
+    assert len(got) == 9 and "q1" in got and "nope" not in got
+    for i, name in enumerate(names):
+        assert got[name] is got[name]
+        assert float(got[name]) == float(got["stats"][i])
+    assert dict(got).keys() == set(got)
+    with pytest.raises(KeyError):
+        got["nope"]
 
 
 @pytest.mark.parametrize("case", ["sparse", "all_empty", "negative"])
