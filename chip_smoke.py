@@ -76,7 +76,51 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              (one float32 prefix over the whole series) is printed beside;
 7. delta   — a store grown by an append: the delta aggregation on the card
              must equal a cold one bit for bit;
-8. serve   — mamba2-370m at full width and depth (48 layers, d_model
+8. diff    — ``VariabilityPipeline.diff`` of the main phase's store (A)
+             against store B, the same Table-1 inventory with the kernel
+             names respecialized (name variant 1) and the layer_norm family
+             (ids 3, 24, 45) slowed 1.5x, built by the port's phase 1; the
+             query is k_stall at 10 ms bins, grouped by kernel name (about
+             12,000 bins x 64 names a side). The counters are zeroed just
+             before the cold torch diff and read just after: binstats_flat
+             and histbin_flat launch once a side; both are held against
+             their plain versions on side B's inputs. The verdict must be
+             regressed with the injected family ranked first, a self-diff
+             must pass, and the serial backend's diff (no caches) must give
+             the same verdict and ranked groups with scores within RTOL. A
+             summary-warm repeat reads no shard and launches nothing; a
+             third call loads the persisted report;
+9. service — ``VariabilityPipeline.serve`` of store A on the torch
+             backend: 16 client threads send 8 distinct queries (each
+             twice) at once through ``QueryClient`` — no grouping and each
+             group column, moments alone and with the sketch, mean / p95 /
+             p99 scores, 10 ms / 100 ms / 1 s bins, one time window. Every
+             response must be 200, a tick must fuse two or more requests,
+             one answer must be an in-flight or summary hit, the three
+             kernels must launch, and each answer must equal a serial
+             service's on a copy of the store (counts and fence flags
+             exactly, min/max in float32, means within RTOL); tick latency
+             percentiles from ``/v1/stats`` and request wall times are
+             printed;
+10. stream — the Table-1 trace's rank DBs cut at 90 s and their store;
+             ``VariabilityPipeline.stream`` tails them (poll 25 ms) while
+             the remaining 30 s arrive in three 10 s batches; a
+             ``QueryClient.fences`` long poll receives each batch's events
+             and the plane is quiesced before the next. The counters are
+             zeroed before the first batch and read after the last: the
+             three kernels must launch, with no ingest error. The same
+             batches are appended to a copy of the DBs and ingested by
+             ``run_append`` without the service: the rows ingested must
+             equal its rows batch for batch, and the shard files its
+             files byte for byte. The fence state (flags, top windows)
+             and the fence query's moments and sketch must equal a cold
+             torch run over a cache-free copy of the same shards exactly.
+             A from-scratch phase 1 of the final DBs is built for the
+             record: its joined-row count and the shard files it differs
+             in are printed (phase 1 joins no committed kernel with a
+             memcpy appended later, ROADMAP Queue 3); event-to-fence
+             p50/p99 are printed;
+11. serve  — mamba2-370m at full width and depth (48 layers, d_model
              1024, vocab 50280) in bfloat16, random weights drawn on the
              card from --seed, through ``ServeEngine.generate``: 8
              requests of 2048 prompt tokens, 32 new tokens each. The
@@ -89,7 +133,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              bfloat16 tolerance below) and first tokens. Device kernel
              time by name for one prefill and 8 decode steps is read
              with torch.profiler;
-9. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
+12. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
              3 global and 29 with window 1024, d_model 1600, vocab 32001,
              128 meta tokens) in bfloat16, random weights drawn on the card
              from --seed, through ``ServeEngine.generate``: 8 requests of
@@ -104,7 +148,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-10. times  — each kernel, its plain version and a one-call PyTorch
+13. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
              yardstick by CUDA events, then the device time of a call under
@@ -122,7 +166,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              torch.quantile as the yardstick; the profiler's own-kernel
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000;
-11. host trace — time.perf_counter_ns around each step of the
+14. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
              stream lookup, binding call and launch, result check) over
@@ -811,7 +855,7 @@ def phase_main(args, work):
 
     from repro_torch.core import (VariabilityPipeline, generate_synthetic,
                                   recovered, write_synthetic_dbs)
-    from repro_torch.core.aggregation import PRODUCER_STATS
+    from repro_torch.core.aggregation import producer_stats
 
     ds = generate_synthetic(_spec(args))
     paths = write_synthetic_dbs(ds, os.path.join(work, "dbs"))
@@ -835,7 +879,7 @@ def phase_main(args, work):
         f" {gen.joined_rows} joined rows, {gen.n_shards} shards; "
         f"phase 1 {gen.seconds:.3f}s, phase 2+3 "
         f"{wall - gen.seconds:.3f}s, total {wall:.3f}s")
-    log(f"main: device batch {PRODUCER_STATS}")
+    log(f"main: device batch {producer_stats()}")
     log(f"main: launches {launches}; iqr_fences launches through "
         f"torch.ops.{iq._operator()}")
     for name in ("binstats_flat", "histbin_flat", "iqr_fences"):
@@ -1763,6 +1807,432 @@ def phase_delta(args, work):
         f"({len(b.recomputed_shards)} shards cold)")
 
 
+# the layer_norm family of the synthetic name table (ids congruent mod 21),
+# the one the diff phase slows down
+SLOW_IDS = (3, 24, 45)
+SLOW_FAMILY = "layer_norm"
+DIFF_INTERVAL_NS = 10_000_000
+SERVICE_CLIENTS = 16
+
+
+def _path_launches(counters):
+    return {k: counters[k].launches
+            for k in ("binstats_flat", "histbin_flat", "iqr_fences")}
+
+
+def _need_launches(phase, launches, exact=None):
+    """Raise unless every kernel of the analysis path launched (and, for
+    ``exact``, launched exactly that many times)."""
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{phase}: the path never launched {name}")
+        if exact is not None and name in exact and n != exact[name]:
+            raise AssertionError(f"{phase}: {name} launched {n} times, "
+                                 f"expected {exact[name]}")
+
+
+def _bare_copy(src, dst):
+    """A copy of a store's manifest and shard files, without its caches."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if name == "manifest.json" or (name.startswith("shard_")
+                                       and name.endswith(".npz")):
+            shutil.copy2(os.path.join(src, name), os.path.join(dst, name))
+
+
+def _assert_diff_scores_close(got, want):
+    """Two diff reports of one pair: the same ranked groups, match kinds,
+    verdicts, counts and top bins; float scores within RTOL."""
+    import numpy as np
+    if [g.name_a for g in got.groups] != [g.name_a for g in want.groups]:
+        raise AssertionError("the two backends rank the groups apart")
+    for g, w in zip(got.groups, want.groups):
+        if ((g.name_b, g.matched_via, g.regressed, g.count_a, g.count_b,
+             g.top_bins) != (w.name_b, w.matched_via, w.regressed,
+                             w.count_a, w.count_b, w.top_bins)):
+            raise AssertionError(f"group {g.name_a} differs")
+        np.testing.assert_array_equal(g.top_windows, w.top_windows)
+        for f in ("mean_a", "mean_b", "mean_ratio", "p99_a", "p99_b",
+                  "p99_ratio", "shift_octaves", "spread_octaves",
+                  "geo_ratio"):
+            np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                       rtol=RTOL, atol=1e-12, err_msg=f)
+        np.testing.assert_allclose(g.bin_shift, w.bin_shift, rtol=RTOL,
+                                   atol=1e-12)
+
+
+def phase_diff(args, work, card):
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from repro_torch.core import (Query, VariabilityPipeline, distributed,
+                                  generate_synthetic, inject_slowdown,
+                                  normalize_kernel_name, write_synthetic_dbs)
+
+    store_a = os.path.join(work, "store")
+    store_b = os.path.join(work, "store_b")
+    t0 = time.perf_counter()
+    ds = inject_slowdown(generate_synthetic(
+        dataclasses.replace(_spec(args), name_variant=1)), 1.5, SLOW_IDS)
+    paths = write_synthetic_dbs(ds, os.path.join(work, "dbs_b"))
+    del ds
+    gen = VariabilityPipeline(_cfg(args, "torch")).generate(paths, store_b)
+    log(f"diff: store B (name variant 1, {SLOW_FAMILY} ids {SLOW_IDS} "
+        f"x1.5) built by phase 1 in {time.perf_counter() - t0:.3f}s "
+        f"({gen.joined_rows} joined rows, {gen.n_shards} shards)")
+    base = Query(metrics=("k_stall",), interval_ns=DIFF_INTERVAL_NS)
+    pipe = VariabilityPipeline(_cfg(args, "torch"))
+    counters = _launch_counters()
+    seq = itertools.count()
+    cap = Capture(((distributed, "binstats_flat"),
+                   (distributed, "histbin_flat")),
+                  key=lambda name, kwargs: (name, next(seq)))
+    try:
+        _zero(counters)
+        t = time.perf_counter()
+        cold = pipe.diff(store_a, store_b, query=base)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t
+        launches = _path_launches(counters)
+    finally:
+        cap.close()
+    # every wrapper call in order, side A's first
+    calls = [(name, a) for (name, _), (a, _) in
+             sorted(cap.calls.items(), key=lambda kv: kv[0][1])]
+    n_seg = [a[2] for name, a in calls if name == "histbin_flat"]
+    log(f"diff: cold torch diff {cold_s:.3f}s, launches {launches}, "
+        f"device segments per side {n_seg}; {cold.provenance()} [{card}]")
+    del launches["iqr_fences"]          # a diff fences nothing
+    _need_launches("diff", launches,
+                   exact={"binstats_flat": 2, "histbin_flat": 2})
+    if cold.verdict != "regressed" or cold.from_cache:
+        raise AssertionError(f"diff: verdict {cold.verdict}, from cache "
+                             f"{cold.from_cache}")
+    top = cold.groups[:len(SLOW_IDS)]
+    if not all(SLOW_FAMILY in normalize_kernel_name(g.name_a) for g in top):
+        raise AssertionError("diff: the injected family is not ranked "
+                             f"first: {[g.name_a for g in top]}")
+    if {g.name_a for g in cold.regressions()} != {g.name_a for g in top}:
+        raise AssertionError("diff: regressions beyond the injected family")
+    log("diff: verdict regressed, top " + ", ".join(
+        f"{g.name_a} geo x{g.geo_ratio:.4f} mean x{g.mean_ratio:.4f} "
+        f"p99 x{g.p99_ratio:.4f}" for g in top))
+    # the kernels on side B's own inputs against their plain versions
+    last = dict(calls)
+    errs = {"binstats_flat": moments_err(
+                distributed.binstats_flat(*last["binstats_flat"]),
+                _plain("binstats_flat")(*last["binstats_flat"])),
+            "histbin_flat": hist_err(
+                distributed.histbin_flat(*last["histbin_flat"]),
+                _plain("histbin_flat")(*last["histbin_flat"]))}
+    del cap, calls, last
+    torch.cuda.empty_cache()
+    log(f"diff: kernels on side B's inputs, largest |kernel - plain|: "
+        f"{errs}")
+    self_rep = pipe.diff(store_a, store_a, query=base)
+    if self_rep.verdict != "pass":
+        raise AssertionError("diff: a self-diff did not pass")
+    exact_pipe = VariabilityPipeline(dataclasses.replace(
+        _cfg(args, "serial"), use_summary_cache=False))
+    t = time.perf_counter()
+    exact = exact_pipe.diff(store_a, store_b, query=base)
+    exact_s = time.perf_counter() - t
+    if exact.verdict != cold.verdict:
+        raise AssertionError("diff: serial and torch verdicts differ")
+    _assert_diff_scores_close(cold, exact)
+    log(f"diff: serial diff {exact_s:.3f}s: same verdict, same "
+        f"{len(exact.groups)} ranked groups, scores within rtol {RTOL}")
+    for name in os.listdir(store_b):
+        if name.startswith("diff_") and name.endswith(".json"):
+            os.remove(os.path.join(store_b, name))
+    _zero(counters)
+    t = time.perf_counter()
+    warm = pipe.diff(store_a, store_b, query=base)
+    warm_s = time.perf_counter() - t
+    if warm.from_cache or warm.shard_reads_a or warm.shard_reads_b:
+        raise AssertionError(f"diff: the warm repeat read shards "
+                             f"({warm.provenance()})")
+    if any(_path_launches(counters).values()):
+        raise AssertionError("diff: the warm repeat launched a kernel")
+    t = time.perf_counter()
+    cached = pipe.diff(store_a, store_b, query=base)
+    cached_s = time.perf_counter() - t
+    if not cached.from_cache or cached.verdict != cold.verdict:
+        raise AssertionError("diff: the third call did not load the report")
+    log(f"diff: seconds cold {cold_s:.3f}, warm {warm_s:.3f} "
+        f"({warm.provenance()}), cached {cached_s:.3f} "
+        f"({cached.provenance()}); self-diff pass [{card}]")
+    return errs
+
+
+def _service_queries(man):
+    """Eight distinct queries: no grouping and each group column, moments
+    alone and with the quantile sketch, mean / p95 / p99 scores, 10 ms /
+    100 ms / 1 s bins and one time window. The second is the main
+    phase's own query (a summary on the store already)."""
+    span = int(man.t_end - man.t_start)
+    window = [int(man.t_start + span // 3), int(man.t_start + span // 2)]
+    ms = 1_000_000
+    return [
+        {"metrics": ["k_stall"], "interval_ns": 10 * ms},
+        {"metrics": list(METRICS), "group_by": "k_device",
+         "reducers": ["moments", "quantile"], "anomaly_score": "p99",
+         "interval_ns": 10 * ms},
+        {"metrics": ["m_duration"], "group_by": "m_kind",
+         "reducers": ["moments", "quantile"], "anomaly_score": "p95",
+         "interval_ns": 100 * ms},
+        {"metrics": ["k_stall"], "group_by": "src_rank",
+         "interval_ns": 1000 * ms},
+        {"metrics": ["k_stall"], "group_by": "k_name",
+         "reducers": ["moments", "quantile"], "anomaly_score": "p99",
+         "interval_ns": 1000 * ms},
+        {"metrics": ["m_bytes"], "group_by": "m_kind",
+         "time_window": window, "interval_ns": 100 * ms},
+        {"metrics": ["k_stall"], "reducers": ["quantile"],
+         "anomaly_score": "p99", "interval_ns": 100 * ms},
+        {"metrics": ["k_stall", "m_duration"], "group_by": "k_device",
+         "interval_ns": 1000 * ms},
+    ]
+
+
+def _same_answer(got, want):
+    """A rendered torch answer against the serial one: counts and fence
+    flags exactly, min/max in float32, means within RTOL."""
+    import numpy as np
+    if (got["n_samples"], got["n_bins"], got.get("anomalous_bins")) != \
+            (want["n_samples"], want["n_bins"], want.get("anomalous_bins")):
+        raise AssertionError(f"service: {got['query']} differs in "
+                             "samples, bins or flags")
+    if set(got["groups"]) != set(want["groups"]):
+        raise AssertionError(f"service: {got['query']} differs in groups")
+    for gk, cells in want["groups"].items():
+        for m, cell in cells.items():
+            mine = got["groups"][gk][m]
+            if mine["count"] != cell["count"] or any(
+                    np.float32(mine[f]) != np.float32(cell[f])
+                    for f in ("min", "max")):
+                raise AssertionError(f"service: {got['query']} group {gk} "
+                                     f"{m} differs")
+            np.testing.assert_allclose(mine["mean"], cell["mean"],
+                                       rtol=RTOL)
+
+
+def phase_service(args, work, card):
+    import threading
+
+    import torch
+
+    from repro_torch.core import Query, TraceStore, VariabilityPipeline
+    from repro_torch.serve import QueryClient, QueryService, ServiceConfig
+
+    store = os.path.join(work, "store")
+    specs = _service_queries(TraceStore(store).read_manifest())
+    exact_dir = os.path.join(work, "service_exact")
+    _bare_copy(store, exact_dir)
+    counters = _launch_counters()
+    pipe = VariabilityPipeline(_cfg(args, "torch"))
+    n = SERVICE_CLIENTS
+    bodies, walls, errors = [None] * n, [0.0] * n, []
+    _zero(counters)
+    svc = pipe.serve(store, port=0, tick_ms=50.0)
+    try:
+        client = QueryClient(port=svc.cfg.port, timeout_s=600.0)
+        if not client.wait_healthy(timeout_s=30.0):
+            raise AssertionError("service: not healthy")
+        start = threading.Barrier(n)
+
+        def ask(i):
+            try:
+                start.wait(60)
+                t = time.perf_counter()
+                bodies[i] = client.query_raw([specs[i % len(specs)]])
+                walls[i] = time.perf_counter() - t
+            except BaseException as e:   # noqa: BLE001 — raised below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = _path_launches(counters)
+        stats = client.stats()
+    finally:
+        svc.stop()
+    if errors:
+        raise AssertionError(f"service: {errors}")
+    widths = [b["tick"]["fused_width"] for b in bodies]
+    hits = sum(bool(b["results"][0].get("inflight_hit")
+                    or b["results"][0]["cache_hit"]) for b in bodies)
+    log(f"service: {n} clients x 1 query ({len(specs)} distinct) in "
+        f"{wall:.3f}s; request wall s {sorted(round(w, 3) for w in walls)};"
+        f" fused widths {widths}; in-flight or summary hits {hits}; ticks "
+        f"{stats['ticks']}, tick p50/p95/p99 {stats['tick_p50_ms']:.1f} / "
+        f"{stats['tick_p95_ms']:.1f} / {stats['tick_p99_ms']:.1f} ms; "
+        f"launches {launches} [{card}]")
+    _need_launches("service", launches)
+    if max(widths) < 2:
+        raise AssertionError("service: no tick fused two requests")
+    if hits < 1:
+        raise AssertionError("service: no in-flight or summary hit")
+    exact = QueryService(exact_dir, ServiceConfig(
+        backend="serial", device="cuda", tick_ms=1.0,
+        summary_budget_bytes=None))
+    t = time.perf_counter()
+    p = exact.submit([Query.from_spec(s) for s in specs])
+    if exact.drain_once(block_s=0.0) != 1 or p.error is not None:
+        raise AssertionError(f"service: the serial service failed "
+                             f"{p.error}")
+    for i, b in enumerate(bodies):
+        _same_answer(b["results"][0], p.results[i % len(specs)])
+    log(f"service: every answer == the serial service's on a copy of the "
+        f"store (counts, flags exact; min/max in float32; means rtol "
+        f"{RTOL}); serial tick {time.perf_counter() - t:.3f}s")
+
+
+def _shards_equal(a, b, n):
+    """Names of the first ``n`` shard files that differ between two
+    stores (byte for byte)."""
+    import filecmp
+    names = [f"shard_{s:06d}.npz" for s in range(n)]
+    _, mismatch, missing = filecmp.cmpfiles(a, b, names, shallow=False)
+    return mismatch + missing
+
+
+def phase_stream(args, work, card):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (PipelineConfig, TraceStore,
+                                  VariabilityPipeline, append_rank_db,
+                                  generate_synthetic, run_append,
+                                  run_generation, trace_remainder,
+                                  truncate_trace, write_rank_db)
+    from repro_torch.serve import (DEFAULT_FENCE_QUERY, IngestConfig,
+                                   QueryClient)
+
+    root = os.path.join(work, "stream")
+    ds = generate_synthetic(_spec(args))
+    t0 = int(min(tr.kernels.start.min() for tr in ds.traces))
+    ns = 1_000_000_000
+    cutoff = t0 + 90 * ns
+    # the rank DBs the plane tails, and a copy the same appends are
+    # replayed on without the service
+    paths, replay = ([os.path.join(root, sub, f"rank{tr.rank}.sqlite")
+                      for tr in ds.traces] for sub in ("dbs", "replay"))
+    for sub in ("dbs", "replay"):
+        os.makedirs(os.path.join(root, sub))
+    for tr, p, q in zip(ds.traces, paths, replay):
+        write_rank_db(p, truncate_trace(tr, cutoff))
+        shutil.copy2(p, q)
+    store, replay_store = (os.path.join(root, d)
+                           for d in ("store", "replay_store"))
+    cfg = PipelineConfig(n_ranks=args.ranks, backend="torch", device="cuda",
+                         anomaly_score="p99")
+    pipe = VariabilityPipeline(cfg)
+    pipe.generate(paths, store)
+    run_generation(replay, replay_store, n_ranks=args.ranks)
+    counters = _launch_counters()
+    svc = pipe.stream(store, paths, ingest=IngestConfig(poll_ms=25.0))
+    events, since, batches, replayed = [], 0, [], []
+    try:
+        client = QueryClient(port=svc.cfg.port, timeout_s=600.0)
+        _zero(counters)
+        lo = cutoff
+        for hi in (cutoff + 10 * ns, cutoff + 20 * ns, None):
+            batch = [trace_remainder(tr, lo) if hi is None
+                     else trace_remainder(truncate_trace(tr, hi), lo)
+                     for tr in ds.traces]
+            lo = hi
+            for b, p in zip(batch, paths):
+                append_rank_db(p, b)
+            body = client.fences(since=since, timeout_s=120.0)
+            if not body["events"]:
+                raise AssertionError("stream: no fence event within the "
+                                     "long poll")
+            if not svc.ingestor.quiesce(timeout_s=300.0):
+                raise AssertionError("stream: the plane did not catch up")
+            got = list(body["events"])
+            since = body["next_since"]
+            while True:
+                more = client.fences(since=since, timeout_s=0.2)
+                if not more["events"]:
+                    break
+                got += more["events"]
+                since = more["next_since"]
+            batches.append(sum(e["ingest"]["rows_ingested"] for e in got))
+            events += got
+            for b, q in zip(batch, replay):
+                append_rank_db(q, b)
+            replayed.append(run_append(replay, replay_store).appended_rows)
+        torch.cuda.synchronize()
+        launches = _path_launches(counters)
+        st = client.stats()["ingest"]
+    finally:
+        svc.stop()
+    del ds
+    log(f"stream: {len(events)} events over 3 batches (rows {batches}); "
+        f"ingest ticks {st['ingest_ticks']}, rows {st['rows_ingested']}, "
+        f"fence transitions {st['fence_transitions']}, errors "
+        f"{st['errors']}; event_to_fence p50/p99 "
+        f"{st['event_to_fence_p50_ms']:.1f} / "
+        f"{st['event_to_fence_p99_ms']:.1f} ms; launches {launches} "
+        f"[{card}]")
+    if st["errors"]:
+        raise AssertionError(f"stream: ingest errors {st['last_ingest']}")
+    _need_launches("stream", launches)
+    if batches != replayed or st["rows_ingested"] != sum(replayed):
+        raise AssertionError(f"stream: ingested {batches} rows a batch, "
+                             f"the same appends without the service "
+                             f"{replayed}")
+    n = TraceStore(replay_store).read_manifest().n_shards
+    if TraceStore(store).read_manifest().n_shards != n:
+        raise AssertionError("stream: shard count differs from the replay")
+    differ = _shards_equal(store, replay_store, n)
+    if differ:
+        raise AssertionError(f"stream: shard files differ from the same "
+                             f"appends without the service: {differ}")
+    # delta == cold: the plane's fences against a cold torch run over a
+    # cache-free copy of the same shards
+    cold_dir = os.path.join(root, "cold")
+    _bare_copy(store, cold_dir)
+    streamed = svc.ingestor.fence_state().get(
+        DEFAULT_FENCE_QUERY.cache_key(), ())
+    cold = VariabilityPipeline(cfg).query(cold_dir, [DEFAULT_FENCE_QUERY])[0]
+    mine = pipe.query(store, [DEFAULT_FENCE_QUERY])[0]
+    if not mine.cache_hit or cold.cache_hit:
+        raise AssertionError("stream: the plane left no summary, or the "
+                             "cold copy had one")
+    if tuple(int(i) for i in np.flatnonzero(cold.anomalies.flags)) != \
+            streamed:
+        raise AssertionError("stream: fence flags differ from a cold run")
+    for f in ("count", "sum", "sumsq", "min", "max"):
+        np.testing.assert_array_equal(getattr(mine.result.stats, f),
+                                      getattr(cold.result.stats, f))
+    np.testing.assert_array_equal(mine.result.reduced["quantile"].counts,
+                                  cold.result.reduced["quantile"].counts)
+    np.testing.assert_array_equal(mine.anomalies.top_windows,
+                                  cold.anomalies.top_windows)
+    # a from-scratch phase 1 of the final DBs, for the record: phase 1
+    # never joins an already committed kernel with a memcpy appended
+    # later, nor a kernel with a memcpy across a rank's range boundary
+    fresh = os.path.join(root, "fresh")
+    gen = run_generation(paths, fresh, n_ranks=args.ranks)
+    rows = sum(int(np.load(os.path.join(store, f"shard_{s:06d}.npz"))[
+        "k_start"].size) for s in range(n))
+    log(f"stream: {sum(replayed)} rows ingested == the same appends "
+        f"without the service; {n} shard files equal theirs byte for "
+        f"byte; fences and moments == a cold torch run over the same "
+        f"shards ({len(streamed)} flagged bins, top windows equal); a "
+        f"from-scratch phase 1 of the final DBs holds {gen.joined_rows} "
+        f"joined rows against the stream's {rows}, "
+        f"{len(_shards_equal(store, fresh, n))} shard files apart")
+
 def _time_ms(fn, iters=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -2117,6 +2587,11 @@ def main() -> int:
             dev, stalls)
         del stalls
         phase_delta(args, work)
+        d_errs = phase_diff(args, work, card)
+        for name, e in d_errs.items():
+            errs[name] = max(errs[name], e)
+        phase_service(args, work, card)
+        phase_stream(args, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # binstats' timestamp form and rolling_stats run on the micro path; the

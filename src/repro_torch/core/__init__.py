@@ -19,10 +19,15 @@ Layout (one module per paper concept, as in :mod:`repro.core`):
                 over the binstats/histbin kernels) -> clean/dirty
                 classification -> suite-generic merge -> covered summary
   anomaly       phase 3: IQR fences through the iqr kernel, top-k
-                anomalous shards
+                anomalous shards; sketch-vs-sketch shift scores
+  diff          trace diff & regression engine: fuzzy kernel-name
+                alignment across stores, per-(bin, group) distribution
+                shift off the cached sketches, ranked DiffReport with a
+                pass/regressed verdict CI can gate on
   distributed   device entry points over the kernels (world size 1)
   pipeline      end-to-end driver (serial | torch backends) with the
-                append -> delta-aggregate -> re-fence loop
+                append -> delta-aggregate -> re-fence loop, the two-store
+                diff, and the query service / streaming plane facades
 """
 
 from .events import (EventTable, GpuInfo, RankTrace, SyntheticSpec,
@@ -41,7 +46,8 @@ from .reducers import (MergeableReducer, QuantileSketch, get_reducer,
                        normalize_reducers, register_reducer,
                        REDUCER_REGISTRY, QUANTILE_REL_ERR)
 from .query import (LanePlan, Query, QueryPlan, QueryResult,
-                    SUMMARY_VERSION, is_quantile_score)
+                    SUMMARY_VERSION, diff_cache_key, diff_from_spec,
+                    diff_query, diff_spec, is_quantile_score)
 from .aggregation import (AggregationResult, BinStats, GroupedPartial,
                           ShardPartial, bin_samples, bin_samples_grouped,
                           classify_shards, compute_lane_partials_torch,
@@ -51,4 +57,7 @@ from .aggregation import (AggregationResult, BinStats, GroupedPartial,
                           DEFAULT_METRIC)
 from .anomaly import (IQRReport, anomalous_bins, iqr_detect, recovered,
                       report_for_query, sketch_shift)
+from .diff import (DiffReport, DiffThresholds, GroupDiff, MatchResult,
+                   NameMatch, diff_results, kernel_name_tokens,
+                   match_kernel_names, normalize_kernel_name)
 from .pipeline import PipelineConfig, PipelineResult, VariabilityPipeline

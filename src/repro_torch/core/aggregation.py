@@ -409,6 +409,19 @@ def _scan_shard(store: TraceStore, idx: int, plan: ShardPlan,
     return sp, (ts, vals, local_bin, gids)
 
 
+class _TouchedBins:
+    """The bin plan ``bin_grouped`` sees for one shard: its touched
+    bins, numbered in order (``shard_of`` hands back the rows' local bin
+    ids, already computed by the scan)."""
+
+    def __init__(self, n_bins: int, local_bin: np.ndarray) -> None:
+        self.n_shards = int(n_bins)
+        self._local_bin = local_bin
+
+    def shard_of(self, timestamps: np.ndarray) -> np.ndarray:
+        return self._local_bin
+
+
 def compute_shard_partial(store: TraceStore, idx: int, plan: ShardPlan,
                           metrics: Sequence[str],
                           group_by: Optional[str] = None,
@@ -417,22 +430,24 @@ def compute_shard_partial(store: TraceStore, idx: int, plan: ShardPlan,
                           cols: Optional[Dict[str, np.ndarray]] = None,
                           ) -> ShardPartial:
     """Scan ONE shard file and reduce it: every reducer, metric and group
-    in a single pass over the rows. The accumulation (``bin_grouped`` per
-    reducer over the full dense plan, then sliced to the touched bins) is
-    bit-identical to the pre-split rank loop, so cold results never moved
-    when the engine went incremental. ``query`` pushes row predicates
-    into the scan; ``cols`` reuses an already-read shard (the fused
-    multi-query pass)."""
+    in a single pass over the rows. Each reducer's ``bin_grouped``
+    accumulates over the shard's touched bins only (the reference
+    accumulates over the full dense plan, then slices the touched bins
+    out): the same rows reach each cell in the same order, so the result
+    is bit-identical, while a fine re-binning grouped by many keys (10 ms
+    bins by kernel name) no longer allocates the whole trace's cells for
+    every shard. ``query`` pushes row predicates into the scan; ``cols``
+    reuses an already-read shard (the fused multi-query pass)."""
     metrics = list(metrics)
     suite = normalize_reducers(reducers)
     sp, rows = _scan_shard(store, idx, plan, metrics, group_by,
                            query=query, cols=cols)
     if rows is None:
         return sp
-    ts, vals, _, gids = rows
+    ts, vals, local_bin, gids = rows
+    local = _TouchedBins(len(sp.bins), local_bin)
     sp.states = {name: get_reducer(name).bin_grouped(
-                     ts, vals.T, gids, len(sp.group_keys),
-                     plan).take_bins(sp.bins)
+                     ts, vals.T, gids, len(sp.group_keys), local)
                  for name in suite}
     return sp
 
@@ -826,10 +841,18 @@ def _slotwise_device_partition(counts: Sequence[int], n_dev: int,
     return row, valid
 
 
-# Host-side figures of the last torch producer run, one entry per reducer
-# suite batch: rows reduced, segments, and the seconds spent building the
-# segment order (read by chip_smoke.py; nothing in the engine reads it).
-PRODUCER_STATS: List[Dict[str, float]] = []
+# Host-side figures of the calling thread's last torch producer run, one
+# entry per reducer suite batch: rows reduced, segments, and the seconds
+# spent building the segment order (read by chip_smoke.py; nothing in the
+# engine reads it). Each call builds its own list and each thread keeps
+# its own, so overlapping service ticks never clear each other's entries.
+_PRODUCER = threading.local()
+
+
+def producer_stats() -> List[Dict[str, float]]:
+    """The record of this thread's last
+    :func:`compute_lane_partials_torch` call (empty before the first)."""
+    return list(getattr(_PRODUCER, "stats", ()))
 
 
 def compute_lane_partials_torch(store: TraceStore,
@@ -887,7 +910,8 @@ def compute_lane_partials_torch(store: TraceStore,
 
     # ragged flat segment space: slot k owns segments
     # [off_k, off_k + B_k*G_k) in scan order, one batch per reducer suite
-    PRODUCER_STATS.clear()
+    stats: List[Dict[str, float]] = []
+    _PRODUCER.stats = stats
     all_live = [s for s in scans if s[3] is not None]
     groups: Dict[Tuple[str, ...], List] = {}
     for s in all_live:
@@ -924,9 +948,8 @@ def compute_lane_partials_torch(store: TraceStore,
         vals_t = torch.from_numpy(
             np.ascontiguousarray(vals_all[:, row], np.float32)).to(device)
         valid_t = torch.from_numpy(valid).to(device)
-        PRODUCER_STATS.append({"rows": int(seg_p.shape[0]),
-                               "n_seg": n_seg_dev, "metrics": m_max,
-                               "order_seconds": order_s})
+        stats.append({"rows": int(seg_p.shape[0]), "n_seg": n_seg_dev,
+                      "metrics": m_max, "order_seconds": order_s})
         reduced = {name: get_reducer(name).device_reduce(
                        seg_t, vals_t, n_seg_dev, device, valid_t)
                    for name in suite}         # (n_seg_dev, M_max, *priv)

@@ -56,6 +56,15 @@ def report_for_query(result: AggregationResult, query: Query,
                           device=device)
 
 
+def quartiles(x: np.ndarray) -> Tuple[float, float, float]:
+    """(Q1, median, Q3) with linear interpolation — matches np.percentile
+    (a host helper; the fences themselves run the ``iqr`` kernel)."""
+    if x.size == 0:
+        return (0.0, 0.0, 0.0)
+    q1, q2, q3 = np.percentile(x, [25.0, 50.0, 75.0])
+    return float(q1), float(q2), float(q3)
+
+
 @dataclasses.dataclass
 class IQRReport:
     q1: float

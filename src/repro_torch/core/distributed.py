@@ -12,9 +12,10 @@ Where the reference calls ``jax.ops.segment_*``, the port calls its own
 CUDA kernels on CUDA tensors, and their plain PyTorch versions on CPU
 tensors:
 
-  * :func:`binstats_local`, :func:`distributed_moments_flat` and the
-    grouped form — the ``binstats`` kernel's flat form. On CUDA the rows
-    must be segment-ordered (the phase-2 producer orders them; see
+  * :func:`binstats_local`, :func:`distributed_binstats_from_bins`,
+    :func:`distributed_moments_flat` and the grouped form — the
+    ``binstats`` kernel's flat form. On CUDA the rows must be
+    segment-ordered (the phase-2 producer orders them; see
     :func:`repro_torch.core.aggregation.compute_lane_partials_torch`);
   * :func:`distributed_histogram_flat` and the grouped form — the
     ``histbin`` kernel's flat form; on CUDA the rows must be
@@ -33,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.binstats.ops import binstats, binstats_flat
+from ..kernels.binstats.ops import binstats, binstats_flat, disordered
 # bucketize: the quantile sketch's float32 log2 bucket, shared with the
 # histbin kernel's plain version (re-exported as the reference does)
 from ..kernels.histbin.ops import bucketize, histbin_flat  # noqa: F401
@@ -119,6 +120,29 @@ def _collaborative_reduce(local: torch.Tensor) -> torch.Tensor:
     world size 1."""
     _world_size()
     return local
+
+
+def distributed_binstats_from_bins(bin_ids: torch.Tensor,
+                                   values: torch.Tensor, n_bins: int,
+                                   valid: Optional[torch.Tensor] = None,
+                                   ) -> torch.Tensor:
+    """Collaborative moments from precomputed bin ids (exact int64
+    binning happens on the host — CUPTI ns timestamps overflow int32; see
+    :func:`distributed_binstats` for the on-device float32 variant).
+
+    bin_ids : (N,) int32 bin ids, clipped into ``[0, n_bins)``
+    values  : (N,) float32, or (n_metrics, N) sharing the ids
+    Returns (n_bins, 5), or (n_metrics, n_bins, 5), on the inputs' device.
+    On CUDA tensors the clipped ids must be non-decreasing: unordered
+    rows raise ``ValueError`` (the call then waits for the kernel's
+    order verdict); they are never sorted here."""
+    out = _collaborative_reduce(
+        binstats_local(bin_ids, values, n_bins, valid=valid))
+    if out.device.type == "cuda" and disordered(out):
+        raise ValueError("distributed_binstats_from_bins: bin ids are not "
+                         "non-decreasing (rows must be bin-ordered on "
+                         "CUDA tensors)")
+    return out
 
 
 def distributed_moments_flat(seg_ids: torch.Tensor, values: torch.Tensor,

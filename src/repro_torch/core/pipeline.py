@@ -35,6 +35,15 @@ bit-identical to a cold run on the same backend.
 append new trace onto an existing store, delta-aggregate in O(dirty
 shards), re-fence anomalies.
 
+Trace diff. :meth:`VariabilityPipeline.diff` answers "what got slower
+between run A and run B" with one fused kernel-grouped query per store
+on the pipeline's backend (:mod:`repro_torch.core.diff`); the finished
+report is cached in store B, keyed apart by the lanes' precision so a
+float32 device report never answers an exact ``serial`` diff.
+:meth:`serve` and :meth:`stream` put a store behind the v1 query service
+and the streaming ingest plane (:mod:`repro_torch.serve`) on the same
+backend and device.
+
 The phases and their timings are reported separately (the paper's Fig 1c
 plots Data Generation vs Data Aggregation duration vs #ranks).
 """
@@ -42,15 +51,18 @@ plots Data Generation vs Data Aggregation duration vs #ranks).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from ..device import resolve_device
 from .aggregation import (AggregationResult, ScanPool, DEFAULT_METRIC,
                           DEFAULT_REDUCERS)
-from .query import Query, QueryPlan, QueryResult
+from .query import (Query, QueryPlan, QueryResult, diff_cache_key,
+                    diff_query, lane_precision)
 from .reducers import normalize_reducers
 from .anomaly import (IQRReport, anomalous_bins, is_quantile_score,
                       report_for_query, top_variability_bins)
@@ -243,6 +255,97 @@ class VariabilityPipeline:
                                             device=self.cfg.device)
         return out
 
+    def diff(self, store_a: str, store_b: str,
+             query: Optional[Query] = None, thresholds=None):
+        """Two-store trace diff with a CI-consumable verdict: "what got
+        slower between run A and run B, where, and is it bad enough to
+        fail the job?" (see :mod:`repro_torch.core.diff`).
+
+        Each store is answered by ONE fused kernel-grouped query
+        (:func:`~repro_torch.core.query.diff_query` derived from ``query``
+        / the config) on this pipeline's backend and device — a warm
+        store serves it from the summary cache with zero shard reads, a
+        cold one costs exactly one dirty-shard scan (on the torch
+        backend, one ``binstats_flat`` and one ``histbin_flat`` launch);
+        the per-store read counts land in the report
+        (``shard_reads_a/b``). Alignment, shift scoring and the verdict
+        are pure host post-processing of the two results.
+
+        Repeated diffs skip even that: the finished report is persisted
+        in a diff-result cache in store B's root
+        (``diff_{diff_cache_key}.json``), validated against BOTH stores'
+        shard fingerprints, the thresholds and the lanes' precision — an
+        unchanged repeat on the same backend loads the report without
+        running a single query (``from_cache`` / ``provenance()``), while
+        a diff on the other backend recomputes. Disabled along with the
+        rest of the caches by ``use_summary_cache=False``.
+        """
+        from .diff import DiffReport, diff_results
+        t0 = time.perf_counter()
+        base = query if query is not None else self.cfg.to_query()
+        dq = diff_query(base)
+        key = diff_cache_key(dq, dq)
+        cache_path = os.path.join(str(store_b), f"diff_{key}.json")
+        fp = None
+        if self.cfg.use_summary_cache:
+            fp = self._diff_fingerprint(store_a, store_b, thresholds)
+            try:
+                with open(cache_path) as f:
+                    payload = json.load(f)
+                if payload.get("store_fingerprint") == fp:
+                    rep = DiffReport.from_payload(payload["report"])
+                    rep.seconds = time.perf_counter() - t0
+                    return rep
+            except (OSError, ValueError, KeyError, TypeError):
+                pass                   # stale/corrupt cache: recompute
+        sides = []
+        for sd in (store_a, store_b):
+            qplan = QueryPlan.compile(sd, [dq], backend=self.cfg.backend,
+                                      n_ranks=self.cfg.n_ranks,
+                                      device=self.cfg.device)
+            res = qplan.execute(use_cache=self.cfg.use_summary_cache,
+                                pool=self.scan_pool)[0]
+            names = {int(i): str(n) for i, n in
+                     qplan.store.read_manifest().extra.get(
+                         "kernel_names", {}).items()}
+            sides.append((res, names,
+                          int(qplan.store.io_counts["shard_reads"])))
+        (res_a, names_a, reads_a), (res_b, names_b, reads_b) = sides
+        rep = diff_results(
+            res_a.result, res_b.result, metric=base.metrics[0],
+            names_a=names_a, names_b=names_b, thresholds=thresholds,
+            store_a=str(store_a), store_b=str(store_b),
+            key=key,
+            shard_reads_a=reads_a, shard_reads_b=reads_b,
+            seconds=time.perf_counter() - t0)
+        if fp is not None:
+            tmp = cache_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"store_fingerprint": fp,
+                           "report": rep.to_payload()}, f)
+            os.replace(tmp, cache_path)
+        return rep
+
+    def _diff_fingerprint(self, store_a: str, store_b: str,
+                          thresholds) -> Dict:
+        """Validity token for one persisted diff report: any shard
+        rewrite/append on EITHER store, a different A-store path,
+        different thresholds or another lane precision (the backend's
+        float32 device path against the exact host path) must miss (the
+        report's query identity is already in the cache filename via
+        ``diff_cache_key``). The reference's token has no precision; a
+        float32 report could answer an exact diff there."""
+        return {
+            "paths": [os.path.abspath(str(store_a)),
+                      os.path.abspath(str(store_b))],
+            "shards": [[list(t) for t in
+                        TraceStore(s).shard_fingerprint()]
+                       for s in (store_a, store_b)],
+            "thresholds": (None if thresholds is None
+                           else thresholds.to_dict()),
+            "precision": lane_precision(self.cfg.backend),
+        }
+
     def _run_queries(self, store_dir: str,
                      queries: Sequence[Query]) -> List[QueryResult]:
         cfg = self.cfg
@@ -268,6 +371,42 @@ class VariabilityPipeline:
         backend."""
         rep = run_append(db_paths, work_dir)
         return self._analyze(rep, work_dir)
+
+    def serve(self, store_dir: str, host: str = "127.0.0.1",
+              port: int = 0, serve_http: bool = True, ingest=None,
+              **cfg_kw):
+        """Put the store behind the versioned v1 HTTP service (see
+        :mod:`repro_torch.serve.query_service`) on this pipeline's
+        backend and device and return the STARTED
+        :class:`~repro_torch.serve.QueryService` (``port=0`` picks a free
+        port — read it back from ``svc.cfg.port``; pair with
+        ``svc.stop()``). Extra keyword arguments land on
+        :class:`~repro_torch.serve.ServiceConfig`; ``ingest`` is an
+        optional :class:`~repro_torch.serve.IngestConfig` for the
+        streaming plane."""
+        from ..serve.query_service import QueryService, ServiceConfig
+        cfg = ServiceConfig(backend=self.cfg.backend, device=self.cfg.device,
+                            host=host, port=port, ingest=ingest, **cfg_kw)
+        return QueryService(str(store_dir), cfg).start(
+            serve_http=serve_http)
+
+    def stream(self, store_dir: str, db_paths: Sequence[str],
+               host: str = "127.0.0.1", port: int = 0,
+               serve_http: bool = True, ingest=None, **cfg_kw):
+        """:meth:`serve` plus the live streaming ingest plane: the
+        returned service is already tailing ``db_paths`` — rank-DB
+        growth past the recorded rowid watermarks becomes ingest ticks
+        (staged-commit ``run_append`` + delta re-aggregation of the
+        fence queries on the pipeline's backend and device), and fence
+        transitions stream from ``GET /v1/stream/fences``. Subscribe
+        with :class:`~repro_torch.serve.QueryClient`
+        (``client.fences(since)``)."""
+        from ..serve.query_service import QueryService, ServiceConfig
+        cfg = ServiceConfig(backend=self.cfg.backend, device=self.cfg.device,
+                            host=host, port=port, ingest=ingest, **cfg_kw)
+        svc = QueryService(str(store_dir), cfg)
+        svc.ensure_ingestor().attach(list(db_paths))
+        return svc.start(serve_http=serve_http)
 
     def _analyze(self, gen: Union[GenerationReport, AppendReport],
                  work_dir: str) -> PipelineResult:

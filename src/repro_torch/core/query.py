@@ -61,7 +61,7 @@ from .sharding import ShardPlan
 
 __all__ = [
     "SUMMARY_VERSION", "DEFAULT_METRIC", "Query", "QueryPlan", "LanePlan",
-    "QueryResult", "is_quantile_score",
+    "QueryResult", "is_quantile_score", "lane_precision",
     "diff_query", "diff_cache_key", "diff_spec", "diff_from_spec",
 ]
 
@@ -275,7 +275,14 @@ class Query:
         return keep
 
 
-# -- diff specs (two-store comparison; the diff engine is not ported yet) ---
+def lane_precision(backend: str) -> str:
+    """The cache namespace a backend's partials, summaries and diff
+    reports live in: torch results get their own, never served to (or
+    by) the exact host path or another package's float32 one."""
+    return "torch-float32" if backend == "torch" else "exact"
+
+
+# -- diff specs (two-store comparison; see repro_torch.core.diff) ----------
 
 def diff_query(base: Query) -> Query:
     """The per-store query a trace diff runs: ``base``'s predicates,
@@ -385,9 +392,7 @@ class QueryPlan:
         dev = resolve_device(device) if backend == "torch" else None
         man = store.read_manifest()
         file_plan = ShardPlan(man.t_start, man.t_end, man.n_shards)
-        # torch partials/summaries get their own namespace: never served
-        # to (or by) the exact host path or another package's float32 one
-        precision = "torch-float32" if backend == "torch" else "exact"
+        precision = lane_precision(backend)
         lanes = []
         for q in queries:
             if not isinstance(q, Query):

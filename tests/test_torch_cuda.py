@@ -565,3 +565,51 @@ def test_rolling_kernel_refuses_what_it_cannot_take(cuda):
         rolling_stats(torch.ones(0, device=cuda), window=4)
     with pytest.raises(ValueError, match="series"):
         rolling_stats(torch.ones(2, 4, device=cuda), window=2)
+
+
+def test_service_answers_on_the_card(cuda, tmp_path):
+    """A ``torch`` query service on the card answers one fenced query
+    (one tick through ``submit`` + ``drain_once``) by launching
+    ``binstats_flat``, ``histbin_flat`` and ``iqr_fences`` once each, and
+    agrees with a ``serial`` service on a copy of the store: counts and
+    fence flags exactly, min/max in float32, means within RTOL."""
+    import shutil
+
+    from repro_torch.core import (Query, SyntheticSpec, generate_synthetic,
+                                  run_generation, write_synthetic_dbs)
+    from repro_torch.kernels.binstats import ops as bs
+    from repro_torch.kernels.histbin import ops as hb
+    from repro_torch.kernels.iqr import ops as iq
+    from repro_torch.serve import QueryService, ServiceConfig
+    ds = generate_synthetic(SyntheticSpec(
+        n_ranks=2, kernels_per_rank=4000, memcpys_per_rank=400,
+        duration_s=20.0, n_anomaly_windows=2, seed=7))
+    paths = write_synthetic_dbs(ds, str(tmp_path / "dbs"))
+    run_generation(paths, str(tmp_path / "store"), n_ranks=2)
+    shutil.copytree(tmp_path / "store", tmp_path / "exact")
+    q = Query(metrics=("k_stall",), group_by="k_device",
+              reducers=("moments", "quantile"), anomaly_score="p99",
+              interval_ns=100_000_000)
+    answers = {}
+    for backend, store in (("torch", "store"), ("serial", "exact")):
+        svc = QueryService(str(tmp_path / store),
+                           ServiceConfig(backend=backend, tick_ms=1.0))
+        fns = (bs.binstats_flat, hb.histbin_flat, iq.iqr_fences)
+        before = [f.launches for f in fns]
+        p = svc.submit([q])
+        assert svc.drain_once(block_s=0.0) == 1
+        assert p.error is None, p.error
+        launched = [f.launches - b for f, b in zip(fns, before)]
+        assert launched == ([1, 1, 1] if backend == "torch" else [0, 0, 1])
+        answers[backend] = p.results[0]
+    got, want = answers["torch"], answers["serial"]
+    assert got["n_samples"] == want["n_samples"]
+    assert got["anomalous_bins"] == want["anomalous_bins"]
+    for gk, cells in want["groups"].items():
+        for m, cell in cells.items():
+            mine = got["groups"][gk][m]
+            assert mine["count"] == cell["count"]
+            for f in ("min", "max"):
+                assert np.float32(mine[f]) == np.float32(cell[f])
+            np.testing.assert_allclose(mine["mean"], cell["mean"],
+                                       rtol=RTOL)

@@ -255,3 +255,68 @@ def test_torch_entries_never_serve_exact_or_jax(grown):
     for f in STAT_FIELDS:
         np.testing.assert_array_equal(getattr(exact.grouped, f),
                                       getattr(ref_exact.grouped, f))
+
+
+# --- the producer's host record under overlapping calls ---------------------
+
+def test_producer_records_stay_whole_across_overlapping_calls(grown):
+    """Two torch producer calls in two threads, the second running
+    entirely between the first's end and its read: each thread reads
+    its own call's record (rows, segments, metrics), never the other's."""
+    import threading
+
+    from repro_torch.core.aggregation import (compute_lane_partials_torch,
+                                              producer_stats)
+    store = port.TraceStore(grown[0])
+    n = store.read_manifest().n_shards
+    jobs = {"a": (port.Query(metrics=METRICS, group_by="k_device",
+                             reducers=SUITE), range(0, n // 3)),
+            "b": (port.Query(metrics=METRICS[:1]), range(n // 3, n))}
+
+    def run(name):
+        q, shards = jobs[name]
+        plan = QueryPlan.compile(store, [q], backend="torch", device="cpu")
+        compute_lane_partials_torch(store, [(s, [0]) for s in shards],
+                                    plan.lanes, plan.device, persist=False)
+
+    def shape(record):
+        return [{k: v for k, v in r.items() if k != "order_seconds"}
+                for r in record]
+
+    alone = {}
+    for name in jobs:
+        run(name)
+        alone[name] = shape(producer_stats())
+    assert alone["a"] != alone["b"] and all(alone.values())
+
+    a_done, b_done = threading.Event(), threading.Event()
+    seen, errors = {}, []
+
+    def thread_a():
+        try:
+            run("a")
+            a_done.set()
+            assert b_done.wait(60)
+            seen["a"] = shape(producer_stats())
+        except BaseException as e:       # noqa: BLE001 — reported below
+            errors.append(e)
+            a_done.set()
+
+    def thread_b():
+        try:
+            assert a_done.wait(60)
+            run("b")
+            seen["b"] = shape(producer_stats())
+        except BaseException as e:       # noqa: BLE001
+            errors.append(e)
+        finally:
+            b_done.set()
+
+    threads = [threading.Thread(target=thread_a),
+               threading.Thread(target=thread_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors
+    assert seen == alone
