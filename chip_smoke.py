@@ -60,7 +60,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. main    — the paper's pipeline through ``VariabilityPipeline.run`` on a
              Table-1-sized synthetic trace (8 ranks x 105k kernels + 13.4k
              memcpys, 120 s, 10 ms bins x 4 devices, 3 metrics, moments +
-             quantile sketch, p99 fences), backend "torch". The launch
+             quantile sketch, p99 fences), backend "torch", its phase 1 on
+             the rank pool (one worker process a rank; more than one pid
+             required), printed beside the serial backend's in-process
+             loop on the same DBs. The launch
              counters are zeroed just before and read just after; the
              run must launch binstats_flat, histbin_flat and iqr_fences,
              recover the injected anomaly windows and agree with the
@@ -120,7 +123,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              in are printed (phase 1 joins no committed kernel with a
              memcpy appended later, ROADMAP Queue 3); event-to-fence
              p50/p99 are printed;
-11. serve  — mamba2-370m at full width and depth (48 layers, d_model
+11. ranks  — the paper's Fig 1c on the card's machine: the main phase's
+             DBs at 1, 2, 4 and 8 ranks (capped at the usable CPUs, which
+             are printed first) through the "process" backend (one OS
+             process a rank for phase 1, the work-stealing process pool
+             for the exact scan, fences on the card) and the "serial"
+             backend, and the "torch" backend's phases 2+3 on the process
+             store. Each rank count prints phase 1 and phases 2+3 seconds,
+             the phase-1 and scan worker pids (more than one required
+             above 1 rank), the most shards a rank owns, the joined rows,
+             and the peak RSS of this process so far and of the largest
+             worker; the process shard files must equal the
+             serial ones byte for byte, its moments, sketch counts, flags
+             and top bins exactly, torch must equal serial under the main
+             phase's tolerances, and each backend must launch
+             iqr_fences. A fresh interpreter that never touches CUDA first
+             times the process backend's phase 1 at the largest rank count
+             under the fork and the forkserver start methods;
+12. serve  — mamba2-370m at full width and depth (48 layers, d_model
              1024, vocab 50280) in bfloat16, random weights drawn on the
              card from --seed, through ``ServeEngine.generate``: 8
              requests of 2048 prompt tokens, 32 new tokens each. The
@@ -133,7 +153,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              bfloat16 tolerance below) and first tokens. Device kernel
              time by name for one prefill and 8 decode steps is read
              with torch.profiler;
-12. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
+13. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
              3 global and 29 with window 1024, d_model 1600, vocab 32001,
              128 meta tokens) in bfloat16, random weights drawn on the card
              from --seed, through ``ServeEngine.generate``: 8 requests of
@@ -148,7 +168,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-13. times  — each kernel, its plain version and a one-call PyTorch
+14. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
              yardstick by CUDA events, then the device time of a call under
@@ -166,7 +186,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              torch.quantile as the yardstick; the profiler's own-kernel
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000;
-14. host trace — time.perf_counter_ns around each step of the
+15. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
              stream lookup, binding call and launch, result check) over
@@ -206,6 +226,7 @@ import argparse
 import ctypes
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -811,10 +832,11 @@ class Capture:
             setattr(mod, attr, fn)
 
 
-def _cfg(args, backend):
+def _cfg(args, backend, n_ranks=None):
     from repro_torch.core import PipelineConfig
     return PipelineConfig(
-        n_ranks=args.ranks, backend=backend, device="cuda", metrics=METRICS,
+        n_ranks=n_ranks or args.ranks, backend=backend, device="cuda",
+        metrics=METRICS,
         group_by="k_device", reducers=("moments", "quantile"),
         anomaly_score="p99", agg_interval_ns=10_000_000)
 
@@ -847,6 +869,26 @@ def _zero(counters):
         fn.launches = 0
         if hasattr(fn, "wgmma_launches"):
             fn.wgmma_launches = 0
+
+
+def _assert_torch_close(agg, anomalies, ser_agg, ser_anomalies):
+    """The torch backend's result against the exact serial one: counts,
+    min/max (in float32), sketch totals and fence flags exactly, sums
+    within RTOL."""
+    import numpy as np
+    a, b = agg.grouped, ser_agg.grouped
+    occ = b.count > 0
+    np.testing.assert_array_equal(a.count, b.count)
+    for f in ("min", "max"):
+        np.testing.assert_array_equal(
+            np.where(occ, getattr(a, f), 0.0),
+            np.where(occ, getattr(b, f).astype(np.float32), 0.0))
+    for f in ("sum", "sumsq"):
+        np.testing.assert_allclose(getattr(a, f), getattr(b, f),
+                                   rtol=RTOL)
+    np.testing.assert_array_equal(agg.reduced["quantile"].counts.sum(-1),
+                                  ser_agg.reduced["quantile"].counts.sum(-1))
+    np.testing.assert_array_equal(anomalies.flags, ser_anomalies.flags)
 
 
 def phase_main(args, work):
@@ -894,20 +936,15 @@ def phase_main(args, work):
 
     ser = VariabilityPipeline(_cfg(args, "serial")).run(
         paths, os.path.join(work, "store_serial"))
-    a, b = res.aggregation.grouped, ser.aggregation.grouped
-    occ = b.count > 0
-    np.testing.assert_array_equal(a.count, b.count)
-    for f in ("min", "max"):
-        np.testing.assert_array_equal(
-            np.where(occ, getattr(a, f), 0.0),
-            np.where(occ, getattr(b, f).astype(np.float32), 0.0))
-    for f in ("sum", "sumsq"):
-        np.testing.assert_allclose(getattr(a, f), getattr(b, f),
-                                   rtol=RTOL)
-    np.testing.assert_array_equal(
-        res.aggregation.reduced["quantile"].counts.sum(-1),
-        ser.aggregation.reduced["quantile"].counts.sum(-1))
-    np.testing.assert_array_equal(res.anomalies.flags, ser.anomalies.flags)
+    pids = sorted({w["pid"] for w in gen.workers})
+    log(f"main: phase 1 {gen.seconds:.3f}s on the rank pool ({len(pids)} "
+        f"worker processes, pids {pids}), {ser.generation.seconds:.3f}s in "
+        f"the serial backend's in-process loop; {len(pids)} of "
+        f"{args.ranks} ranks on their own process")
+    if args.ranks > 1 and len(pids) < 2:
+        raise AssertionError("the torch backend's phase 1 ran on one process")
+    _assert_torch_close(res.aggregation, res.anomalies, ser.aggregation,
+                        ser.anomalies)
     log(f"main: torch == serial (counts/min/max exact, sums rtol {RTOL}, "
         f"sketch totals exact, {int(res.anomalies.flags.sum())} flags "
         "equal)")
@@ -943,7 +980,7 @@ def phase_main(args, work):
     stalls = [tr.kernels.memory_stall[np.argsort(tr.kernels.start,
                                                  kind="stable")]
               for tr in ds.traces]
-    return launches, errs, shapes, stalls
+    return launches, errs, shapes, stalls, paths
 
 
 class _Plain:
@@ -2233,6 +2270,150 @@ def phase_stream(args, work, card):
         f"joined rows against the stream's {rows}, "
         f"{len(_shards_equal(store, fresh, n))} shard files apart")
 
+# Rank counts of the paper's Fig 1c, capped at the usable CPUs
+FIG1C_RANKS = (1, 2, 4, 8)
+
+# Phase 1 of the process backend at one rank count under each start
+# method, in a fresh interpreter that never touches CUDA and runs one
+# thread: the only process where forking the caller is safe, so the one
+# place the two rules can be timed against each other. argv: the DB paths
+# as JSON, an output directory, the rank count.
+START_METHOD_PROBE = """
+import json, sys, time
+from repro_torch.core import PipelineConfig, VariabilityPipeline, pipeline
+import torch
+paths, out, p = json.loads(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+res = {}
+for name, method in (("fork", "fork"), ("forkserver_cold", "forkserver"),
+                     ("forkserver_warm", "forkserver")):
+    pipeline._START_METHOD = method
+    pipe = VariabilityPipeline(PipelineConfig(n_ranks=p, backend="process",
+                                              device="cpu"))
+    gen = pipe.generate(paths, f"{out}/{name}")
+    res[name] = {"phase1_s": gen.seconds,
+                 "pids": len({w["pid"] for w in gen.workers})}
+res["cuda_initialized"] = torch.cuda.is_initialized()
+print(json.dumps(res))
+"""
+
+
+def _agg_equal(a, b, anom_a, anom_b):
+    """Two exact results bit for bit: every moment field, sketch counts,
+    fence flags and top bins."""
+    import numpy as np
+    for f in ("count", "sum", "sumsq", "min", "max"):
+        np.testing.assert_array_equal(getattr(a.grouped, f),
+                                      getattr(b.grouped, f))
+    np.testing.assert_array_equal(a.reduced["quantile"].counts,
+                                  b.reduced["quantile"].counts)
+    np.testing.assert_array_equal(anom_a.flags, anom_b.flags)
+    np.testing.assert_array_equal(anom_a.top_idx, anom_b.top_idx)
+
+
+def phase_ranks(args, work, paths, card):
+    """Fig 1c on the card's machine: the main phase's Table-1 DBs through
+    the process and serial backends at each rank count, and the torch
+    backend's phases 2+3 on the process store."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import TraceStore, VariabilityPipeline
+
+    cpus = len(os.sched_getaffinity(0))
+    ranks = [p for p in FIG1C_RANKS if p <= cpus]
+    log(f"ranks: {cpus} usable CPUs (os.cpu_count() {os.cpu_count()}), "
+        f"rank counts {ranks} [{card}]")
+    probe = subprocess.run(
+        [sys.executable, "-c", START_METHOD_PROBE, json.dumps(paths),
+         os.path.join(work, "probe"), str(ranks[-1])],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if probe.returncode != 0:
+        raise AssertionError(f"start-method probe failed:\n{probe.stderr}")
+    times = json.loads(probe.stdout.strip().splitlines()[-1])
+    shutil.rmtree(os.path.join(work, "probe"), ignore_errors=True)
+    log(f"ranks: process phase 1 at p = {ranks[-1]} in a fresh process "
+        f"without CUDA, by start method: {times} [{card}]")
+    if times["cuda_initialized"]:
+        raise AssertionError("the start-method probe initialised CUDA")
+    counters = _launch_counters()
+    table = []
+    for p in ranks:
+        root = os.path.join(work, f"ranks{p}")
+        res, t23, fences = {}, {}, {}
+        for backend in ("process", "serial"):
+            pipe = VariabilityPipeline(_cfg(args, backend, n_ranks=p))
+            _zero(counters)
+            t0 = time.perf_counter()
+            res[backend] = pipe.run(paths, os.path.join(root, backend))
+            torch.cuda.synchronize()
+            t23[backend] = (time.perf_counter() - t0
+                            - res[backend].generation.seconds)
+            fences[backend] = counters["iqr_fences"].launches
+            if backend == "process":
+                # this process's peak so far: the card's machine keeps no
+                # resettable high-water mark
+                parent_rss = resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss
+                gen_workers = res[backend].generation.workers
+                scan_workers = pipe.scan_workers
+        tpipe = VariabilityPipeline(_cfg(args, "torch", n_ranks=p))
+        _zero(counters)
+        t0 = time.perf_counter()
+        tq = tpipe.query(os.path.join(root, "process"),
+                         [tpipe.cfg.to_query()])[0]
+        torch.cuda.synchronize()
+        t23["torch"] = time.perf_counter() - t0
+        t_launches = _path_launches(counters)
+        fences["torch"] = t_launches["iqr_fences"]
+        _need_launches(f"ranks p={p} torch", t_launches)
+        for backend, n in fences.items():
+            if n < 1:
+                raise AssertionError(f"ranks p={p}: {backend} never "
+                                     "launched iqr_fences")
+        gen = res["process"].generation
+        pids = sorted({w["pid"] for w in gen_workers})
+        scan_pids = sorted({w["pid"] for w in scan_workers})
+        if p > 1 and len(pids) < 2:
+            raise AssertionError(f"ranks p={p}: phase 1 ran on one process")
+        bad = _shards_equal(os.path.join(root, "serial"),
+                            os.path.join(root, "process"), gen.n_shards)
+        if bad or res["serial"].generation.joined_rows != gen.joined_rows:
+            raise AssertionError(f"ranks p={p}: process shard files differ "
+                                 f"from serial's: {bad}")
+        _agg_equal(res["process"].aggregation, res["serial"].aggregation,
+                   res["process"].anomalies, res["serial"].anomalies)
+        _assert_torch_close(tq.result, tq.anomalies,
+                            res["serial"].aggregation,
+                            res["serial"].anomalies)
+        owner = TraceStore(os.path.join(root, "process")).read_manifest()
+        per_rank = int(np.bincount(owner.shard_owner, minlength=p).max())
+        worker_rss = max(w["max_rss_kib"] for w in gen_workers + scan_workers)
+        row = {"p": p, "phase1_process_s": gen.seconds,
+               "phase1_serial_s": res["serial"].generation.seconds,
+               "phase23_process_s": t23["process"],
+               "phase23_serial_s": t23["serial"],
+               "phase23_torch_s": t23["torch"],
+               "max_shards_per_rank": per_rank,
+               "joined_rows": gen.joined_rows,
+               "parent_peak_rss_kib": parent_rss,
+               "worker_peak_rss_kib": worker_rss,
+               "iqr_fences": fences}
+        table.append(row)
+        log(f"ranks p={p}: phase 1 process {gen.seconds:.3f}s (pids {pids}) "
+            f"/ serial {row['phase1_serial_s']:.3f}s; phases 2+3 process "
+            f"{t23['process']:.3f}s (scan pids {scan_pids}) / serial "
+            f"{t23['serial']:.3f}s / torch {t23['torch']:.3f}s; "
+            f"{per_rank} shards max a rank, {gen.joined_rows} joined rows; "
+            f"peak RSS of this process so far {parent_rss} KiB, of the "
+            f"largest worker {worker_rss} KiB; iqr_fences launches "
+            f"{fences}, torch {t_launches}; process == serial (shard files byte for byte, "
+            f"moments, sketch, flags, top bins exact), torch == serial "
+            f"(counts/min/max exact, sums rtol {RTOL}) [{card}]")
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"ranks: Fig 1c table {json.dumps(table)}")
+
+
 def _time_ms(fn, iters=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -2580,7 +2761,7 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches, errs, shapes, stalls = phase_main(args, work)
+        launches, errs, shapes, stalls, paths = phase_main(args, work)
         log(f"kernels on the main path's inputs, largest |kernel - plain|:"
             f" {errs}")
         s_launches, s_err, shapes["rolling_stats/stall"] = phase_stall(
@@ -2592,6 +2773,7 @@ def main() -> int:
             errs[name] = max(errs[name], e)
         phase_service(args, work, card)
         phase_stream(args, work, card)
+        phase_ranks(args, work, paths, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # binstats' timestamp form and rolling_stats run on the micro path; the

@@ -14,7 +14,7 @@ Layout (one module per paper concept, as in :mod:`repro.core`):
                 (log-bucket QuantileSketch) per (bin, group, metric) cell
   query         declarative Query API; QueryPlan compiles a batch into one
                 fused scan with predicate pushdown
-  aggregation   phase 2, incremental on both backends: per-shard partial
+  aggregation   phase 2, incremental on every backend: per-shard partial
                 producer (exact host scan, or the torch device producer
                 over the binstats/histbin kernels) -> clean/dirty
                 classification -> suite-generic merge -> covered summary
@@ -25,7 +25,8 @@ Layout (one module per paper concept, as in :mod:`repro.core`):
                 shift off the cached sketches, ranked DiffReport with a
                 pass/regressed verdict CI can gate on
   distributed   device entry points over the kernels (world size 1)
-  pipeline      end-to-end driver (serial | torch backends) with the
+  pipeline      the end-to-end entry (serial | process | torch backends;
+                phase 1 of process and torch on a rank process pool) with the
                 append -> delta-aggregate -> re-fence loop, the two-store
                 diff, and the query service / streaming plane facades
 """

@@ -26,7 +26,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -72,7 +72,11 @@ class GenerationReport:
 
     ``ingest_rows_read`` / ``ingest_rows_skipped`` mirror the
     TraceStore io_counts of the same names: event rows fetched from the
-    source DBs vs. rows a pushdown predicate excluded SQL-side."""
+    source DBs vs. rows a pushdown predicate excluded SQL-side.
+
+    ``workers`` holds one record per rank task of the pipeline's rank
+    pool (pid, whether CUDA was initialised in it, peak RSS in KiB);
+    empty when the ranks ran in-process."""
 
     n_shards: int
     n_ranks: int
@@ -83,6 +87,7 @@ class GenerationReport:
     seconds: float
     ingest_rows_read: int = 0
     ingest_rows_skipped: int = 0
+    workers: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

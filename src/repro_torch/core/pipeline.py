@@ -1,17 +1,38 @@
 """End-to-end two-phase variability pipeline (paper §3) on a torch device.
 
 Backends:
-  * ``serial`` — exact float64 host scan of the dirty shards.
-  * ``torch``  — dirty shards' rows are reduced on ``PipelineConfig.device``
-    by the port's CUDA kernels (binstats for the moments, histbin for the
-    quantile sketch); see :func:`repro_torch.core.aggregation.compute_lane_partials_torch`.
+  * ``serial``  — the rank loop in-process and the exact float64 host
+    scan of the dirty shards (debugging / tiny traces).
+  * ``process`` — one OS process per rank for phase 1 (faithful MPI-rank
+    semantics: private address spaces, exchange through shard files, a
+    barrier at the phase boundary; ``multiprocessing`` stands in for
+    ``mpirun``), and the exact host scan on a work-stealing process pool.
+    This is the paper's execution model.
+  * ``torch``   — phase 1 on the same rank pool; dirty shards' rows are
+    reduced on ``PipelineConfig.device`` by the port's CUDA kernels
+    (binstats for the moments, histbin for the quantile sketch); see
+    :func:`repro_torch.core.aggregation.compute_lane_partials_torch`.
 
-On both backends phase 3, the IQR fences, runs through the ``iqr`` kernel
+On every backend phase 3, the IQR fences, runs through the ``iqr`` kernel
 on ``PipelineConfig.device``; ranking the flagged bins stays on the host.
 The device defaults to ``"cuda"``: a config naming the card on a machine
 without one raises when it is built, and never falls back to the CPU.
 
-Both backends run the one-pass multi-metric × group-by engine: set
+Rank pool. ``process`` and ``torch`` build shards through one producer,
+``_gen_worker`` (the reference's), one task per rank on
+``min(n_ranks, usable CPUs)`` worker processes. Workers start from a
+``forkserver`` whose server preloads this module: a fresh interpreter,
+never a fork of a caller that may hold a CUDA context and live threads
+(earlier kernel launches, a query service's executors and ``ScanPool``
+threads), and torch is imported once per server rather than once per
+worker. A worker never touches CUDA; each reports whether CUDA was
+initialised in it, and the call raises if it was. A pool that cannot
+start, a worker that dies and a worker that raises each make the call
+raise: nothing falls back to the in-process loop. As with any pool whose
+workers do not fork the caller, a script that runs the ``process`` or
+``torch`` backend guards its entry with ``if __name__ == "__main__":``.
+
+All backends run the one-pass multi-metric × group-by engine: set
 ``PipelineConfig.metrics`` / ``group_by`` / ``reducers`` and a single scan
 of the shard store yields a (n_bins, n_groups, n_metrics) tensor per
 reducer — moments always, plus the quantile sketch when requested.
@@ -26,20 +47,30 @@ alone and fenced on its own score spec. :meth:`aggregate` is the
 config-shaped adapter over the same engine (``PipelineConfig.to_query``),
 so config-style and Query-style analyses share one cache.
 
-Incremental engine. Both backends aggregate through the two-level cache
+Incremental engine. Every backend aggregates through the two-level cache
 in :mod:`repro_torch.core.aggregation`: an unchanged store is answered
 from the merged summary; a changed store rescans ONLY the dirty/new
 shards and merges them with the clean shards' cached partials —
-bit-identical to a cold run on the same backend.
+bit-identical to a cold run on the same backend. The backends differ only
+in the dirty-shard producer: an in-process loop (serial), the
+work-stealing pool below (process), or one batched kernel launch per
+reducer (torch). ``serial`` and ``process`` share the exact cache
+namespace; torch results live in their own.
 :meth:`VariabilityPipeline.append` closes the automated-workflow loop:
 append new trace onto an existing store, delta-aggregate in O(dirty
 shards), re-fence anomalies.
+
+Scheduling. The process backend's aggregation phase is a work-stealing
+chunked queue (small shard chunks taken in completion order), not a static
+per-rank block — a straggler shard delays only its own chunk. Partials
+are merged in shard-index order regardless of completion order, so the
+result is bit-identical to ``serial``.
 
 Trace diff. :meth:`VariabilityPipeline.diff` answers "what got slower
 between run A and run B" with one fused kernel-grouped query per store
 on the pipeline's backend (:mod:`repro_torch.core.diff`); the finished
 report is cached in store B, keyed apart by the lanes' precision so a
-float32 device report never answers an exact ``serial`` diff.
+float32 device report never answers an exact diff.
 :meth:`serve` and :meth:`stream` put a store behind the v1 query service
 and the streaming ingest plane (:mod:`repro_torch.serve`) on the same
 backend and device.
@@ -50,19 +81,25 @@ plots Data Generation vs Data Aggregation duration vs #ranks).
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing as mp
 import os
+import resource
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
-from .aggregation import (AggregationResult, ScanPool, DEFAULT_METRIC,
+from .aggregation import (AggregationResult, ScanPool,
+                          compute_lane_partials, DEFAULT_METRIC,
                           DEFAULT_REDUCERS)
-from .query import (Query, QueryPlan, QueryResult, diff_cache_key,
-                    diff_query, lane_precision)
+from .query import (LanePlan, Query, QueryPlan, QueryResult,
+                    diff_cache_key, diff_query, lane_precision)
 from .reducers import normalize_reducers
 from .anomaly import (IQRReport, anomalous_bins, is_quantile_score,
                       report_for_query, top_variability_bins)
@@ -77,7 +114,7 @@ from .tracestore import StoreManifest, TraceStore
 @dataclasses.dataclass
 class PipelineConfig:
     n_ranks: int = 4
-    backend: str = "torch"                 # serial | torch
+    backend: str = "torch"                 # serial | process | torch
     device: str = "cuda"                   # torch reduction + IQR fences
     generation: GenerationConfig = dataclasses.field(
         default_factory=GenerationConfig)
@@ -97,13 +134,13 @@ class PipelineConfig:
     # N > 1 = that many threads. The pool is spawned once per pipeline
     # lifetime (see VariabilityPipeline.scan_pool) and its single
     # pack-writer thread serializes all partial-cache appends; the
-    # torch backend ignores it.
+    # process and torch backends bring their own parallelism and ignore it.
     scan_workers: int = 1
 
     def __post_init__(self):
-        if self.backend not in ("serial", "torch"):
+        if self.backend not in ("serial", "process", "torch"):
             raise ValueError(f"unknown backend {self.backend!r} "
-                             "(serial | torch)")
+                             "(serial | process | torch)")
         resolve_device(self.device)
 
     @property
@@ -147,12 +184,117 @@ class PipelineResult:
         return self.anomalies.top_windows
 
 
+# --- the rank pool (module-level workers, so they pickle by name) ----------
+
+# See the module docstring: a fresh interpreter that imported this module
+# once, never a fork of a caller holding a CUDA context or threads.
+_START_METHOD = "forkserver"
+_PRELOAD = ["repro_torch.core.pipeline"]
+# the directory holding the repro_torch package
+_IMPORT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SERVER_LOCK = threading.Lock()
+
+
+def _usable_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:             # no affinity API on this platform
+        return os.cpu_count() or 1
+
+
+def _start_forkserver() -> None:
+    """Start the forkserver, if it is not running, able to import this
+    package. Some Pythons (3.12.3 among them) start the server without the
+    caller's ``sys.path``, only its environment, and drop a preload that
+    fails to import: every worker would then import torch itself. So the
+    package's root rides ``PYTHONPATH`` while the server starts, and the
+    caller's environment is restored before this returns."""
+    from multiprocessing import forkserver
+    with _SERVER_LOCK:
+        old = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [_IMPORT_ROOT] + ([old] if old else []))
+        try:
+            forkserver.ensure_running()
+        finally:
+            if old is None:
+                del os.environ["PYTHONPATH"]
+            else:
+                os.environ["PYTHONPATH"] = old
+
+
+def _rank_pool(n_ranks: int) -> concurrent.futures.ProcessPoolExecutor:
+    """``min(n_ranks, usable CPUs)`` worker processes. An executor, not a
+    ``multiprocessing.Pool``: a worker that dies (killed, or failing to
+    start) breaks the executor and the call raises, where a ``Pool``
+    would replace the worker and wait forever."""
+    ctx = mp.get_context(_START_METHOD)
+    if _START_METHOD == "forkserver":
+        ctx.set_forkserver_preload(_PRELOAD)
+        _start_forkserver()
+    return concurrent.futures.ProcessPoolExecutor(
+        min(n_ranks, _usable_cpus()), mp_context=ctx)
+
+
+def _worker_record() -> Dict[str, Any]:
+    """Who ran a pool task: its pid, whether CUDA was ever initialised in
+    it, and its peak resident set (KiB, shared pages included)."""
+    return {"pid": os.getpid(),
+            "cuda_initialized": bool(torch.cuda.is_initialized()),
+            "max_rss_kib": int(
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)}
+
+
+def _checked(workers: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    touched = sorted({w["pid"] for w in workers if w["cuda_initialized"]})
+    if touched:
+        raise RuntimeError(f"pool workers {touched} initialised CUDA; a "
+                           "rank worker must stay on the host")
+    return workers
+
+
+def _gen_worker(args):
+    """One rank's phase 1 in a pool worker: ``(counts, worker record)``."""
+    rank, db_paths, plan_tuple, shard_ids, out_dir, cfg_dict = args
+    plan = ShardPlan(*plan_tuple)
+    cfg = GenerationConfig(**cfg_dict)
+    store = TraceStore(out_dir)
+    counts = generate_rank(rank, db_paths, plan, np.asarray(shard_ids),
+                           store, cfg,
+                           contiguous=(cfg.partitioning == "block"))
+    return counts, _worker_record()
+
+
+def _fused_worker(args):
+    """One work-queue chunk of the FUSED query batch: each shard file in
+    the chunk is read once and every query lane that marked it dirty
+    reduces its own metrics/groups/predicates off the shared columns
+    (the same :func:`compute_lane_partials` producer the serial backend
+    runs, background writer thread included); with a lane ``qkey`` set,
+    its partial is atomically persisted as soon as it is produced
+    (crash-safe: a dying worker leaves complete cache entries or none).
+    Returns ``({lane index -> [ShardPartial]}, worker record)``."""
+    store_dir, chunk, lane_specs = args
+    store = TraceStore(store_dir)
+    lanes = [LanePlan(query=query, plan=ShardPlan(*plan_t),
+                      metrics=tuple(metrics), reducers=tuple(reducers),
+                      precision="exact", summary_key=None,
+                      qkey=qkey or "", pruned=None, shards_pruned=0)
+             for plan_t, metrics, reducers, qkey, query in lane_specs]
+    parts = dict(compute_lane_partials(store, chunk, lanes, persist=True))
+    return parts, _worker_record()
+
+
 class VariabilityPipeline:
     """Drives phase 1 + phase 2 + anomaly selection over rank SQLite DBs."""
 
     def __init__(self, cfg: Optional[PipelineConfig] = None):
         self.cfg = cfg or PipelineConfig()
         self._scan_pool: Optional[ScanPool] = None
+        # records of the workers of this pipeline's last process-backend
+        # scan (see _worker_record); empty until one ran
+        self.scan_workers: List[Dict[str, Any]] = []
 
     @property
     def scan_pool(self) -> Optional[ScanPool]:
@@ -194,10 +336,22 @@ class VariabilityPipeline:
         rank_shards = assignment(plan.n_shards, cfg.n_ranks,
                                  gen.partitioning)
 
-        rank_counts = [generate_rank(
-            r, sources, plan, rank_shards[r], store, gen,
-            contiguous=(gen.partitioning == "block"))
-            for r in range(cfg.n_ranks)]
+        workers: List[Dict[str, Any]] = []
+        if cfg.backend == "serial":
+            rank_counts = [generate_rank(
+                r, sources, plan, rank_shards[r], store, gen,
+                contiguous=(gen.partitioning == "block"))
+                for r in range(cfg.n_ranks)]
+        else:
+            jobs = [(r, list(sources),
+                     (plan.t_start, plan.t_end, plan.n_shards),
+                     rank_shards[r].tolist(), out_dir,
+                     dataclasses.asdict(gen))
+                    for r in range(cfg.n_ranks)]
+            with _rank_pool(cfg.n_ranks) as pool:
+                out = list(pool.map(_gen_worker, jobs))
+            rank_counts = [c for c, _ in out]
+            workers = _checked([w for _, w in out])
 
         owner = owner_of_shards(plan.n_shards, cfg.n_ranks, gen.partitioning)
         from .generation import SHARD_COLUMNS
@@ -221,7 +375,8 @@ class VariabilityPipeline:
             ingest_rows_read=sum(
                 c.get("ingest_rows_read", 0) for c in rank_counts),
             ingest_rows_skipped=sum(
-                c.get("ingest_rows_skipped", 0) for c in rank_counts))
+                c.get("ingest_rows_skipped", 0) for c in rank_counts),
+            workers=workers)
 
     # -- phase 2 -------------------------------------------------------------
     def aggregate(self, store_dir: str) -> AggregationResult:
@@ -232,9 +387,10 @@ class VariabilityPipeline:
         :meth:`query` (summary hit → done; otherwise only dirty/new
         shards are recomputed and merged with the clean shards' cached
         partials). The backends plug different dirty-shard producers in:
-        the exact host scan, or — torch — one batched kernel launch per
-        reducer whose per-shard device partials are cached for the next
-        delta."""
+        the exact host scan in-process (serial) or on the work-stealing
+        process pool (process), or — torch — one batched kernel launch
+        per reducer whose per-shard device partials are cached for the
+        next delta."""
         return self._run_queries(store_dir,
                                  [self.cfg.to_query()])[0].result
 
@@ -304,6 +460,7 @@ class VariabilityPipeline:
                                       n_ranks=self.cfg.n_ranks,
                                       device=self.cfg.device)
             res = qplan.execute(use_cache=self.cfg.use_summary_cache,
+                                compute_fn=self._compute_fn(),
                                 pool=self.scan_pool)[0]
             names = {int(i): str(n) for i, n in
                      qplan.store.read_manifest().extra.get(
@@ -353,7 +510,45 @@ class VariabilityPipeline:
                                   backend=cfg.backend,
                                   n_ranks=cfg.n_ranks, device=cfg.device)
         return qplan.execute(use_cache=cfg.use_summary_cache,
+                             compute_fn=self._compute_fn(),
                              pool=self.scan_pool)
+
+    def _compute_fn(self):
+        return self._pool_compute if self.cfg.backend == "process" else None
+
+    def _pool_compute(self, work_items, qplan: QueryPlan, persist: bool):
+        """Work-stealing scheduler for the fused dirty-shard scan: the
+        (shard, lanes) work list is split into small chunks that idle
+        workers take from the executor's shared queue, so a straggler
+        chunk — an anomaly-burst shard with 10x the rows — delays only
+        itself, not a whole static rank block. Completion order is
+        irrelevant: the merge folds partials in shard-index order, so the
+        result is bit-identical to the serial backend."""
+        self.scan_workers = []
+        if not work_items:
+            return {}
+        lane_specs = [
+            ((lane.plan.t_start, lane.plan.t_end, lane.plan.n_shards),
+             list(lane.metrics), lane.reducers,
+             lane.qkey if persist else None, lane.query)
+            for lane in qplan.lanes]
+        workers = min(self.cfg.n_ranks, _usable_cpus())
+        # ~4 chunks per worker: fine enough to absorb skew, coarse enough
+        # to amortize task dispatch
+        chunk = max(1, -(-len(work_items) // (workers * 4)))
+        jobs = [(qplan.store.root, work_items[i:i + chunk], lane_specs)
+                for i in range(0, len(work_items), chunk)]
+        out: Dict[int, List] = {}
+        records = []
+        with _rank_pool(self.cfg.n_ranks) as pool:
+            futures = [pool.submit(_fused_worker, job) for job in jobs]
+            for fut in concurrent.futures.as_completed(futures):
+                res, record = fut.result()
+                records.append(record)
+                for li, parts in res.items():
+                    out.setdefault(li, []).extend(parts)
+        self.scan_workers = _checked(records)
+        return out
 
     # -- end to end ----------------------------------------------------------
     def run(self, db_paths: Sequence[str], work_dir: str) -> PipelineResult:

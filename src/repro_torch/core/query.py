@@ -278,7 +278,8 @@ class Query:
 def lane_precision(backend: str) -> str:
     """The cache namespace a backend's partials, summaries and diff
     reports live in: torch results get their own, never served to (or
-    by) the exact host path or another package's float32 one."""
+    by) the exact host path or another package's float32 one; ``serial``
+    and ``process`` share ``"exact"`` (the same bits)."""
     return "torch-float32" if backend == "torch" else "exact"
 
 
@@ -382,13 +383,14 @@ class QueryPlan:
                 device: str = "cuda") -> "QueryPlan":
         """``device`` is where the ``"torch"`` backend reduces dirty
         shards (resolved here: a missing card raises); the exact
-        ``"serial"`` host path ignores it."""
+        ``"serial"`` and ``"process"`` host paths ignore it."""
         from ..device import resolve_device
         from .tracestore import TraceStore
         if not isinstance(store, TraceStore):
             store = TraceStore(store)
-        if backend not in ("serial", "torch"):
-            raise ValueError(f"unknown backend {backend!r} (serial | torch)")
+        if backend not in ("serial", "process", "torch"):
+            raise ValueError(f"unknown backend {backend!r} "
+                             "(serial | process | torch)")
         dev = resolve_device(device) if backend == "torch" else None
         man = store.read_manifest()
         file_plan = ShardPlan(man.t_start, man.t_end, man.n_shards)

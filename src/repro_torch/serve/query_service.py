@@ -88,8 +88,10 @@ Backend and device
     ``ServiceConfig.backend`` picks the dirty-shard producer of every
     tick: ``"torch"`` (the default) reduces the dirty shards' rows on
     ``ServiceConfig.device`` through the ``binstats_flat`` and
-    ``histbin_flat`` kernels, ``"serial"`` scans them exactly on the
-    host. On both, each rendered fence and each ingest tick's fence diff
+    ``histbin_flat`` kernels; ``"serial"`` and ``"process"`` scan them
+    exactly on the host, on the service's own ``ScanPool`` threads (as in
+    the reference, a ``process`` service starts no process pool). On
+    every backend, each rendered fence and each ingest tick's fence diff
     runs the ``iqr`` kernel on ``ServiceConfig.device``. The device
     defaults to ``"cuda"``: a config naming the card on a machine without
     one raises when it is built. A kernel that fails inside a tick fails
@@ -98,7 +100,7 @@ Backend and device
 Run it (on the card; ``--device cpu`` keeps every step on the host):
 
   PYTHONPATH=src python -m repro_torch.serve.query_service --store DIR \\
-      [--backend torch|serial] [--device cuda|cpu] \\
+      [--backend torch|serial|process] [--device cuda|cpu] \\
       [--port 8321] [--tick-ms 10] [--workers 4] \\
       [--summary-budget-mb 256] [--pack-budget-mb 0] \\
       [--attach rank0.sqlite rank1.sqlite] [--poll-ms 25]
@@ -190,7 +192,7 @@ class _Server(ThreadingHTTPServer):
 @dataclasses.dataclass
 class ServiceConfig:
     tick_ms: float = 10.0                # admission-batch window
-    backend: str = "torch"               # serial | torch
+    backend: str = "torch"               # serial | process | torch
     device: str = "cuda"                 # torch reduction + IQR fences
     max_cells_per_request: int = 50_000_000
     summary_budget_bytes: Optional[int] = 256 * 1024 * 1024
@@ -211,9 +213,9 @@ class ServiceConfig:
     ingest: Optional[IngestConfig] = None
 
     def __post_init__(self):
-        if self.backend not in ("serial", "torch"):
+        if self.backend not in ("serial", "process", "torch"):
             raise ValueError(f"unknown backend {self.backend!r} "
-                             "(serial | torch)")
+                             "(serial | process | torch)")
         resolve_device(self.device)
 
 
@@ -1211,7 +1213,8 @@ def _make_handler(service: QueryService):
     return Handler
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The command line of :func:`main`."""
     ap = argparse.ArgumentParser(
         description="serve the declarative Query API over a trace store")
     ap.add_argument("--store", required=True,
@@ -1221,9 +1224,10 @@ def main() -> None:
     ap.add_argument("--tick-ms", type=float, default=10.0,
                     help="admission-batch window (one fused plan/tick)")
     ap.add_argument("--backend", default="torch",
-                    choices=["serial", "torch"],
+                    choices=["serial", "process", "torch"],
                     help="dirty-shard producer: torch = the kernels on "
-                         "--device, serial = the exact host scan")
+                         "--device, serial and process = the exact host "
+                         "scan on the service's scan threads")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the torch producer and the IQR fences "
                          "run (cuda raises without a card)")
@@ -1244,7 +1248,11 @@ def main() -> None:
                          "streaming ingest plane)")
     ap.add_argument("--poll-ms", type=float, default=25.0,
                     help="ingest tailer watermark-probe cadence")
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> None:
+    args = build_parser().parse_args()
     cfg = ServiceConfig(
         tick_ms=args.tick_ms, backend=args.backend, device=args.device,
         max_cells_per_request=args.max_cells,

@@ -613,3 +613,31 @@ def test_service_answers_on_the_card(cuda, tmp_path):
                 assert np.float32(mine[f]) == np.float32(cell[f])
             np.testing.assert_allclose(mine["mean"], cell["mean"],
                                        rtol=RTOL)
+
+
+def test_rank_pool_starts_beside_a_cuda_context(cuda, tmp_path):
+    """A ``torch`` run leaves the parent holding a CUDA context; the rank
+    pool of a ``process`` run started after it completes, its workers
+    report that CUDA was never initialised in them, and the two
+    backends' shard files are byte-equal."""
+    import filecmp
+
+    from repro_torch.core import (PipelineConfig, SyntheticSpec, TraceStore,
+                                  VariabilityPipeline, generate_synthetic,
+                                  write_synthetic_dbs)
+    ds = generate_synthetic(SyntheticSpec(
+        n_ranks=2, kernels_per_rank=4000, memcpys_per_rank=400,
+        duration_s=20.0, n_anomaly_windows=2, seed=7))
+    paths = write_synthetic_dbs(ds, str(tmp_path / "dbs"))
+    for backend in ("torch", "process"):
+        res = VariabilityPipeline(PipelineConfig(
+            n_ranks=2, backend=backend)).run(paths, str(tmp_path / backend))
+        assert torch.cuda.is_initialized()
+        assert len(res.generation.workers) == 2
+        assert not any(w["cuda_initialized"] for w in res.generation.workers)
+    n = TraceStore(str(tmp_path / "torch")).read_manifest().n_shards
+    names = [f"shard_{s:06d}.npz" for s in range(n)]
+    match, mismatch, errors = filecmp.cmpfiles(
+        str(tmp_path / "torch"), str(tmp_path / "process"), names,
+        shallow=False)
+    assert match == names and not mismatch and not errors
