@@ -196,7 +196,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the earlier ctypes wrapper's steps replayed, each beside the
              whole wrapper call; then core.anomaly.iqr_detect at the main
              path's call over 2,000 calls, split into host prep, upload,
-             kernel call, the two device-to-host reads and host ranking.
+             kernel call, the two device-to-host reads and host ranking;
+16. reap   — stop the rank pools' forkserver and resource tracker
+             (core.pipeline.stop_rank_pool_server) and fail if a process
+             this script started, or one started below it, still runs.
 
 Tolerances: counts, min, max, flags and iqr outputs (sorted table,
 flags, stats) exact; float32 sums
@@ -2310,6 +2313,55 @@ def _agg_equal(a, b, anom_a, anom_b):
     np.testing.assert_array_equal(anom_a.top_idx, anom_b.top_idx)
 
 
+def _descendants():
+    """{pid: (state, command)} of every process below this one, from
+    /proc."""
+    table = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{entry}/stat").read_text()
+            cmd = Path(f"/proc/{entry}/cmdline").read_bytes()
+        except OSError:                # ended while the table was read
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        table[int(entry)] = (state, int(ppid),
+                             cmd.replace(b"\0", b" ").decode(
+                                 errors="replace").strip())
+    below, frontier = {}, [os.getpid()]
+    while frontier:
+        parent = frontier.pop()
+        for pid, (state, ppid, cmd) in table.items():
+            if ppid == parent and pid not in below:
+                below[pid] = (state, cmd)
+                frontier.append(pid)
+    return below
+
+
+def phase_reap():
+    """Stop the rank pools' servers; then no process started by this one,
+    or below it, may still run (an orphan shows as a survivor of the
+    first listing)."""
+    from repro_torch.core import pipeline
+    before = _descendants()
+    pipeline.stop_rank_pool_server()
+    after = _descendants()
+    left = {pid: cmd for pid, (_, cmd) in after.items()}
+    for pid, (_, cmd) in before.items():
+        try:
+            state = Path(f"/proc/{pid}/stat").read_text().rsplit(
+                ")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z":
+            left[pid] = cmd
+    log(f"reap: {len(before)} process(es) below this one before the "
+        f"servers stopped: {sorted(before.items())}")
+    if left:
+        raise AssertionError(f"processes still running: {left}")
+
+
 def phase_ranks(args, work, paths, card):
     """Fig 1c on the card's machine: the main phase's Table-1 DBs through
     the process and serial backends at each rank count, and the torch
@@ -2844,6 +2896,7 @@ def main() -> int:
             f"{t['bound_by']}: {t['bytes']} bytes {t['bytes_ms']:.4f}, "
             f"{t['ops']:.4g} ops {t['ops_ms']:.4f}{floor}), {path} "
             f"[{card}]")
+    phase_reap()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,10 @@ threads), and torch is imported once per server rather than once per
 worker. A worker never touches CUDA; each reports whether CUDA was
 initialised in it, and the call raises if it was. A pool that cannot
 start, a worker that dies and a worker that raises each make the call
-raise: nothing falls back to the in-process loop. As with any pool whose
+raise: nothing falls back to the in-process loop. The server, and the
+resource tracker started beside it, are stopped and reaped before the
+process that started them exits (or by :func:`stop_rank_pool_server`), so
+no process of a pool outlives its caller. As with any pool whose
 workers do not fork the caller, a script that runs the ``process`` or
 ``torch`` backend guards its entry with ``if __name__ == "__main__":``.
 
@@ -84,10 +87,12 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import gc
 import multiprocessing as mp
 import os
 import resource
 import threading
+from multiprocessing import util as mp_util
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -194,6 +199,9 @@ _PRELOAD = ["repro_torch.core.pipeline"]
 _IMPORT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SERVER_LOCK = threading.Lock()
+# the pid whose forkserver this module started and will stop, else None
+_SERVER_OWNER: Optional[int] = None
+_STOP_AT_EXIT = False                 # the exit hook is registered
 
 
 def _usable_cpus() -> int:
@@ -211,17 +219,43 @@ def _start_forkserver() -> None:
     package's root rides ``PYTHONPATH`` while the server starts, and the
     caller's environment is restored before this returns."""
     from multiprocessing import forkserver
+    global _SERVER_OWNER, _STOP_AT_EXIT
     with _SERVER_LOCK:
         old = os.environ.get("PYTHONPATH")
         os.environ["PYTHONPATH"] = os.pathsep.join(
             [_IMPORT_ROOT] + ([old] if old else []))
         try:
             forkserver.ensure_running()
+            if not _STOP_AT_EXIT:
+                # below 0: after the semaphores' finalizers; above -100:
+                # before multiprocessing removes the server's socket dir
+                mp_util.Finalize(None, stop_rank_pool_server,
+                                 exitpriority=-50)
+                _STOP_AT_EXIT = True
+            _SERVER_OWNER = os.getpid()
         finally:
             if old is None:
                 del os.environ["PYTHONPATH"]
             else:
                 os.environ["PYTHONPATH"] = old
+
+
+def stop_rank_pool_server() -> None:
+    """Stop the forkserver this process started for its rank pools, and the
+    resource tracker started beside it, and wait for both to exit; a later
+    pool starts them afresh. Call it with no pool of this process open. It
+    also runs at interpreter exit, after multiprocessing's own finalizers
+    have released the pools' semaphores, so neither server outlives its
+    caller."""
+    from multiprocessing import forkserver, resource_tracker
+    global _SERVER_OWNER
+    with _SERVER_LOCK:
+        if _SERVER_OWNER != os.getpid():   # another process's servers
+            return
+        gc.collect()            # executors caught in cycles free semaphores
+        forkserver._forkserver._stop()
+        resource_tracker._resource_tracker._stop()
+        _SERVER_OWNER = None
 
 
 def _rank_pool(n_ranks: int) -> concurrent.futures.ProcessPoolExecutor:

@@ -9,15 +9,19 @@ bins and fences. Beside them: delta == cold and append == cold on
 ``process``, the work queue on shards of very uneven size, fused ==
 standalone, the diff, an ingest-fixture DB, multi-metric and group-by
 configurations, the partial cache the workers fill, the query service and
-its CLI, no fallback when a pool fails, and a pool started while a
-``ScanPool`` thread is alive in the parent.
+its CLI, no fallback when a pool fails, a pool started while a
+``ScanPool`` thread is alive in the parent, and the pool's servers ending
+with the process that started them.
 """
 
 import concurrent.futures
 import filecmp
 import os
 import shutil
+import subprocess
+import sys
 import threading
+from multiprocessing import forkserver, resource_tracker
 
 import numpy as np
 import pytest
@@ -468,3 +472,59 @@ def test_pool_starts_while_a_scan_pool_thread_is_alive(small_dataset,
     _assert_workers_on_host(got.generation, 2)
     port.run_generation(paths, str(tmp_path / "inproc"), n_ranks=2)
     assert_shards_equal(str(tmp_path / "inproc"), str(tmp_path / "pooled"))
+
+
+# --- the pool's servers end with their caller --------------------------------
+
+# Starts a rank pool, runs two tasks on it, prints the pids of the
+# forkserver and the resource tracker, and exits.
+_POOL_CALLER = """
+import json
+from multiprocessing import forkserver, resource_tracker
+from repro_torch.core import pipeline
+with pipeline._rank_pool(2) as pool:
+    assert list(pool.map(abs, [-1, -2])) == [1, 2]
+print(json.dumps([forkserver._forkserver._forkserver_pid,
+                  resource_tracker._resource_tracker._pid]))
+"""
+
+
+def _running(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def test_pool_servers_are_stopped_before_their_caller_exits(tmp_path):
+    """A script that ran a rank pool leaves no process behind: the
+    forkserver and the resource tracker are stopped and reaped before it
+    exits, not left to notice its exit later. Output goes to a file, so
+    waiting for the script does not wait for whoever holds its stdout."""
+    out = tmp_path / "out.txt"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [port_pipeline._IMPORT_ROOT, os.environ.get("PYTHONPATH", "")])}
+    with open(out, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", _POOL_CALLER],
+                                stdout=fh, env=env)
+        assert proc.wait(timeout=300) == 0
+    pids = [int(p) for p in out.read_text().strip("[]\n").split(",")]
+    assert all(pids)
+    assert not [pid for pid in pids if _running(pid)]
+
+
+def test_stopped_pool_server_starts_again():
+    """stop_rank_pool_server reaps this process's servers, and the next
+    pool starts them afresh."""
+    with port_pipeline._rank_pool(2) as pool:
+        assert list(pool.map(abs, [-3, -4])) == [3, 4]
+    server = forkserver._forkserver._forkserver_pid
+    tracker = resource_tracker._resource_tracker._pid
+    port_pipeline.stop_rank_pool_server()
+    assert forkserver._forkserver._forkserver_pid is None
+    assert resource_tracker._resource_tracker._pid is None
+    assert not _running(server) and not _running(tracker)
+    with port_pipeline._rank_pool(2) as pool:
+        assert list(pool.map(abs, [-5, -6])) == [5, 6]
+    assert forkserver._forkserver._forkserver_pid not in (None, server)
