@@ -40,4 +40,5 @@ def smoke_config() -> ModelConfig:
     return ModelConfig(
         name="hymba-smoke", d_model=64, vocab=128,
         plan=((g, 1), (w, 2), (g, 1)),
-        meta_tokens=8, long_context=True, dtype=torch.float32)
+        meta_tokens=8, long_context=True, dtype=torch.float32,
+        loss_chunk=16)

@@ -29,4 +29,5 @@ def smoke_config() -> ModelConfig:
         d_ff=0)
     return ModelConfig(
         name="mamba2-smoke", d_model=64, vocab=128,
-        plan=((spec, 3),), long_context=True, dtype=torch.float32)
+        plan=((spec, 3),), long_context=True, dtype=torch.float32,
+        loss_chunk=16)

@@ -18,6 +18,17 @@ tensor-core kernel (``flash_attn_bf16``: wgmma products, K/V streamed by
 TMA), float32 the CUDA-core kernel (``flash_attn_f32``).
 ``flash_attention.launches`` counts every kernel launch and
 ``flash_attention.wgmma_launches`` those of the tensor-core kernel.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through :class:`_FlashAttention`: its forward is that same dispatch,
+and its backward recomputes :func:`flash_attention_plain` from the saved
+q, k and v and differentiates it. The reference has no backward kernel:
+its training differentiates ``repro/models/attention.py``'s
+``chunked_attention``, whose function the plain version computes. This is
+the one place where a CUDA tensor reaches the plain version; a backward
+kernel is later work (ROADMAP, "Later work"). The plain version is dense:
+at hymba's S = 2176 and 25 heads one float32 (H, S, S) tensor takes 473 MB
+a sequence, and its backward holds a few of them for one layer at a time.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._autograd import recompute_grads
 from .._check import stream_ptr
 
 MAX_HEAD_DIM = 128    # the kernel's limits (csrc/flashattn.cu)
@@ -73,11 +85,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= i >= j
     if window > 0:
         mask &= (i - j) < window
-    logits = logits.masked_fill_(~mask, -1e30)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    # out of place throughout: autograd differentiates this function
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
     del logits
-    p = p.masked_fill_(~mask, 0.0)
-    p = p.div_(p.sum(-1, keepdim=True).clamp_min_(1e-20))
+    p = p.masked_fill(~mask, 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-20)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
@@ -91,7 +104,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel takes bfloat16 or float32 q, k and v of one dtype, a head
     dimension that is a multiple of 8 up to 128, a contiguous last
     dimension, other strides that are multiples of 8 and 16-byte aligned
-    data, and in bfloat16 a positive scale; it raises on anything else."""
+    data, and in bfloat16 a positive scale; it raises on anything else.
+    With grad mode on and any of q, k, v requiring grad the call goes
+    through :class:`_FlashAttention` (the module docstring says how)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
+
+
+def _forward(q, k, v, causal, window, scale):
+    """:func:`flash_attention`'s dispatch: the plain version for CPU
+    tensors, a kernel launch for CUDA tensors."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -139,6 +163,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the kernel (or, on the CPU,
+    the plain version) forward; backward recomputes
+    :func:`flash_attention_plain` from the saved q, k and v and returns
+    its gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.opts = (causal, window, scale)
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        causal, window, scale = ctx.opts
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad(), torch.profiler.record_function(
+                "flash_attention.plain_recompute"):
+            out = flash_attention_plain(*inputs, causal=causal,
+                                        window=window, scale=scale)
+            return (*recompute_grads([out], [g_out], inputs), None, None,
+                    None)
 
 
 def _lib() -> ctypes.CDLL:

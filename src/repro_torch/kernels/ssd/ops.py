@@ -15,6 +15,15 @@ CUDA tensors it launches one of the two kernels of
 ``repro_torch/csrc/ssd.cu`` or raises (see :func:`ssd_fused` for which).
 ``ssd_fused.launches`` counts kernel launches and
 ``ssd_fused.wgmma_launches`` those of the tensor-core kernel.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through :class:`_SSDFused`: its forward is that same dispatch, and
+its backward recomputes :func:`ssd_fused_plain` from the saved inputs and
+differentiates it. The reference has no backward kernel: its training
+differentiates the XLA scan that :func:`ssd_fused_plain` copies
+(``repro/models/ssm.py::ssd_scan``). This is the one place where a CUDA
+tensor reaches the plain version; a backward kernel is later work
+(ROADMAP, "Later work").
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._autograd import recompute_grads
 from .._check import check_tensor, stream_ptr
 
 P_TILE = 64       # the CUDA-core kernel's limits (csrc/ssd.cu)
@@ -103,6 +113,10 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     """SSD chunk scan plus ``D·x`` (the TPU kernel's contract,
     ``repro/kernels/ssd/ops.py::ssd_fused``).
 
+    With grad mode on and any input requiring grad the call goes through
+    :class:`_SSDFused` (the module docstring says how its backward works);
+    otherwise it is the dispatch below and nothing else.
+
     On CUDA tensors the kernel is chosen by a fixed rule, with no fallback
     on failure:
 
@@ -121,6 +135,15 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
       ``chunk``; B and C reach it in bfloat16 or float32. It takes
       chunk <= 128, N <= 128 and P at most 64 or a multiple of 64, and
       raises on anything else."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, dt, A_log, B, C, D)):
+        return _SSDFused.apply(xs, dt, A_log, B, C, D, chunk)
+    return _forward(xs, dt, A_log, B, C, D, chunk)
+
+
+def _forward(xs, dt, A_log, B, C, D, chunk):
+    """:func:`ssd_fused`'s dispatch: the plain version for CPU tensors, a
+    kernel launch for CUDA tensors."""
     if xs.device.type == "cpu":
         return ssd_fused_plain(xs, dt, A_log, B, C, D, chunk=chunk)
     if xs.device.type != "cuda":
@@ -180,6 +203,30 @@ def ssd_fused(xs: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
 
 ssd_fused.launches = 0
 ssd_fused.wgmma_launches = 0
+
+
+class _SSDFused(torch.autograd.Function):
+    """:func:`ssd_fused` under autograd: the kernel (or, on the CPU, the
+    plain version) forward; backward recomputes :func:`ssd_fused_plain`
+    from the saved inputs and returns its gradients. Gradients flow to
+    ``xs``, ``dt``, ``A_log``, ``B``, ``C`` and ``D``; the incoming
+    gradient of the final state may be None."""
+
+    @staticmethod
+    def forward(ctx, xs, dt, A_log, B, C, D, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)     # an unused state stays None
+        ctx.save_for_backward(xs, dt, A_log, B, C, D)
+        return _forward(xs, dt, A_log, B, C, D, chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:6])]
+        with torch.enable_grad(), \
+                torch.profiler.record_function("ssd_fused.plain_recompute"):
+            outs = ssd_fused_plain(*inputs, chunk=ctx.chunk)
+            return (*recompute_grads(outs, (g_y, g_state), inputs), None)
 
 
 def _tensor_core_call(xs, B, C, chunk) -> bool:

@@ -1,0 +1,68 @@
+"""Training CLI::
+
+    python -m repro_torch.launch.train --arch mamba2-370m|hymba-1.5b
+        [--smoke] [--device cuda] [--steps 100] [--batch 8] [--seq 64]
+        [--lr 3e-3] [--grad-accum 1] [--workdir DIR]
+
+Trains on the card (``--device cpu`` runs the plain versions on the
+host), after ``repro/launch/train.py``: synthetic data, AdamW, periodic
+asynchronous checkpoints with auto-resume from ``--workdir``, and the
+straggler monitor on the run's own step telemetry. ``--production-mesh``
+(tensor parallelism over a mesh) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+from typing import Optional, Sequence
+
+from ..configs import get_config, get_smoke_config
+from ..data.pipeline import DataConfig
+from ..device import resolve_device
+from ..train import AdamWConfig, RunConfig, TrainConfig, Trainer
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--workdir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="tensor parallelism over a mesh (not ported yet)")
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh: tensor parallelism is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    device = resolve_device(args.device)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
+    tcfg = TrainConfig(
+        optim=AdamWConfig(peak_lr=args.lr, warmup_steps=args.steps // 10,
+                          total_steps=args.steps),
+        grad_accum=args.grad_accum)
+    dcfg = DataConfig(batch=args.batch, seq=args.seq)
+    rcfg = RunConfig(steps=args.steps, workdir=args.workdir,
+                     ckpt_every=max(args.steps // 2, 1),
+                     monitor_every=max(args.steps // 4, 1))
+    trainer = Trainer(cfg, tcfg, dcfg, rcfg, device=device)
+    res = trainer.run(progress=lambda i, m: print(
+        f"step {i}: loss={float(m['loss']):.4f} "
+        f"gnorm={float(m['grad_norm']):.3f}"))
+    last = res["losses"][-1] if res["losses"] else float("nan")
+    print(f"final loss {last:.4f} on {device}; "
+          f"telemetry -> {res['telemetry_dir']}")
+
+
+if __name__ == "__main__":
+    main()

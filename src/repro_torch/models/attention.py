@@ -125,16 +125,18 @@ def _out(params, o: torch.Tensor) -> torch.Tensor:
 
 def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
                  positions: Optional[torch.Tensor] = None,
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 cache: bool = True,
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Training / prefill forward. Returns (out, cache entries): the
-    full-sequence k and v (B, S, Hkv, hd) in the model dtype."""
+    full-sequence k and v (B, S, Hkv, hd) in the model dtype, or None
+    when ``cache`` is False (training keeps no decode cache)."""
     check_config(cfg)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
-    return _out(params, out), {"k": k, "v": v}
+    return _out(params, out), ({"k": k, "v": v} if cache else None)
 
 
 def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,

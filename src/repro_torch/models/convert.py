@@ -1,4 +1,5 @@
-"""Carry a parameter tree of the JAX package into the port.
+"""Carry a parameter tree, or a training state, of the JAX package into
+the port and back.
 
 :func:`from_reference` takes ``repro.models.model.init_params``'s tree
 with every leaf a numpy array (``jax.tree.map(np.asarray, params)``),
@@ -10,6 +11,13 @@ in ``cfg.dtype`` (``meta_tokens`` too, as the reference's
 ``cast_params`` casts it) and every vector in float32 (the types each
 reference use site casts to). Nothing of JAX is imported: the input is
 numpy.
+
+:func:`state_to_flat` and :func:`state_from_flat` carry a training state
+{step, params, opt {m, v}} to and from the reference's flat checkpoint
+dictionary (``repro/train/checkpoint.py``): one numpy array a key, the
+key the leaf's path joined by ``/`` (``params/segments/0/ssm/in_x``,
+``opt/m/embed/tokens``, ``step``), each segment's leaves stacked over its
+layers on a leading axis, as the reference's scan layout holds them.
 """
 
 from __future__ import annotations
@@ -61,3 +69,81 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# --- the training state and the reference's checkpoint keys ------------------
+
+def _flat_items(tree, prefix: str):
+    """(key, tensor or list of per-layer tensors) in the reference's
+    flat layout: a list is a model's segments, each a list of layers whose
+    leaves stack."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_items(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, seg in enumerate(tree):
+            for rel, _ in _flat_items(seg[0], ""):
+                yield f"{prefix}/{i}/{rel}", [_get(layer, rel)
+                                              for layer in seg]
+    else:
+        yield prefix, tree
+
+
+def _get(tree, rel: str):
+    for k in rel.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def state_to_flat(state) -> Dict[str, np.ndarray]:
+    """The reference's checkpoint dictionary of a port training state (any
+    tree of the port's layout): host numpy copies, segments stacked."""
+    out = {}
+    for key, leaf in _flat_items(state, ""):
+        t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+        out[key] = t.detach().cpu().numpy()
+    return out
+
+
+def _restored(flat: Mapping[str, np.ndarray], key: str,
+              shape) -> np.ndarray:
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf {key!r}")
+    arr = flat[key]
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                         f"model {tuple(shape)}")
+    return arr
+
+
+def state_from_flat(template, flat: Mapping[str, np.ndarray]):
+    """A tree of ``template``'s structure, devices and dtypes holding the
+    reference-layout ``flat`` arrays; raises KeyError for a missing leaf
+    and ValueError for a shape that does not match."""
+    def build(tmpl, prefix):
+        if isinstance(tmpl, dict):
+            return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in tmpl.items()}
+        if isinstance(tmpl, list):
+            return [_segment(seg, f"{prefix}/{i}")
+                    for i, seg in enumerate(tmpl)]
+        arr = _restored(flat, prefix, tmpl.shape)
+        return torch.tensor(arr, device=tmpl.device, dtype=tmpl.dtype)
+
+    def _segment(seg, prefix):
+        # one upload a stacked leaf; the layers hold views of it
+        stacked = {}
+        for rel, first in _flat_items(seg[0], ""):
+            arr = _restored(flat, f"{prefix}/{rel}",
+                            (len(seg),) + tuple(first.shape))
+            stacked[rel] = torch.tensor(arr, device=first.device,
+                                        dtype=first.dtype)
+        return [_layer(layer, stacked, j) for j, layer in enumerate(seg)]
+
+    def _layer(tmpl, stacked, j, rel=""):
+        if isinstance(tmpl, dict):
+            return {k: _layer(v, stacked, j, f"{rel}/{k}" if rel else k)
+                    for k, v in tmpl.items()}
+        return stacked[rel][j]
+
+    return build(template, "")

@@ -3,6 +3,8 @@
 
 Public entry points (functions of (cfg, params, ...)):
   init_params    parameters on the card (or the CPU when asked)
+  loss_fn        training loss (chunked CE: the (B, S, V) float32 logits
+                 are never held whole)
   forward_hidden trunk output
   logits_for     (B, D) -> (B, V) float32 logits of the tied head
   init_cache     decode caches
@@ -10,10 +12,11 @@ Public entry points (functions of (cfg, params, ...)):
   decode_step    one-token step -> (logits, caches), caches in place
 
 Parameters are held as the reference's use sites see them: every matrix
-(rank >= 2) in ``cfg.dtype``, every vector in float32 (``cast_params``).
-The dense projections and the tied head are ``torch.matmul``, as the
-reference leaves them to XLA. Training (``loss_fn``, ``chunked_ce``)
-comes with the training slice (ROADMAP Queue 1).
+(rank >= 2) in ``cfg.dtype``, every vector in float32 (``cast_params``);
+training keeps float32 master weights and differentiates their
+``cast_params`` copy (``repro_torch.train.step``). The dense projections
+and the tied head are ``torch.matmul``, as the reference leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .frontends import assemble, embed_tokens
@@ -43,6 +47,8 @@ class ModelConfig:
     meta_tokens: int = 0               # hymba learnable prefix
     frontend: str = "none"             # none | audio | vlm
     dtype: torch.dtype = torch.bfloat16
+    loss_chunk: int = 1024
+    remat: str = "full"                # none | full | dots
     # documentation-only flags, as in the reference:
     decode_supported: bool = True      # False: encoder-only
     long_context: bool = False         # sub-quadratic decode at 500k?
@@ -64,9 +70,12 @@ def cast_params(params, dtype: torch.dtype):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Union[str, torch.device] = "cuda") -> Dict:
+                device: Union[str, torch.device] = "cuda",
+                dtype: Optional[torch.dtype] = None) -> Dict:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
-    seeded with ``seed``, cast as :func:`cast_params` says."""
+    seeded with ``seed``, cast as :func:`cast_params` says to ``dtype``
+    (``cfg.dtype`` by default; float32 gives training's master
+    weights)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = {"generator": gen, "device": dev}
@@ -83,7 +92,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         p["lm_head"] = dense_init((cfg.d_model, cfg.vocab), **kw)
     p["segments"] = [segment_init(spec, count, cfg.d_model, **kw)
                      for spec, count in cfg.plan]
-    return cast_params(p, cfg.dtype)
+    return cast_params(p, dtype or cfg.dtype)
 
 
 def param_count(params) -> int:
@@ -111,7 +120,8 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict,
     for i, (spec, _) in enumerate(cfg.plan):
         x, c = segment_forward(params["segments"][i], x, spec, positions,
                                mode,
-                               caches[i] if caches is not None else None)
+                               caches[i] if caches is not None else None,
+                               remat=cfg.remat)
         new_caches.append(c)
     h = _final_norm(cfg, params, x)
     return h, (new_caches if mode != "train" else None), prefix
@@ -129,6 +139,64 @@ def _head_scale(cfg: ModelConfig) -> float:
     """Tied heads scale logits by 1/sqrt(D) (Gemma/T5 convention) so the
     N(0,1) embedding table doubles as a sanely-scaled unembedding."""
     return cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
+
+
+def _chunk_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Masked CE sum of one chunk; its (B, c, V) float32 logits live only
+    here."""
+    logits = (h @ w_vd.to(h.dtype).T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    corr = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - corr) * mask).sum()
+
+
+def chunked_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, chunk: int,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without holding the (B, S, V) logits.
+
+    h (B, S, D), w_vd (V, D), labels (B, S) int, mask (B, S) float.
+    S is padded to a multiple of ``min(chunk, S)`` as the reference pads
+    it, and each chunk's CE runs under ``torch.utils.checkpoint`` when
+    grad mode is on: backward keeps h and recomputes one chunk's logits
+    at a time. Returns (sum_ce, sum_mask), float32."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        args = (h[:, sl], w_vd, labels[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_chunk_ce, *args, use_reentrant=False)
+        else:
+            tot = tot + _chunk_ce(*args)
+    return tot, mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict,
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Mean masked CE. ``batch`` holds tokens and labels (B, S_text) and
+    optionally loss_mask (B, S_text); meta-token positions carry no
+    loss. Returns (loss, {"ce", "loss"})."""
+    h, _, prefix = forward_hidden(cfg, params, batch, "train")
+    if prefix:
+        h = h[:, prefix:]
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+            if mask is None else
+            torch.as_tensor(mask, device=h.device).float())
+    tot, cnt = chunked_ce(h * _head_scale(cfg), _head_weight(cfg, params),
+                          labels, mask, cfg.loss_chunk)
+    ce = tot / cnt.clamp_min(1.0)
+    return ce, {"ce": ce, "loss": ce}
 
 
 def logits_for(cfg: ModelConfig, params, h_last: torch.Tensor,

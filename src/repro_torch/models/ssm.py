@@ -16,7 +16,7 @@ Mesh and sharding anchors are not part of the port (one card).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,9 +126,11 @@ def _projections(params, x: torch.Tensor):
             x @ params["in_c"], x @ params["in_dt"])
 
 
-def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig,
-                ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill. x: (B, S, D). Returns (out, decode cache entries)."""
+def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Training / prefill forward. x: (B, S, D). Returns (out, decode
+    cache entries), the entries None when ``cache`` is False (training
+    keeps no decode cache)."""
     bsz, s, _ = x.shape
     z, xr, Br, Cr, dt_raw = _projections(params, x)
     xc = _causal_conv(xr, params["conv_x"]["w"], params["conv_x"]["b"])
@@ -144,6 +146,8 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig,
     y = _gated_norm(params["ssm_norm"]["scale"],
                     y.reshape(bsz, s, cfg.d_inner), z)
     out = y @ params["out_proj"]
+    if not cache:
+        return out, None
 
     # decode cache: conv tails (pre-conv inputs) + final SSM state; the
     # tails are copies, so the full projections are freed

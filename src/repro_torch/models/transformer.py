@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (AttnConfig, attn_decode, attn_forward, attn_init,
                         attn_init_cache, check_config)
@@ -109,20 +110,22 @@ def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
     in train."""
     ya = ys = None
     new_cache: Dict[str, Any] = {}
+    keep = mode != "train"          # training builds no decode cache
     if _has_attn(spec):
         if mode == "decode":
             ya, new_cache["attn"] = attn_decode(
                 params["attn"], x_n, cache["attn"], spec.attn, cache_index)
         else:
             ya, new_cache["attn"] = attn_forward(params["attn"], x_n,
-                                                 spec.attn, positions)
+                                                 spec.attn, positions, keep)
     if _has_ssm(spec):
         if mode == "decode":
             ys, new_cache["ssm"] = ssm_decode(params["ssm"], x_n,
                                               cache["ssm"], spec.ssm)
         else:
-            ys, new_cache["ssm"] = ssm_forward(params["ssm"], x_n, spec.ssm)
-    out = new_cache if mode != "train" else None
+            ys, new_cache["ssm"] = ssm_forward(params["ssm"], x_n, spec.ssm,
+                                               keep)
+    out = new_cache if keep else None
     if spec.kind != "hybrid":
         return (ya if ys is None else ys), out
     # hybrid (hymba): parallel attention + SSM heads, fused by normed mean
@@ -169,17 +172,44 @@ def segment_init(spec: LayerSpec, count: int, d_model: int, *,
             for _ in range(count)]
 
 
+REMAT = ("none", "full", "dots")
+
+
+def _train_layer(layer_p, x, spec, positions):
+    return layer_forward(layer_p, x, spec, positions, "train")[0]
+
+
 def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
                     positions: Optional[torch.Tensor] = None,
                     mode: str = "train", caches: Optional[List] = None,
-                    cache_index: Optional[int] = None,
+                    cache_index: Optional[int] = None, remat: str = "full",
                     ) -> Tuple[torch.Tensor, Optional[List]]:
     """Run a segment's layers in order. Returns (x, per-layer caches),
-    the caches None in train."""
+    the caches None in train.
+
+    In train mode with ``remat == "full"`` and grad mode on, each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant): backward keeps
+    only the layer's input and runs the layer again, as the reference's
+    ``jax.checkpoint`` does (``_maybe_remat``). ``"none"`` keeps every
+    activation."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if mode == "train":
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save the matmul outputs) is not ported yet "
+                "(ROADMAP Queue 1)")
+        for layer_p in params:
+            if remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(_train_layer, layer_p, x, spec, positions,
+                               use_reentrant=False)
+            else:
+                x = _train_layer(layer_p, x, spec, positions)
+        return x, None
     new_caches = []
     for i, layer_p in enumerate(params):
         x, c = layer_forward(layer_p, x, spec, positions, mode,
                              caches[i] if caches is not None else None,
                              cache_index)
         new_caches.append(c)
-    return x, (new_caches if mode != "train" else None)
+    return x, new_caches

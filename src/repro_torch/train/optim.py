@@ -1,0 +1,134 @@
+"""AdamW and its schedule, after ``repro/train/optim.py``.
+
+The optimizer state is a pair of trees {m, v} mirroring the parameters:
+float32 moments beside float32 master weights. Gradients may arrive in
+bfloat16 (the compressed working copy's); the update runs in float32,
+under ``torch.no_grad()``, and writes the parameters and moments in
+place, where the reference's jitted step donates them.
+
+Parameter trees are the port's: dictionaries of tensors, with each
+segment a list of per-layer dictionaries.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+Path = Tuple
+NO_DECAY = ("scale", "bias", "A_log", "D", "dt_bias", "gain_attn",
+            "gain_ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    peak_lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    clip_norm: float = 1.0
+
+
+# --- trees -------------------------------------------------------------------
+
+def leaves_with_paths(tree, path: Path = ()) -> Iterator[Tuple[Path,
+                                                               torch.Tensor]]:
+    """(path, tensor) for every leaf, dictionaries and lists walked in
+    order; a path holds dictionary keys and list indices."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_paths(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves_with_paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    return [t for _, t in leaves_with_paths(tree)]
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_unflatten(template, leaves) -> object:
+    """A tree of ``template``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+# --- schedule and update -------------------------------------------------------
+
+def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup -> cosine decay to min_lr_ratio*peak, float32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    floor = cfg.peak_lr * cfg.min_lr_ratio
+    cos = floor + 0.5 * (cfg.peak_lr - floor) * (1 + torch.cos(np.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def adamw_init(params) -> Dict:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def _decay_mask(path: Path) -> bool:
+    """Weight decay on matrices only (no norms/biases/gains), by the last
+    key of the parameter path."""
+    last = path[-1] if path and isinstance(path[-1], str) else ""
+    return last not in NO_DECAY
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, state: Dict, params,
+                 step) -> Tuple[object, Dict, Dict]:
+    """One AdamW step. ``grads`` may be bf16; moments and parameters
+    update in float32, in place. Returns (params, state, stats), the same
+    objects as given, with stats {grad_norm, lr} as 0-d tensors."""
+    gnorm = global_norm(grads)
+    if cfg.clip_norm > 0:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    lr = cosine_lr(cfg, step).to(gnorm.device)
+    t = torch.as_tensor(step).to(device=gnorm.device,
+                                 dtype=torch.float32) + 1.0
+    bc1 = 1.0 - cfg.b1 ** t
+    bc2 = 1.0 - cfg.b2 ** t
+    for (path, p), g, m, v in zip(leaves_with_paths(params),
+                                  tree_leaves(grads),
+                                  tree_leaves(state["m"]),
+                                  tree_leaves(state["v"])):
+        g = g.float() * scale
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay > 0 and _decay_mask(path) and p.dim() >= 2:
+            u = u + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * u).to(p.dtype))
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,122 @@
+"""Training loop: data prefetch, the train step, telemetry, checkpoints,
+auto-resume and the straggler monitor's hooks, after
+``repro/train/trainer.py``.
+
+Everything runs on ``device`` (the card by default): the step's kernels
+(``ssd`` in every layer, ``flashattn`` in hymba's), and the monitor's
+fences on the ``iqr`` kernel. Each step is timed by
+``TelemetryRecorder.timed`` around work that ends by reading the loss
+back, which waits for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from typing import Callable, Dict, Optional, Union
+
+import torch
+
+from ..data.pipeline import DataConfig, Prefetcher
+from ..device import resolve_device
+from ..models.model import ModelConfig
+from ..telemetry import (KIND_CKPT, KIND_TRAIN, StragglerMonitor,
+                         TelemetryRecorder)
+from .checkpoint import CheckpointManager
+from .step import TrainConfig, batch_to, init_state, make_train_step
+
+
+@dataclasses.dataclass
+class RunConfig:
+    steps: int = 100
+    ckpt_every: int = 50               # <= 0: write no checkpoint at all
+    monitor_every: int = 25
+    log_every: int = 10
+    workdir: str = os.path.join(tempfile.gettempdir(), "repro_torch_run")
+    resume: bool = True
+    async_ckpt: bool = True
+    host: int = 0
+    n_hosts: int = 1
+
+
+class Trainer:
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 data_cfg: DataConfig, run_cfg: RunConfig, seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.mcfg, self.tcfg = model_cfg, train_cfg
+        self.dcfg, self.rcfg = data_cfg, run_cfg
+        self.seed = seed
+        os.makedirs(run_cfg.workdir, exist_ok=True)
+        self.ckpt = CheckpointManager(
+            os.path.join(run_cfg.workdir, "ckpt"))
+        self.telemetry = TelemetryRecorder(n_hosts=run_cfg.n_hosts,
+                                           device=self.device)
+        self.monitor = StragglerMonitor(on_action=self._on_monitor_action,
+                                        device=self.device)
+        self._log_path = os.path.join(run_cfg.workdir, "metrics.jsonl")
+        self._monitor_actions = []
+
+    def _on_monitor_action(self, action: str, report) -> None:
+        self._monitor_actions.append((action, report))
+        if action == "checkpoint":
+            # protect progress immediately when variability spikes
+            self.ckpt.save(self._state, int(self._state["step"]),
+                           blocking=False)
+
+    def _log(self, step: int, metrics: Dict) -> None:
+        row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        with open(self._log_path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+    def run(self, progress: Optional[Callable[[int, Dict], None]] = None,
+            ) -> Dict:
+        r = self.rcfg
+        state = init_state(self.mcfg, self.seed, self.device)
+        start_step = 0
+        if r.resume and self.ckpt.latest_step() is not None:
+            state = self.ckpt.restore(state)
+            start_step = int(state["step"])
+
+        step_fn = make_train_step(self.mcfg, self.tcfg)
+        prefetch = Prefetcher(self.mcfg, self.dcfg, start_step=start_step,
+                              host=r.host, n_hosts=r.n_hosts)
+        losses, saved = [], None
+        try:
+            for i in range(start_step, r.steps):
+                t_wait0 = time.time_ns()
+                _, batch = next(prefetch)
+                stall_ns = time.time_ns() - t_wait0    # input-wait stall
+                with self.telemetry.timed(r.host, KIND_TRAIN, i,
+                                          stall_ns=stall_ns):
+                    state, metrics = step_fn(state,
+                                             batch_to(batch, self.device))
+                    loss = float(metrics["loss"])      # waits for the device
+                self._state = state
+                losses.append(loss)
+                if (i + 1) % r.log_every == 0:
+                    self._log(i, metrics)
+                    if progress is not None:
+                        progress(i, metrics)
+                if r.ckpt_every > 0 and (i + 1) % r.ckpt_every == 0:
+                    with self.telemetry.timed(r.host, KIND_CKPT, i):
+                        self.ckpt.save(state, i + 1,
+                                       blocking=not r.async_ckpt)
+                    saved = i + 1
+                if (i + 1) % r.monitor_every == 0:
+                    self.monitor.analyze(self.telemetry)
+        finally:
+            prefetch.close()
+            self.ckpt.wait()
+
+        # the final state, unless this run's last periodic save holds it
+        if r.ckpt_every > 0 and saved != r.steps:
+            self.ckpt.save(state, r.steps, blocking=True)
+        trace_dir = os.path.join(r.workdir, "telemetry")
+        self.telemetry.write_dbs(trace_dir)
+        return {"state": state, "losses": losses,
+                "telemetry_dir": trace_dir,
+                "monitor_actions": self._monitor_actions}

@@ -641,3 +641,103 @@ def test_rank_pool_starts_beside_a_cuda_context(cuda, tmp_path):
         str(tmp_path / "torch"), str(tmp_path / "process"), names,
         shallow=False)
     assert match == names and not mismatch and not errors
+
+
+# --- training: the kernels under autograd ---------------------------------------
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 4, 64, 1, 128, 128),
+                                   (1, 333, 3, 64, 3, 48, 128),
+                                   (2, 37, 4, 8, 2, 16, 8)], ids=str)
+def test_ssd_function_on_card(cuda, shape):
+    """Under autograd the forward is one kernel launch (the tensor-core
+    kernel for the bf16 chunk-128 shapes) and the gradients are autograd
+    of the plain version on the same inputs: equal within rtol = atol =
+    1e-5 (the same recompute, another run of the same cuBLAS calls)."""
+    from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
+    b, s, H, P, G, N, chunk = shape
+    bf = torch.bfloat16 if chunk == 128 else torch.float32
+    base = ssd_inputs(sum(shape) + 2, b, s, H, P, G, N, dtype=bf,
+                      bc_dtype=bf, device=cuda)
+    g_y = torch.randn(b, s, H, P, device=cuda, dtype=bf,
+                      generator=torch.Generator(cuda).manual_seed(0))
+    grads, before = [], (ssd_fused.launches, ssd_fused.wgmma_launches)
+    for fn in (ssd_fused, ssd_fused_plain):
+        ins = [t.clone().requires_grad_() for t in base]
+        y, _ = fn(*ins, chunk=chunk)
+        (y.float() * g_y.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    assert ssd_fused.launches == before[0] + 1
+    assert ssd_fused.wgmma_launches == before[1] + (chunk == 128)
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b_.float().cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 10, 2, 64, True, 128),
+                                  (1, 2176, 25, 5, 64, True, 1024),
+                                  (1, 200, 4, 4, 32, True, 0)], ids=str)
+def test_flash_function_on_card(cuda, case):
+    """Under autograd the forward is one tensor-core launch and the
+    gradients of q, k and v are autograd of the plain version: equal
+    within rtol = atol = 1e-5."""
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    b, s, H, Hkv, hd, causal, window = case
+    gen = torch.Generator(cuda).manual_seed(s)
+    bf = torch.bfloat16
+    base = [torch.randn(b, s, n, hd, device=cuda, generator=gen).to(bf)
+            for n in (H, Hkv, Hkv)]
+    g_o = torch.randn(b, s, H, hd, device=cuda, generator=gen).to(bf)
+    grads = []
+    before = flash_attention.wgmma_launches
+    for fn in (flash_attention, flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in base]
+        out = fn(*ins, causal=causal, window=window)
+        (out.float() * g_o.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    assert flash_attention.wgmma_launches == before + 1
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b_.float().cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_train_step_on_card_against_the_plain_versions(cuda, monkeypatch):
+    """A two-layer bf16 hybrid model at tensor-core shapes: loss and
+    gradients with the kernels against the same step with the plain
+    versions: loss within 0.02, each matrix gradient's cosine >= 0.99
+    (bf16 forward outputs differ by a rounding step per layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import flash_attention_plain
+    from repro_torch.kernels.ssd import ssd_fused, ssd_fused_plain
+    from repro_torch.models import attention, ssm
+    from repro_torch.train.step import (TrainConfig, batch_to, init_state,
+                                        loss_and_grads, working_copy)
+    full = get_config("hymba-1.5b")
+    plan = ((full.plan[0][0], 1), (full.plan[1][0], 1))
+    cfg = dataclasses.replace(full, plan=plan, vocab=512, meta_tokens=16)
+    state = init_state(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 1100))
+    batch = batch_to({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cuda)
+    before = ssd_fused.wgmma_launches
+    loss_k, _, g_k = loss_and_grads(cfg, working_copy(
+        cfg, TrainConfig(), state["params"]), batch)
+    assert ssd_fused.wgmma_launches == before + 4     # 2 forward, 2 remat
+    monkeypatch.setattr(ssm, "ssd_fused", ssd_fused_plain)
+    monkeypatch.setattr(attention, "flash_attention", flash_attention_plain)
+    loss_p, _, g_p = loss_and_grads(cfg, working_copy(
+        cfg, TrainConfig(), state["params"]), batch)
+    assert abs(float(loss_k) - float(loss_p)) < 0.02
+    for a, b_ in zip(g_k, g_p):
+        assert torch.isfinite(a).all()
+        if a.dim() >= 2:
+            assert _cosine(a, b_) >= 0.99

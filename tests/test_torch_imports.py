@@ -92,6 +92,31 @@ def test_entry_points_default_to_the_card():
         serve_main(["--arch", "mamba2-370m", "--smoke"])
 
 
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """Trainer, init_state, StragglerMonitor and the training CLI take
+    ``device="cuda"`` by default and raise on a machine without a card."""
+    import inspect
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.telemetry import StragglerMonitor
+    from repro_torch.train import RunConfig, TrainConfig, Trainer, init_state
+    for fn in (Trainer.__init__, init_state, StragglerMonitor.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    cfg = get_smoke_config("mamba2-370m")
+    for make in (lambda: init_state(cfg), StragglerMonitor,
+                 lambda: Trainer(cfg, TrainConfig(), DataConfig(2, 8),
+                                 RunConfig(workdir=str(tmp_path)))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "mamba2-370m", "--smoke",
+                    "--workdir", str(tmp_path)])
+
+
 def test_every_cuda_source_is_built():
     """Every source under csrc/ goes into exactly one library: a ctypes
     library of its own, or the library of PyTorch operators."""
