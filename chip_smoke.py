@@ -26,11 +26,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the tensor-core kernel;
              flash_attention with S not a multiple of the tile, causal
              with window 0, windows of 1, 8 and 16 and one above S,
-             non-causal, H / Hkv = 1, 5 and 8, hd 8, 32, 64 and 128, and
-             S = 37 with window 8, whose padded query rows see no key,
-             in bfloat16 and float32; binstats_flat with one segment
-             holding every row, with 50,000 mostly empty segments and with
-             one segment far longer than a lane group's stride, and
+             non-causal, H / Hkv = 1, 4, 5 and 8, hd 8, 32, 64, 80 and
+             128 (hd 80, zero-filled to the hd-128 instantiation, causal
+             with 32 query over 8 KV heads, with window 4,096 passed by S
+             = 4,200, and non-causal 16 / 16), and S = 37 with window 8,
+             whose padded query rows see no key, in bfloat16 and float32;
+             binstats_flat with one segment holding every row, with
+             50,000 mostly empty segments and with one segment far
+             longer than a lane group's stride, and
              unordered rows, which must leave a NaN count and raise in
              BinStats.device_reduce; histbin_flat with one segment holding
              every row, 50,000 mostly empty segments, ids below 0 and at
@@ -168,7 +171,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-14. times  — each kernel, its plain version and a one-call PyTorch
+14. families — the seven families without an SSM layer at full width
+             and depth in bfloat16, random weights drawn on the card from
+             --seed, one model on the card at a time, each parameter count
+             equal to the reference's: stablelm-3b (32 layers, hd 80,
+             partial RoPE, qkv biases), h2o-danube-1.8b (24 layers, hd 80,
+             window 4,096), nemotron-4-15b (32 layers, squared ReLU,
+             untied head), starcoder2-15b (40 layers, layernorm, GELU),
+             granite-moe-1b-a400m (24 MoE layers, 32 experts, top 8) and
+             qwen2-vl-7b (28 layers, M-RoPE; a 16 x 16 grid of random
+             patch embeddings before the text, ids (0, row, col) for a
+             patch and (i, i, i) for the text token at position i) served
+             through ``ServeEngine.generate``: 4 requests of 2,048 prompt
+             positions (qwen2-vl: 256 patches + 1,792 text tokens), 16
+             new tokens each; then hubert-xlarge's encoder forward (48
+             non-causal layers, hd 80) through ``loss_fn`` under inference
+             mode on the data pipeline's 4 x 4,096 frames. The counters are
+             zeroed just before and read just after: flash_attention must
+             launch once an attention layer, all on the tensor-core kernel
+             (32, 24, 32, 40, 24, 28, 48); the kernel is held against its
+             plain version on the path's own first-layer inputs; the
+             last-token logits against a plain-version prefill and the
+             first tokens as in the serve phase (granite's plain prefill
+             takes the kernel run's expert choices, and the free-running
+             gap, the dropped share and the tokens whose top-k differs are
+             printed beside); danube also decodes past its window (batch 1,
+             a prompt of 4,200); hubert's loss within 0.05 of the plain
+             version's. Peak memory, prefill ms, the decode median and one
+             profile of prefill and of 8 decode steps (hubert: of the
+             forward) are printed;
+15. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
              yardstick by CUDA events, then the device time of a call under
@@ -187,7 +219,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000 (a reading that saw fewer kernels than calls lost
              profiler events and is taken again, up to 4 more times);
-15. host trace — time.perf_counter_ns around each step of the
+16. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
              stream lookup, binding call and launch, result check) over
@@ -198,13 +230,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              whole wrapper call; then core.anomaly.iqr_detect at the main
              path's call over 2,000 calls, split into host prep, upload,
              kernel call, the two device-to-host reads and host ranking;
-16. train  — mamba2-370m trained at full width and depth (48 layers,
+17. train  — mamba2-370m trained at full width and depth (48 layers,
              d_model 1024, vocab 50280) through ``Trainer.run``: float32
              master weights drawn on the card from --seed, a bfloat16
              working copy, remat "full", sequences of 4096 (the
              reference's train_4k) from the port's ``make_batch``,
              microbatch 4 x grad_accum 2, 12 steps, an asynchronous
-             checkpoint at step 6, the straggler monitor every 4 steps.
+             checkpoint at step 9, the straggler monitor every 4 steps.
              First the first microbatch's loss and gradients with the
              kernels against the same under the plain versions (loss
              within 0.05, each matrix gradient's cosine >= 0.98, the
@@ -214,7 +246,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              recompute) a microbatch, every launch on the tensor-core
              kernel, and iqr_fences at least once an analysis. Losses
              finite, the mean of the last 3 below the first 3's. A second
-             Trainer resumes from the step-6 checkpoint alone: its losses
+             Trainer resumes from the step-9 checkpoint alone: its losses
              within 1e-3 relative of the run's. The run's telemetry DB
              goes through ``VariabilityPipeline`` (torch backend), and a
              recorder of 8 hosts, one 3x slower, must be flagged by
@@ -224,7 +256,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the tensor-core forward kernels, the plain recompute in
              backward (kernels under its ``record_function`` range), the
              matrix products and the rest;
-17. train-hymba — hymba-1.5b likewise (32 hybrid layers, 3 global and
+18. train-hymba — hymba-1.5b likewise (32 hybrid layers, 3 global and
              29 with window 1024, 128 meta tokens): sequences of 2048
              (2176 positions, past the window), microbatch 2 x grad_accum
              2, 6 steps, no checkpoint; flash_attention and ssd_fused
@@ -237,7 +269,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              phases come after times and host trace, and their profiles
              last of all: in their wake the profiler lost the device
              events of short calls;
-18. reap   — stop the rank pools' forkserver and resource tracker
+19. reap   — stop the rank pools' forkserver and resource tracker
              (core.pipeline.stop_rank_pool_server) and fail if a process
              this script started, or one started below it, still runs.
 
@@ -251,10 +283,14 @@ with at most 0.1% of rows one bucket over (float32 log2 on a bucket edge);
 ssd float32 outputs rtol = atol = 1e-4 (the reference's own), bfloat16
 outputs one rounding step (rtol 2^-7); flash_attention float32 outputs
 rtol = atol = 2e-4 (the reference's own), bfloat16 one rounding step;
-serving logits, computed in bfloat16 through 48 (mamba2) or 32 (hymba)
-layers, max |kernel - plain| <= 0.5 and mean <= 0.05, and each request's
-first token equal unless the plain logits' top-2 gap is below 0.5; the
-same logits bound for hymba's decode continuation; rolling_stats, both
+serving logits, computed in bfloat16 through every layer of the model
+(24 to 48), max |kernel - plain| <= 0.5 and mean <= 0.05, and each
+request's first token equal unless the plain logits' top-2 gap is below
+0.5; the same logits bound for the decode continuations (hymba, danube);
+for granite-moe the plain prefill takes the kernel run's expert choices
+(top-k routing is discrete: a rounding step moves tokens near a tie to
+other experts, and the moved tokens compound over the layers); hubert's
+loss within 0.05 of the plain version's; rolling_stats, both
 columns, rtol 1e-4 and atol 1e-4 * max(1, max|x|) (the reference's
 rtol = atol = 1e-4, scaled for stall-magnitude values); training, whose
 forward runs in bfloat16 through every layer and whose backward is the
@@ -271,8 +307,10 @@ tree of this repository; exits non-zero without either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
+import math
 import os
 import resource
 import shutil
@@ -294,9 +332,46 @@ ROLLING_TOL = 1e-4
 BF16_RTOL = 2 ** -7
 LOGIT_MAX_TOL = 0.5
 LOGIT_MEAN_TOL = 0.05
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 2048, 32
-HYMBA_PARAMS = 1_590_080_320     # the reference's count (jax.eval_shape)
-CONT_BATCH, CONT_PROMPT = 2, 1100    # 128 meta + 1100 > the 1024 window
+# one spec a serving phase, each model at full width and depth: batch,
+# prompt tokens (after the meta tokens and, for the VLM, a grid x grid
+# image of patches), new tokens, and the (batch, prompt) of the decode
+# continuation past the attention window (None: no window to pass)
+SERVE_SPECS = {
+    "serve": dict(arch="mamba2-370m", batch=8, prompt=2048, new=32),
+    "serve-hymba": dict(arch="hymba-1.5b", batch=8, prompt=2048, new=32,
+                        cont=(2, 1100)),    # 128 meta + 1100 > 1024
+    "serve-stablelm": dict(arch="stablelm-3b", batch=4, prompt=2048,
+                           new=16),
+    "serve-danube": dict(arch="h2o-danube-1.8b", batch=4, prompt=2048,
+                         new=16, cont=(1, 4200)),     # 4200 > 4096
+    "serve-nemotron": dict(arch="nemotron-4-15b", batch=4, prompt=2048,
+                           new=16),
+    "serve-starcoder2": dict(arch="starcoder2-15b", batch=4, prompt=2048,
+                             new=16),
+    "serve-granite": dict(arch="granite-moe-1b-a400m", batch=4,
+                          prompt=2048, new=16),
+    "serve-qwen2-vl": dict(arch="qwen2-vl-7b", batch=4, prompt=1792,
+                           new=16, grid=16),    # 256 patches + 1792 text
+}
+# hubert-xlarge's encoder forward (loss_fn) on the pipeline's frames
+ENCODE_SPEC = dict(arch="hubert-xlarge", batch=4, frames=4096)
+# the phases of the families without an SSM layer, in their order
+FAMILY_PHASES = ("serve-stablelm", "serve-danube", "serve-nemotron",
+                 "serve-starcoder2", "serve-granite", "serve-qwen2-vl",
+                 "encode-hubert")
+# the reference's counts (jax.eval_shape of its init_params), which
+# tests/test_torch_families.py checks
+PARAM_COUNTS = {
+    "mamba2-370m": 368_338_432,
+    "hymba-1.5b": 1_590_080_320,
+    "stablelm-3b": 2_666_744_320,
+    "h2o-danube-1.8b": 1_749_281_280,
+    "nemotron-4-15b": 15_628_376_064,
+    "starcoder2-15b": 15_956_127_744,
+    "granite-moe-1b-a400m": 1_334_628_352,
+    "qwen2-vl-7b": 7_620_204_032,
+    "hubert-xlarge": 945_912_320,
+}
 # b, s, H, P, G, N, chunk
 SSD_EDGE_SHAPES = ((2, 37, 4, 8, 2, 16, 8), (1, 64, 2, 16, 1, 32, 16),
                    (2, 16, 8, 8, 8, 8, 16), (1, 300, 32, 64, 1, 128, 128),
@@ -307,7 +382,13 @@ FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, True, 0), (2, 37, 5, 1, 64, True, 8),
                      (1, 300, 8, 1, 128, False, 0),
                      (1, 300, 4, 2, 32, True, 500),
                      (1, 130, 4, 4, 16, True, 1),
-                     (1, 1100, 5, 5, 64, True, 1024))
+                     (1, 1100, 5, 5, 64, True, 1024),
+                     # hd 80 (stablelm, danube, hubert) in the hd-128
+                     # instantiation: causal GQA 32/8, danube's window
+                     # 4096 passed by S, non-causal 16/16
+                     (1, 300, 32, 8, 80, True, 0),
+                     (1, 4200, 32, 8, 80, True, 4096),
+                     (2, 300, 16, 16, 80, False, 0))
 # n, window
 ROLLING_EDGE_SHAPES = ((1, 1), (5, 16), (1000, 100), (1024, 1024),
                        (2049, 64), (3000, 1500), (100, 1))
@@ -1049,6 +1130,57 @@ class _Plain:
             setattr(mod, name, fn)
 
 
+class _Routing:
+    """The MoE layers' expert choices of one run, replayed in another.
+
+    Inside ``record()`` every ``moe._route`` call keeps its top-k expert
+    indices; inside ``replay()`` the calls, in the same order, take those
+    indices, with routing weights from their own router probabilities,
+    and count the tokens whose own top-k set differs (``flips``, one
+    count a call). Top-k routing is discrete: a rounding step of
+    difference in a layer's input moves a token whose k-th and (k+1)-th
+    experts are near a tie to another expert, and the moved tokens
+    compound over the layers, so two bfloat16 runs that differ only in
+    their attention's rounding are compared under the same choices."""
+
+    def __init__(self):
+        self.chosen, self.flips = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe
+        self._real = moe._route
+        moe._route = fn
+        try:
+            yield self
+        finally:
+            moe._route = self._real
+
+    def record(self):
+        return self._patched(self._record)
+
+    def replay(self):
+        self.flips = []
+        return self._patched(self._replay)
+
+    def _record(self, router_w, tokens, cfg):
+        out = self._real(router_w, tokens, cfg)
+        self.chosen.append(out[1])
+        return out
+
+    def _replay(self, router_w, tokens, cfg):
+        import torch
+        _, own, aux = self._real(router_w, tokens, cfg)
+        top_i = self.chosen[len(self.flips)]
+        self.flips.append(int((own.sort(-1).values != top_i.sort(-1).values
+                               ).any(-1).sum()))
+        top_w = torch.softmax(tokens.float() @ router_w.float(), -1).gather(
+            -1, top_i)
+        if cfg.renorm_weights:
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        return top_w, top_i, aux
+
+
 def _flash_key(name, kwargs):
     """Capture key: the first global and the first window layer's
     attention calls are kept apart."""
@@ -1067,17 +1199,34 @@ def _expected_launches(cfg):
     return n
 
 
-def phase_serve(args, dev, arch, tag):
-    """``arch`` served at full width and depth through the port's engine;
-    returns (launches, |kernel - plain| on the path's tensors by kernel,
-    the captured calls)."""
+def _serve_batch(cfg, seed, b, prompt, grid=0):
+    """numpy inputs of ``b`` requests of ``prompt`` random text tokens
+    from ``seed``, after a ``grid`` x ``grid`` image of random patches and
+    their M-RoPE ids for the VLM (``launch/serve.py``'s rule)."""
     import numpy as np
+
+    from repro_torch.launch.serve import vlm_inputs
+    rng = np.random.default_rng(seed)
+    batch = vlm_inputs(cfg, rng, b, grid, prompt) if grid else {}
+    batch["tokens"] = rng.integers(0, cfg.vocab, (b, prompt))
+    return batch
+
+
+def _head(batch, n):
+    """The first ``n`` text tokens of a serving batch (and their
+    positions)."""
+    p = batch["patches"].shape[1] if "patches" in batch else 0
+    return {k: (v[:, :n] if k == "tokens" else v[..., :p + n]
+                if k == "positions3" else v) for k, v in batch.items()}
+
+
+def _init_model(arch, args, dev, tag):
+    """``arch``'s full config and its random bfloat16 parameters drawn on
+    the card, their count held to the reference's."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import attention, model, ssm
-    from repro_torch.serve import ServeConfig, ServeEngine
-    from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
+    from repro_torch.models import model
 
     cfg = get_config(arch)
     t0 = time.perf_counter()
@@ -1087,18 +1236,82 @@ def phase_serve(args, dev, arch, tag):
     log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab}, {cfg.meta_tokens} meta tokens, {n_params} "
         f"parameters in {cfg.dtype}, drawn on the card in "
-        f"{time.perf_counter() - t0:.2f}s")
-    if arch == "hymba-1.5b" and n_params != HYMBA_PARAMS:
+        f"{time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated, "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    if n_params != PARAM_COUNTS[arch]:
         raise AssertionError(f"{n_params} parameters, the reference has "
-                             f"{HYMBA_PARAMS}")
-    max_len = cfg.meta_tokens + SERVE_PROMPT + SERVE_NEW
-    scfg = ServeConfig(max_len=max_len, max_new_tokens=SERVE_NEW,
+                             f"{PARAM_COUNTS[arch]}")
+    return cfg, params
+
+
+def _check_launches(cfg, launches, tc, tag):
+    """One launch of each kernel a layer runs, every one on its
+    tensor-core kernel."""
+    log(f"{tag}: launches {launches}; on the tensor-core kernels {tc}")
+    for name, want in _expected_launches(cfg).items():
+        if launches[name] != want:
+            raise AssertionError(f"{tag} launched {name} {launches[name]} "
+                                 f"times, expected one per layer that runs "
+                                 f"it ({want})")
+        if tc[name] != launches[name]:
+            raise AssertionError(f"{launches[name]} {name} launches, "
+                                 f"{tc[name]} of them on the tensor-core "
+                                 "kernel: every bfloat16 call of the path "
+                                 "should be")
+
+
+def _captured_errs(calls, tag):
+    """Each captured call's kernel against its plain version on the
+    path's own inputs: the largest |kernel - plain| by kernel."""
+    errs = {}
+    for key, (c_args, c_kw) in calls.items():
+        name = key.split("/")[0]
+        check = ssd_err if name == "ssd_fused" else flash_err
+        err = check(_launch_counters()[name](*c_args, **c_kw),
+                    _plain(name)(*c_args, **c_kw))
+        log(f"{tag}: {key} on the path's own inputs "
+            f"{[tuple(a.shape) for a in c_args if hasattr(a, 'shape')]} "
+            f"{c_kw}: largest |kernel - plain| {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def _log_profile(tag, name, prof, per):
+    wall, busy, top = prof
+    if busy is None:
+        log(f"{tag} profile {name}: device time not measured (the "
+            "profiler saw no CUDA kernel)")
+        return
+    log(f"{tag} profile {name}: device kernels {busy / per:.3f} ms per "
+        f"step, host wall {wall / per:.3f} ms per step under the "
+        f"profiler; largest: " + "; ".join(
+            f"{n} {ms / per:.3f} ms x{c // per}" for n, ms, c in top))
+
+
+def phase_serve(args, dev, tag):
+    """``SERVE_SPECS[tag]``'s model served at full width and depth through
+    the port's engine; returns (launches, |kernel - plain| on the path's
+    tensors by kernel, the captured calls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention, model, ssm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
+
+    spec = SERVE_SPECS[tag]
+    b, n_prompt, n_new = spec["batch"], spec["prompt"], spec["new"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params = _init_model(spec["arch"], args, dev, tag)
+    host = _serve_batch(cfg, args.seed, b, n_prompt, spec.get("grid", 0))
+    prefix = cfg.meta_tokens + spec.get("grid", 0) ** 2
+    max_len = prefix + n_prompt + n_new
+    scfg = ServeConfig(max_len=max_len, max_new_tokens=n_new,
                        cache_dtype=cfg.dtype)
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
     # warm-up at a short prompt: library handles, the kernels' attributes
     ServeEngine(cfg, params, ServeConfig(max_len=max_len, max_new_tokens=2),
-                device=dev).generate({"tokens": prompts[:, :128]})
+                device=dev).generate(_head(host, 128))
     engine = ServeEngine(cfg, params, scfg, device=dev)
     counters = _launch_counters()
     torch.cuda.synchronize()
@@ -1108,11 +1321,11 @@ def phase_serve(args, dev, arch, tag):
                   key=_flash_key)
     try:
         _zero(counters)
-        tokens = engine.generate({"tokens": prompts})
+        tokens = engine.generate(host)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
-        wgmma = counters["flash_attention"].wgmma_launches
-        ssd_tc = counters["ssd_fused"].wgmma_launches
+        tc = {k: counters[k].wgmma_launches
+              for k in ("flash_attention", "ssd_fused")}
     finally:
         cap.close()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1121,44 +1334,44 @@ def phase_serve(args, dev, arch, tag):
               if e.kind == KIND_PREFILL]
     dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
               if e.kind == KIND_DECODE]
-    log(f"{tag}: launches {launches}; flash_attention on the tensor-core "
-        f"kernel {wgmma}, ssd_fused on the tensor-core kernel {ssd_tc}")
-    for name, want in _expected_launches(cfg).items():
-        if launches[name] != want:
-            raise AssertionError(f"the prefill launched {name} "
-                                 f"{launches[name]} times, expected one per "
-                                 f"layer that runs it ({want})")
-    for name, tc in (("flash_attention", wgmma), ("ssd_fused", ssd_tc)):
-        if tc != launches[name]:
-            raise AssertionError(f"{launches[name]} {name} launches, {tc} "
-                                 "of them on the tensor-core kernel: every "
-                                 "bfloat16 call of the path should be")
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+    _check_launches(cfg, launches, tc, tag)
+    if tokens.shape != (b, n_new) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
+    errs = _captured_errs(cap.calls, tag)
 
-    errs = {}
-    for key, (c_args, c_kw) in cap.calls.items():
-        name = key.split("/")[0]
-        check = ssd_err if name == "ssd_fused" else flash_err
-        err = check(_launch_counters()[name](*c_args, **c_kw),
-                    _plain(name)(*c_args, **c_kw))
-        log(f"{tag}: {key} on the path's own inputs "
-            f"{[tuple(a.shape) for a in c_args if hasattr(a, 'shape')]} "
-            f"{c_kw}: largest |kernel - plain| {err}")
-        errs[name] = max(errs.get(name, 0.0), err)
-
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    has_moe = any(sp.moe is not None for sp, _ in cfg.plan)
+    routing = _Routing()
     with torch.inference_mode():
-        lg_k, _, _ = model.prefill(cfg, params, batch, max_len, cfg.dtype)
+        with routing.record():
+            lg_k, _, _ = model.prefill(cfg, params, batch, max_len,
+                                       cfg.dtype)
         with _Plain():
             lg_p, _, _ = model.prefill(cfg, params, batch, max_len,
                                        cfg.dtype)
+        if has_moe:
+            # the plain prefill under the kernel run's expert choices
+            # (``_Routing``): the gate below holds it to the kernel's; the
+            # free-running gap and the moved tokens are printed beside
+            free = _logit_gap(lg_k, lg_p)
+            with _Plain(), routing.replay():
+                lg_p, _, _ = model.prefill(cfg, params, batch, max_len,
+                                           cfg.dtype)
+            _, _, m, _ = model.forward_hidden(cfg, params, batch, "prefill")
+            log(f"{tag}: prefill dropped share {float(m['dropped']):.6f} "
+                f"(mean over the layers), aux loss "
+                f"{float(m['aux_loss']):.6f}; plain prefill free-running: "
+                f"last-token logits |kernel - plain| max {free[0]:.6f}, "
+                f"mean {free[1]:.6f}; by layer, the tokens (of "
+                f"{b * (prefix + n_prompt)}) whose own top-"
+                f"{cfg.plan[0][0].moe.top_k} experts in the plain prefill "
+                f"differ from the kernel run's choice: {routing.flips}")
+            del m
     with _Plain():
-        tokens_p = ServeEngine(cfg, params, scfg, device=dev).generate(
-            {"tokens": prompts})
+        tokens_p = ServeEngine(cfg, params, scfg, device=dev).generate(host)
     if not (bool(torch.isfinite(lg_k).all()) and
-            tuple(lg_k.shape) == (SERVE_BATCH, cfg.vocab)):
+            tuple(lg_k.shape) == (b, cfg.vocab)):
         raise AssertionError("kernel logits not finite or misshapen")
     d_max, d_mean = _logit_gap(lg_k, lg_p)
     top2 = lg_p.topk(2, dim=-1).values
@@ -1175,17 +1388,17 @@ def phase_serve(args, dev, arch, tag):
     if d_max > LOGIT_MAX_TOL or d_mean > LOGIT_MEAN_TOL or bad.any():
         raise AssertionError("kernel and plain prefill disagree")
     agree = int((tokens == tokens_p).sum())
-    log(f"{tag}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT} + "
-        f"{SERVE_NEW} new tokens; prefill {pre_ms[0]:.3f} ms, "
+    log(f"{tag}: batch {b} x ({prefix} meta and patch + {n_prompt} prompt)"
+        f" + {n_new} new tokens; prefill {pre_ms[0]:.3f} ms, "
         f"decode median {float(np.median(dec_ms)):.3f} ms/token "
         f"(min {min(dec_ms):.3f}, max {max(dec_ms):.3f}, "
         f"{len(dec_ms)} steps); peak memory "
         f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB live "
         f"before); first tokens equal {int((first_k == first_p).sum())}"
-        f"/{SERVE_BATCH}; kernel and plain generations agree on "
+        f"/{b}; kernel and plain generations agree on "
         f"{agree}/{tokens.size} tokens")
-    if cfg.meta_tokens:
-        _continuation(cfg, params, dev, args.seed, tag)
+    if "cont" in spec:
+        _continuation(cfg, params, dev, args.seed, tag, *spec["cont"])
 
     # where the serving time goes on the device: kernel time by name under
     # torch.profiler, for one prefill and for 8 decode steps
@@ -1202,16 +1415,65 @@ def phase_serve(args, dev, arch, tag):
                                             index + t)
                 tok[0] = lg_t.argmax(-1)[:, None]
         dec = _device_profile(decode)
-    for name, (wall, busy, top), per in (("prefill", pre, 1),
-                                         ("decode", dec, 8)):
-        if busy is None:
-            log(f"{tag} profile {name}: device time not measured (the "
-                "profiler saw no CUDA kernel)")
-            continue
-        log(f"{tag} profile {name}: device kernels {busy / per:.3f} ms per "
-            f"step, host wall {wall / per:.3f} ms per step under the "
-            f"profiler; largest: " + "; ".join(
-                f"{n} {ms / per:.3f} ms x{c // per}" for n, ms, c in top))
+        del caches
+    _log_profile(tag, "prefill", pre, 1)
+    _log_profile(tag, "decode", dec, 8)
+    return launches, errs, cap.calls
+
+
+def phase_encode(args, dev, tag="encode-hubert"):
+    """hubert-xlarge's encoder forward at full width and depth:
+    ``loss_fn`` under inference mode on the data pipeline's frames batch
+    (``ENCODE_SPEC``), with the kernel and with the plain version; returns
+    (launches, |kernel - plain| by kernel, the captured calls)."""
+    import torch
+
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import attention, model, ssm
+    from repro_torch.train.step import batch_to
+
+    spec = ENCODE_SPEC
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params = _init_model(spec["arch"], args, dev, tag)
+    batch = batch_to(make_batch(cfg, DataConfig(
+        batch=spec["batch"], seq=spec["frames"], seed=args.seed), 0), dev)
+    with torch.inference_mode():
+        model.loss_fn(cfg, params, {k: v[:, :128] for k, v in
+                                    batch.items()})      # warm-up
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
+                  key=_flash_key)
+    try:
+        _zero(counters)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            loss_k, m_k = model.loss_fn(cfg, params, batch)
+            loss_k = float(loss_k)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        tc = {k: counters[k].wgmma_launches
+              for k in ("flash_attention", "ssd_fused")}
+    finally:
+        cap.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_launches(cfg, launches, tc, tag)
+    errs = _captured_errs(cap.calls, tag)
+    with torch.inference_mode(), _Plain():
+        loss_p = float(model.loss_fn(cfg, params, batch)[0])
+    gap = abs(loss_k - loss_p)
+    log(f"{tag}: batch {spec['batch']} x {spec['frames']} frames of "
+        f"{cfg.frontend_dim}; loss {loss_k:.6f} (ce {float(m_k['ce']):.6f}),"
+        f" plain {loss_p:.6f}, |kernel - plain| {gap:.6f} (tolerance "
+        f"{TRAIN_LOSS_TOL}); forward {fwd_ms:.3f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB live before)")
+    if not math.isfinite(loss_k) or gap > TRAIN_LOSS_TOL:
+        raise AssertionError("kernel and plain encoder forward disagree")
+    with torch.inference_mode():
+        prof = _device_profile(lambda: model.loss_fn(cfg, params, batch))
+    _log_profile(tag, "forward", prof, 1)
     return launches, errs, cap.calls
 
 
@@ -1219,10 +1481,12 @@ def phase_serve(args, dev, arch, tag):
 # the sequence (hymba's 128 meta tokens come on top), microbatch, grad
 # accumulation, steps, the asynchronous checkpoint's step (None: no
 # checkpoint, no resume), the monitor's period and the peak learning rate
-# (2 warm-up steps; hymba's loss rose over 6 steps at 1e-3 and at 3e-4)
+# (2 warm-up steps; hymba's loss rose over 6 steps at 1e-3 and at 3e-4).
+# mamba2's checkpoint at step 9 leaves the resumed run 3 steps (6 at step
+# 6): its steps of 13-14 s on a slow host kept the script too near 1200 s
 TRAIN_SPECS = {
     "train": dict(arch="mamba2-370m", seq=4096, micro=4, accum=2,
-                  steps=12, ckpt=6, monitor=4, lr=1e-3),
+                  steps=12, ckpt=9, monitor=4, lr=1e-3),
     "train-hymba": dict(arch="hymba-1.5b", seq=2048, micro=2, accum=2,
                         steps=6, ckpt=None, monitor=3, lr=1e-4),
 }
@@ -1609,7 +1873,7 @@ def _logit_gap(a, b):
     return float(d.max()), float(d.mean())
 
 
-def _continuation(cfg, params, dev, seed, tag):
+def _continuation(cfg, params, dev, seed, tag, batch, prompt):
     """prefill(N - 1) + one decode step against prefill(N) on the card,
     at a prompt whose meta + text positions pass the attention window."""
     import numpy as np
@@ -1618,8 +1882,8 @@ def _continuation(cfg, params, dev, seed, tag):
     from repro_torch.models import model
 
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab, (CONT_BATCH, CONT_PROMPT)), device=dev)
-    max_len = cfg.meta_tokens + CONT_PROMPT
+        0, cfg.vocab, (batch, prompt)), device=dev)
+    max_len = cfg.meta_tokens + prompt
     with torch.inference_mode():
         lg_full, _, _ = model.prefill(cfg, params, {"tokens": toks},
                                       max_len, cfg.dtype)
@@ -1628,8 +1892,8 @@ def _continuation(cfg, params, dev, seed, tag):
                                        cfg.dtype)
         lg, _ = model.decode_step(cfg, params, toks[:, -1:], caches, idx)
     d_max, d_mean = _logit_gap(lg, lg_full)
-    log(f"{tag}: continuation at batch {CONT_BATCH}, {cfg.meta_tokens} meta"
-        f" + {CONT_PROMPT} prompt positions: prefill(N-1) + decode vs "
+    log(f"{tag}: continuation at batch {batch}, {cfg.meta_tokens} meta"
+        f" + {prompt} prompt positions: prefill(N-1) + decode vs "
         f"prefill(N) logits max {d_max:.6f}, mean {d_mean:.6f}")
     if not bool(torch.isfinite(lg).all()) or d_max > LOGIT_MAX_TOL or \
             d_mean > LOGIT_MEAN_TOL:
@@ -3099,7 +3363,8 @@ def phase_times(shapes):
 
     _ssd_rows(rows, shapes, ("ssd_fused", "ssd_fused/hymba"))
     _flash_rows(rows, shapes, ("flash_attention/window",
-                               "flash_attention/global"))
+                               "flash_attention/global") + tuple(
+        f"flash_attention/{tag}" for tag in FAMILY_PHASES))
     rows["flash_attention"] = rows["flash_attention/window"]
     return rows
 
@@ -3232,8 +3497,22 @@ ALSO = {"binstats": ("binstats/table1",),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
                       "ssd_fused/train-hymba"),
         "flash_attention": ("flash_attention/global",
-                            "flash_attention/train-hymba"),
+                            "flash_attention/train-hymba") + tuple(
+            f"flash_attention/{tag}" for tag in FAMILY_PHASES),
         "rolling_stats": ("rolling_stats/stall",)}
+
+
+def _free(dev):
+    """Return a finished phase's blocks to the card before the next model
+    is drawn."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    log(f"free: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB still "
+        "allocated")
 
 
 def _laps(t_start):
@@ -3344,15 +3623,14 @@ def main() -> int:
     for name in ("binstats", "iqr_fences"):
         errs[name] = max(errs[name], m_errs[name])
     errs["rolling_stats"] = max(m_errs["rolling_stats"], s_err)
-    serve_launches, serve_errs, calls = phase_serve(args, dev,
-                                                    "mamba2-370m", "serve")
+    serve_launches, serve_errs, calls = phase_serve(args, dev, "serve")
     launches["ssd_fused"] = serve_launches["ssd_fused"]
     errs["ssd_fused"] = serve_errs["ssd_fused"]
     shapes["ssd_fused"] = calls["ssd_fused"]
     del calls
+    _free(dev)
     lap("serve")
-    h_launches, h_errs, h_calls = phase_serve(args, dev, "hymba-1.5b",
-                                              "serve-hymba")
+    h_launches, h_errs, h_calls = phase_serve(args, dev, "serve-hymba")
     launches["flash_attention"] = h_launches["flash_attention"]
     launches["ssd_fused/hymba"] = h_launches["ssd_fused"]
     errs["flash_attention"] = h_errs["flash_attention"]
@@ -3361,7 +3639,22 @@ def main() -> int:
     for key in ("flash_attention/window", "flash_attention/global"):
         shapes[key] = h_calls[key]
     del h_calls
+    _free(dev)
     lap("serve-hymba")
+    # the families without an SSM layer: flash_attention's calls only,
+    # one model on the card at a time
+    for tag in FAMILY_PHASES:
+        f_launches, f_errs, f_calls = (
+            phase_encode(args, dev, tag) if tag == "encode-hubert"
+            else phase_serve(args, dev, tag))
+        (key, call), = f_calls.items()
+        shapes[f"flash_attention/{tag}"] = call
+        launches[f"flash_attention/{tag}"] = f_launches["flash_attention"]
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      f_errs["flash_attention"])
+        del f_calls, call
+        _free(dev)
+        lap(tag)
     times = phase_times(shapes)
     lap("times")
     phase_host_trace(shapes)

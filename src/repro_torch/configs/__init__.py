@@ -1,8 +1,8 @@
 """Architecture registry of the port, selectable by ``--arch <id>``.
 
-It lists the architectures the port can build; the reference's other
-architectures come with the slices that port their layers (ROADMAP
-Queue 1) and raise ``KeyError`` until then."""
+It lists the architectures the port can build, in the reference's order;
+deepseek-v2-236b comes with the MLA slice (ROADMAP Queue 1) and raises
+``KeyError`` until then."""
 
 from __future__ import annotations
 
@@ -12,16 +12,27 @@ from typing import Dict, List
 from ..models.model import ModelConfig
 
 _MODULES: Dict[str, str] = {
-    "mamba2-370m": "mamba2_370m",
     "hymba-1.5b": "hymba_1_5b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "stablelm-3b": "stablelm_3b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "starcoder2-15b": "starcoder2_15b",
+    "hubert-xlarge": "hubert_xlarge",
+    "mamba2-370m": "mamba2_370m",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
+_LATER = {"deepseek-v2-236b": "the MLA slice (ROADMAP Queue 1)"}
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 
 def _mod(name: str):
+    if name in _LATER:
+        raise KeyError(f"arch {name!r} is not ported yet: it comes with "
+                       f"{_LATER[name]}; the port builds {ARCH_NAMES}")
     if name not in _MODULES:
-        raise KeyError(f"arch {name!r} is not ported yet; the port builds "
+        raise KeyError(f"unknown arch {name!r}; the port builds "
                        f"{ARCH_NAMES}")
     return importlib.import_module(f"{__name__}.{_MODULES[name]}")
 

@@ -11,9 +11,10 @@ keeps a ring buffer of ``window`` slots (slot = position % window).
 
 Shapes: q (B, S, H, hd), k and v (B, S, Hkv, hd); query head ``h`` reads KV
 head ``h // (H // Hkv)``. Projections are ``torch.matmul`` in the model
-dtype. MLA (deepseek-v2) and M-RoPE (qwen2-vl) come with the slices of
-those models and raise until then. Mesh and sharding anchors are not part
-of the port (one card).
+dtype. Rotary embeddings: standard, partial (the leading fraction of
+head_dim) or qwen2-vl's M-RoPE, whose positions are (B, 3, S) (t, h, w)
+ids. MLA (deepseek-v2) comes with that model's slice and raises until
+then. Mesh and sharding anchors are not part of the port (one card).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flashattn import flash_attention
-from .layers import apply_rope, dense_init
+from .layers import apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -62,23 +63,21 @@ class AttnConfig:
 def check_config(cfg: AttnConfig) -> None:
     """Raise for the attention forms the port does not build yet."""
     if cfg.is_mla:
-        raise NotImplementedError("MLA attention is not ported yet (ROADMAP "
-                                  "Queue 1: the remaining model families)")
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE attention is not ported yet "
-                                  "(ROADMAP Queue 1: the remaining model "
-                                  "families, VLM)")
+        raise NotImplementedError(
+            "MLA attention is not ported yet: it comes with the MLA slice "
+            "(deepseek-v2-236b; ROADMAP Queue 1)")
 
 
 # --- parameter init ----------------------------------------------------------
 
 def attn_init(cfg: AttnConfig, *, generator: torch.Generator,
-              device: torch.device) -> Dict:
-    """float32 parameters of one attention block (the model casts
-    matrices)."""
+              device: torch.device,
+              dtype: torch.dtype = torch.float32) -> Dict:
+    """Parameters of one attention block: the drawn matrices in
+    ``dtype``, the biases in float32 (the model casts them)."""
     check_config(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kw = {"generator": generator, "device": device}
+    kw = {"generator": generator, "device": device, "dtype": dtype}
     p = {
         "wq": dense_init((d, h, hd), fan_in=d, **kw),
         "wk": dense_init((d, kv, hd), fan_in=d, **kw),
@@ -112,6 +111,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
         frac = cfg.rotary_fraction if cfg.rope == "partial" else 1.0
         q = apply_rope(q, positions, cfg.rope_theta, frac)
         k = apply_rope(k, positions, cfg.rope_theta, frac)
+    elif cfg.rope == "mrope":                  # positions: (B, 3, S)
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
 
 
@@ -149,7 +151,9 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     is updated in place and returned."""
     check_config(cfg)
     b = x.shape[0]
-    pos = torch.full((b, 1), cache_index, dtype=torch.int64, device=x.device)
+    # a decoded token is text: M-RoPE's three ids advance together
+    shape = (b, 3, 1) if cfg.rope == "mrope" else (b, 1)
+    pos = torch.full(shape, cache_index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, pos)
 
     c = cache["k"].shape[1]

@@ -6,11 +6,13 @@ with every leaf a numpy array (``jax.tree.map(np.asarray, params)``),
 each segment's layers stacked on a leading axis, and returns the port's
 parameters for the same :class:`~repro_torch.models.model.ModelConfig`:
 the segments unstacked into lists of per-layer dictionaries (a hybrid
-layer's ``attn``, ``ssm``, ``ffn``, norms and gains alike), every matrix
-in ``cfg.dtype`` (``meta_tokens`` too, as the reference's
-``cast_params`` casts it) and every vector in float32 (the types each
-reference use site casts to). Nothing of JAX is imported: the input is
-numpy.
+layer's ``attn``, ``ssm``, ``ffn``, norms and gains alike, an MoE
+layer's ``moe`` with its ``router``, ``experts`` {w_up, w_gate} (E, D, F)
+and w_down (E, F, D), and ``shared`` experts), every matrix in
+``cfg.dtype`` (``meta_tokens``, ``frontend_proj`` and ``lm_head`` too,
+as the reference's ``cast_params`` casts them), every vector and the
+router in float32 (the types each reference use site casts to). Nothing
+of JAX is imported: the input is numpy.
 
 :func:`state_to_flat` and :func:`state_from_flat` carry a training state
 {step, params, opt {m, v}} to and from the reference's flat checkpoint

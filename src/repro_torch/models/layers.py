@@ -2,8 +2,9 @@
 position embeddings and the dense FFN.
 
 Initialisers draw from an explicit :class:`torch.Generator` on the
-target device. Norms compute in float32 and cast back to the input's
-dtype, and RoPE rotates in float32 and casts back, as
+target device, in float32, and return each matrix in the ``dtype`` they
+are given as soon as it is drawn. Norms compute in float32 and cast back
+to the input's dtype, and RoPE rotates in float32 and casts back, as
 ``repro/models/layers.py`` does. The FFN's products stay in the input's
 dtype.
 """
@@ -18,25 +19,28 @@ import torch.nn.functional as F
 
 
 def truncated_normal(shape: Sequence[int], scale: float, *,
-                     generator: torch.Generator,
-                     device: torch.device) -> torch.Tensor:
-    """``scale`` times a standard normal truncated at ±2, float32."""
+                     generator: torch.Generator, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``scale`` times a standard normal truncated at ±2, drawn in float32
+    and returned in ``dtype``."""
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(scale)
+    return t.mul_(scale).to(dtype)
 
 
 def dense_init(shape: Sequence[int], fan_in: Optional[int] = None, *,
-               generator: torch.Generator,
-               device: torch.device) -> torch.Tensor:
+               generator: torch.Generator, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
     return truncated_normal(shape, 1.0 / np.sqrt(fan_in),
-                            generator=generator, device=device)
+                            generator=generator, device=device, dtype=dtype)
 
 
 def embed_init(shape: Sequence[int], *, generator: torch.Generator,
-               device: torch.device) -> torch.Tensor:
-    return truncated_normal(shape, 1.0, generator=generator, device=device)
+               device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return truncated_normal(shape, 1.0, generator=generator, device=device,
+                            dtype=dtype)
 
 
 def rmsnorm_init(dim: int, device: torch.device):
@@ -115,16 +119,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
                 theta: float = 10000.0) -> torch.Tensor:
-    """Qwen2-VL M-RoPE comes with the VLM slice."""
-    raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1: "
-                              "the remaining model families, VLM)")
+    """Qwen2-VL M-RoPE: the head_dim frequency bands are split into
+    (temporal, height, width) sections, each rotated by its own position
+    id.
+
+    x: (B, S, H, head_dim); positions3: (B, 3, S) integer (t, h, w) ids.
+    ``sections`` counts frequencies (pairs) and sums to head_dim / 2 (16,
+    24 and 24 for head_dim 128)."""
+    head_dim = x.shape[-1]
+    if sum(sections) * 2 != head_dim:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover "
+                         f"head_dim {head_dim}")
+    inv = rope_freqs(head_dim, theta, head_dim, x.device)    # (hd/2,)
+    # the section of each frequency: 0 = t, 1 = h, 2 = w
+    sec = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                     for i, n in enumerate(sections)])
+    pos = positions3.to(x.device).transpose(1, 2).to(torch.float32)
+    ang = pos[..., sec] * inv                                # (B, S, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    r1, r2 = x[..., : head_dim // 2], x[..., head_dim // 2:]
+    out1 = r1 * cos - r2 * sin                                  # float32
+    out2 = r2 * cos + r1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
 # --- ffn ---------------------------------------------------------------------
 
 def ffn_init(d_model: int, d_ff: int, gated: bool, *,
-             generator: torch.Generator, device: torch.device) -> Dict:
-    kw = {"generator": generator, "device": device}
+             generator: torch.Generator, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    kw = {"generator": generator, "device": device, "dtype": dtype}
     p = {"w_up": dense_init((d_model, d_ff), **kw),
          "w_down": dense_init((d_ff, d_model), fan_in=d_ff, **kw)}
     if gated:

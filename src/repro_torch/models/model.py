@@ -4,19 +4,19 @@
 Public entry points (functions of (cfg, params, ...)):
   init_params    parameters on the card (or the CPU when asked)
   loss_fn        training loss (chunked CE: the (B, S, V) float32 logits
-                 are never held whole)
-  forward_hidden trunk output
-  logits_for     (B, D) -> (B, V) float32 logits of the tied head
+                 are never held whole) plus the MoE layers' aux losses
+  forward_hidden trunk output and the layers' metrics
+  logits_for     (B, D) -> (B, V) float32 logits of the head
   init_cache     decode caches
   prefill        prompt ingestion -> (last-token logits, caches, index)
   decode_step    one-token step -> (logits, caches), caches in place
 
 Parameters are held as the reference's use sites see them: every matrix
-(rank >= 2) in ``cfg.dtype``, every vector in float32 (``cast_params``);
-training keeps float32 master weights and differentiates their
-``cast_params`` copy (``repro_torch.train.step``). The dense projections
-and the tied head are ``torch.matmul``, as the reference leaves them to
-XLA.
+(rank >= 2) in ``cfg.dtype``, every vector in float32, and the MoE
+router in float32, as its use site reads it (``cast_params``); training
+keeps float32 master weights and differentiates their ``cast_params``
+copy (``repro_torch.train.step``). The dense projections and the head
+are ``torch.matmul``, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -44,8 +44,10 @@ class ModelConfig:
     plan: Tuple[Tuple[LayerSpec, int], ...]
     norm: str = "rmsnorm"              # final norm kind
     tie_embeddings: bool = True
+    causal: bool = True                # False: encoder-only (hubert)
     meta_tokens: int = 0               # hymba learnable prefix
     frontend: str = "none"             # none | audio | vlm
+    frontend_dim: int = 0
     dtype: torch.dtype = torch.bfloat16
     loss_chunk: int = 1024
     remat: str = "full"                # none | full | dots
@@ -60,10 +62,15 @@ class ModelConfig:
 
 # --- init -----------------------------------------------------------------------
 
+FLOAT32_LEAVES = ("router",)     # read in float32 at their use sites
+
+
 def cast_params(params, dtype: torch.dtype):
-    """Matrices (rank >= 2) to ``dtype``, vectors to float32."""
+    """Matrices (rank >= 2) to ``dtype``, vectors and the leaves named in
+    ``FLOAT32_LEAVES`` to float32."""
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
+        return {k: (v.float() if k in FLOAT32_LEAVES
+                    else cast_params(v, dtype)) for k, v in params.items()}
     if isinstance(params, list):
         return [cast_params(v, dtype) for v in params]
     return params.to(dtype if params.dim() >= 2 else torch.float32)
@@ -73,26 +80,34 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda",
                 dtype: Optional[torch.dtype] = None) -> Dict:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
-    seeded with ``seed``, cast as :func:`cast_params` says to ``dtype``
-    (``cfg.dtype`` by default; float32 gives training's master
-    weights)."""
+    seeded with ``seed``, typed as :func:`cast_params` says for ``dtype``
+    (``cfg.dtype`` by default; float32 gives training's master weights).
+
+    Each matrix is drawn in float32 and cast as soon as it is drawn, so
+    the peak is the finished tree plus one float32 leaf; the draws come
+    in the generator order of drawing the whole float32 tree first."""
     dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
-    kw = {"generator": gen, "device": dev}
+    kw = {"generator": gen, "device": dev, "dtype": dtype}
     p: Dict[str, Any] = {
         "embed": {"tokens": embed_init((cfg.vocab, cfg.d_model), **kw)},
         "final_norm": (layernorm_init(cfg.d_model, dev)
                        if cfg.norm == "layernorm"
                        else rmsnorm_init(cfg.d_model, dev)),
     }
+    if cfg.frontend != "none":
+        p["frontend_proj"] = dense_init((cfg.frontend_dim, cfg.d_model),
+                                        fan_in=cfg.frontend_dim, **kw)
     if cfg.meta_tokens > 0:
-        p["meta_tokens"] = 0.02 * torch.randn(
+        p["meta_tokens"] = (0.02 * torch.randn(
             cfg.meta_tokens, cfg.d_model, generator=gen, device=dev)
+        ).to(dtype)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((cfg.d_model, cfg.vocab), **kw)
     p["segments"] = [segment_init(spec, count, cfg.d_model, **kw)
                      for spec, count in cfg.plan]
-    return cast_params(p, dtype or cfg.dtype)
+    return cast_params(p, dtype)      # the undrawn biases and norms
 
 
 def param_count(params) -> int:
@@ -113,18 +128,22 @@ def _final_norm(cfg: ModelConfig, params, x):
 
 def forward_hidden(cfg: ModelConfig, params, batch: Dict,
                    mode: str = "train", caches: Optional[List] = None,
-                   ) -> Tuple[torch.Tensor, Optional[List], int]:
-    """Trunk forward. Returns (h, new_caches, prefix_len)."""
+                   ) -> Tuple[torch.Tensor, Optional[List], Dict, int]:
+    """Trunk forward. Returns (h, new_caches, metrics, prefix_len); the
+    metrics of the segments add up, as in the reference."""
     x, positions, prefix = assemble(cfg, params, batch)
     new_caches: List[Any] = []
+    metrics: Dict[str, torch.Tensor] = {}
     for i, (spec, _) in enumerate(cfg.plan):
-        x, c = segment_forward(params["segments"][i], x, spec, positions,
-                               mode,
-                               caches[i] if caches is not None else None,
-                               remat=cfg.remat)
+        x, c, m = segment_forward(params["segments"][i], x, spec, positions,
+                                  mode,
+                                  caches[i] if caches is not None else None,
+                                  remat=cfg.remat)
         new_caches.append(c)
+        for k, v in m.items():
+            metrics[k] = metrics[k] + v if k in metrics else v
     h = _final_norm(cfg, params, x)
-    return h, (new_caches if mode != "train" else None), prefix
+    return h, (new_caches if mode != "train" else None), metrics, prefix
 
 
 # --- head -----------------------------------------------------------------------
@@ -182,10 +201,13 @@ def chunked_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict,
             ) -> Tuple[torch.Tensor, Dict]:
-    """Mean masked CE. ``batch`` holds tokens and labels (B, S_text) and
-    optionally loss_mask (B, S_text); meta-token positions carry no
-    loss. Returns (loss, {"ce", "loss"})."""
-    h, _, prefix = forward_hidden(cfg, params, batch, "train")
+    """Mean masked CE plus the MoE layers' aux losses. ``batch`` holds the
+    model's inputs (tokens; frames for the audio frontend; patches and
+    positions3 for the VLM one), labels (B, S_text) and optionally
+    loss_mask (B, S_text); meta-token and patch positions carry no loss.
+    Returns (loss, {"ce", "loss"} and the layers' metrics, aux_loss and
+    dropped for an MoE model)."""
+    h, _, metrics, prefix = forward_hidden(cfg, params, batch, "train")
     if prefix:
         h = h[:, prefix:]
     labels = torch.as_tensor(batch["labels"], device=h.device)
@@ -196,7 +218,10 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
     tot, cnt = chunked_ce(h * _head_scale(cfg), _head_weight(cfg, params),
                           labels, mask, cfg.loss_chunk)
     ce = tot / cnt.clamp_min(1.0)
-    return ce, {"ce": ce, "loss": ce}
+    metrics["ce"] = ce
+    loss = ce + metrics["aux_loss"] if "aux_loss" in metrics else ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def logits_for(cfg: ModelConfig, params, h_last: torch.Tensor,
@@ -259,13 +284,14 @@ def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
             cache_dtype: torch.dtype = torch.bfloat16,
             ) -> Tuple[torch.Tensor, List, int]:
-    """Ingest the prompt. Returns (last-token logits, caches, next_index).
+    """Ingest the prompt (``batch`` as :func:`loss_fn` takes it, without
+    labels). Returns (last-token logits, caches, next_index).
 
     ``max_len`` sizes the global attention caches (meta tokens + prompt +
     generated positions); the attention caches take ``cache_dtype``, the
     SSM caches keep the reference's types (conv tails in the model dtype,
     states in float32)."""
-    h, pre, _ = forward_hidden(cfg, params, batch, "prefill")
+    h, pre, _, _ = forward_hidden(cfg, params, batch, "prefill")
     caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype)
                for c in seg] for (spec, _), seg in zip(cfg.plan, pre)]
     logits = logits_for(cfg, params, h[:, -1])
@@ -279,7 +305,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
     place."""
     h = embed_tokens(params, token, cfg.dtype)
     for i, (spec, _) in enumerate(cfg.plan):
-        h, caches[i] = segment_forward(params["segments"][i], h, spec, None,
-                                       "decode", caches[i], index)
+        h, caches[i], _ = segment_forward(params["segments"][i], h, spec,
+                                          None, "decode", caches[i], index)
     h = _final_norm(cfg, params, h)
     return logits_for(cfg, params, h[:, -1]), caches

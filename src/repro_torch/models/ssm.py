@@ -50,13 +50,15 @@ class SSMConfig:
 # --- init ---------------------------------------------------------------------
 
 def ssm_init(cfg: SSMConfig, *, generator: torch.Generator,
-             device: torch.device) -> Dict:
-    """float32 parameters of one mixer (the model casts matrices)."""
+             device: torch.device,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    """Parameters of one mixer: the drawn matrices in ``dtype``, the
+    vectors in float32."""
     d, di, gn, h, w = (cfg.d_model, cfg.d_inner,
                        cfg.n_groups * cfg.d_state, cfg.n_heads,
                        cfg.conv_width)
     f32 = torch.float32
-    kw = {"generator": generator, "device": device}
+    kw = {"generator": generator, "device": device, "dtype": dtype}
     # dt bias initialised so softplus(dt_bias) spans [dt_min, dt_max]
     u = torch.rand(h, generator=generator, device=device)
     dt = torch.exp(u * (np.log(cfg.dt_max) - np.log(cfg.dt_min))

@@ -7,13 +7,14 @@ leading axis and runs ``jax.lax.scan``; here a segment is a list of
 per-layer parameter dictionaries walked by a Python loop.
 
 Block kinds:
-  attn    pre-norm attention (+ optional dense FFN sub-block)
+  attn    pre-norm attention (+ optional dense FFN / MoE sub-block)
   ssm     pre-norm mamba2 mixer (mamba2: no FFN at all)
   hybrid  hymba: attention and SSM heads run IN PARALLEL on the same
           normed input; per-path output norms + learned gains, averaged.
 
-MoE comes with the slice of the models that use it (ROADMAP Queue 1) and
-raises until then.
+A layer returns its metrics beside its output (an MoE layer's aux_loss
+and dropped share; none for the others), and a segment reduces them over
+its layers as the reference's ``_agg_metrics`` does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .attention import (AttnConfig, attn_decode, attn_forward, attn_init,
                         attn_init_cache, check_config)
 from .layers import (ffn_apply, ffn_init, layernorm, layernorm_init, rmsnorm,
                      rmsnorm_init)
+from .moe import MoEConfig, moe_forward, moe_init
 from .ssm import SSMConfig, ssm_decode, ssm_forward, ssm_init, ssm_init_cache
 
 MODES = ("train", "prefill", "decode")
@@ -38,7 +40,7 @@ class LayerSpec:
     kind: str                        # "attn" | "ssm" | "hybrid"
     attn: Optional[AttnConfig] = None
     ssm: Optional[SSMConfig] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     d_ff: int = 0                    # dense FFN hidden (0 = no dense FFN)
     activation: str = "silu"
     gated: bool = True
@@ -63,9 +65,6 @@ def check_spec(spec: LayerSpec) -> None:
         check_config(spec.attn)
     if _has_ssm(spec) and spec.ssm is None:
         raise ValueError(f"layer kind {spec.kind!r} needs an SSMConfig")
-    if spec.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "Queue 1: the remaining model families)")
 
 
 def _norm_init(spec: LayerSpec, d: int, device: torch.device):
@@ -81,9 +80,10 @@ def _norm(spec: LayerSpec, p, x):
 # --- single layer ------------------------------------------------------------
 
 def layer_init(spec: LayerSpec, d_model: int, *,
-               generator: torch.Generator, device: torch.device) -> Dict:
+               generator: torch.Generator, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> Dict:
     check_spec(spec)
-    kw = {"generator": generator, "device": device}
+    kw = {"generator": generator, "device": device, "dtype": dtype}
     p: Dict[str, Any] = {"norm1": _norm_init(spec, d_model, device)}
     if _has_attn(spec):
         p["attn"] = attn_init(spec.attn, **kw)
@@ -97,7 +97,10 @@ def layer_init(spec: LayerSpec, d_model: int, *,
                                     device=device)
         p["gain_ssm"] = torch.ones(d_model, dtype=torch.float32,
                                    device=device)
-    if spec.d_ff > 0:
+    if spec.moe is not None:
+        p["norm2"] = _norm_init(spec, d_model, device)
+        p["moe"] = moe_init(spec.moe, **kw)
+    elif spec.d_ff > 0:
         p["norm2"] = _norm_init(spec, d_model, device)
         p["ffn"] = ffn_init(d_model, spec.d_ff, spec.gated, **kw)
     return p
@@ -138,18 +141,23 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
                   positions: Optional[torch.Tensor] = None,
                   mode: str = "train", cache: Optional[Dict] = None,
                   cache_index: Optional[int] = None,
-                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Pre-norm residual layer (mixer, then the dense FFN if any).
-    Returns (x, new_cache)."""
+                  ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
+    """Pre-norm residual layer (mixer, then the MoE or dense FFN if any).
+    Returns (x, new_cache, metrics)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+    metrics: Dict[str, torch.Tensor] = {}
     y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,
                           positions, mode, cache, cache_index)
     x = x + y
-    if "ffn" in params:
+    if "moe" in params:
+        h, metrics = moe_forward(params["moe"],
+                                 _norm(spec, params["norm2"], x), spec.moe)
+        x = x + h
+    elif "ffn" in params:
         x = x + ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),
                           spec.activation)
-    return x, new_cache
+    return x, new_cache, metrics
 
 
 def layer_init_cache(spec: LayerSpec, batch: int, max_len: int,
@@ -166,9 +174,10 @@ def layer_init_cache(spec: LayerSpec, batch: int, max_len: int,
 # --- segments ----------------------------------------------------------------
 
 def segment_init(spec: LayerSpec, count: int, d_model: int, *,
-                 generator: torch.Generator,
-                 device: torch.device) -> List[Dict]:
-    return [layer_init(spec, d_model, generator=generator, device=device)
+                 generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> List[Dict]:
+    return [layer_init(spec, d_model, generator=generator, device=device,
+                       dtype=dtype)
             for _ in range(count)]
 
 
@@ -176,16 +185,27 @@ REMAT = ("none", "full", "dots")
 
 
 def _train_layer(layer_p, x, spec, positions):
-    return layer_forward(layer_p, x, spec, positions, "train")[0]
+    x, _, metrics = layer_forward(layer_p, x, spec, positions, "train")
+    return x, metrics
+
+
+def _agg_metrics(ms: List[Dict]) -> Dict:
+    """Reduce per-layer metrics: losses sum, the dropped share
+    averages."""
+    if not ms or not ms[0]:
+        return {}
+    return {k: (torch.stack([m[k] for m in ms]).mean() if k == "dropped"
+                else torch.stack([m[k] for m in ms]).sum())
+            for k in ms[0]}
 
 
 def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
                     positions: Optional[torch.Tensor] = None,
                     mode: str = "train", caches: Optional[List] = None,
                     cache_index: Optional[int] = None, remat: str = "full",
-                    ) -> Tuple[torch.Tensor, Optional[List]]:
-    """Run a segment's layers in order. Returns (x, per-layer caches),
-    the caches None in train.
+                    ) -> Tuple[torch.Tensor, Optional[List], Dict]:
+    """Run a segment's layers in order. Returns (x, per-layer caches,
+    metrics reduced over the layers), the caches None in train.
 
     In train mode with ``remat == "full"`` and grad mode on, each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): backward keeps
@@ -199,17 +219,20 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
             raise NotImplementedError(
                 "remat='dots' (save the matmul outputs) is not ported yet "
                 "(ROADMAP Queue 1)")
+        ms = []
         for layer_p in params:
             if remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(_train_layer, layer_p, x, spec, positions,
-                               use_reentrant=False)
+                x, m = checkpoint(_train_layer, layer_p, x, spec, positions,
+                                  use_reentrant=False)
             else:
-                x = _train_layer(layer_p, x, spec, positions)
-        return x, None
-    new_caches = []
+                x, m = _train_layer(layer_p, x, spec, positions)
+            ms.append(m)
+        return x, None, _agg_metrics(ms)
+    new_caches, ms = [], []
     for i, layer_p in enumerate(params):
-        x, c = layer_forward(layer_p, x, spec, positions, mode,
-                             caches[i] if caches is not None else None,
-                             cache_index)
+        x, c, m = layer_forward(layer_p, x, spec, positions, mode,
+                                caches[i] if caches is not None else None,
+                                cache_index)
         new_caches.append(c)
-    return x, new_caches
+        ms.append(m)
+    return x, new_caches, _agg_metrics(ms)

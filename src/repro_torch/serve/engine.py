@@ -44,20 +44,26 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, batch: Dict) -> np.ndarray:
         """Greedy-decode max_new_tokens for each request in the batch;
-        ``batch["tokens"]`` is a (B, S) integer array or tensor."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        need = (self.cfg.meta_tokens + tokens.shape[1]
-                + self.scfg.max_new_tokens - 1)
+        ``batch["tokens"]`` is a (B, S) integer array or tensor, and a VLM
+        batch also brings ``patches`` (B, P, frontend_dim) and
+        ``positions3`` (B, 3, P + S)."""
+        inputs = {k: torch.as_tensor(batch[k], device=self.device)
+                  for k in ("tokens", "patches", "positions3") if k in batch}
+        prefix = self.cfg.meta_tokens
+        if "patches" in inputs:
+            prefix += inputs["patches"].shape[1]
+        tokens = inputs["tokens"]
+        need = prefix + tokens.shape[1] + self.scfg.max_new_tokens - 1
         if need > self.scfg.max_len:
             raise ValueError(
                 f"max_len {self.scfg.max_len} does not cover {need} "
-                f"positions ({self.cfg.meta_tokens} meta + "
+                f"positions ({prefix} meta and patch + "
                 f"{tokens.shape[1]} prompt + {self.scfg.max_new_tokens - 1}"
                 " decoded)")
         with self.telemetry.timed(0, KIND_PREFILL, 0):
             logits, caches, index = prefill(
-                self.cfg, self.params, {"tokens": tokens},
-                self.scfg.max_len, cache_dtype=self.scfg.cache_dtype)
+                self.cfg, self.params, inputs, self.scfg.max_len,
+                cache_dtype=self.scfg.cache_dtype)
             self._sync()
         tok = logits.argmax(-1)[:, None]
         out = [tok]

@@ -181,13 +181,14 @@ def test_attn_decode_before_the_ring_wraps_matches_reference():
         _close(y, y_r)
 
 
-@pytest.mark.parametrize("kind", ["mla", "mrope"])
+@pytest.mark.parametrize("kind", ["mla"])
 def test_unported_attention_forms_raise(kind):
+    """MLA waits for its own slice (M-RoPE is ported:
+    tests/test_torch_families.py)."""
     cfg = attention.AttnConfig(d_model=16, n_heads=2, n_kv_heads=2,
                                head_dim=8)
-    cfg = (dataclasses.replace(cfg, kv_lora_rank=4) if kind == "mla"
-           else dataclasses.replace(cfg, rope="mrope"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    cfg = dataclasses.replace(cfg, kv_lora_rank=4)
+    with pytest.raises(NotImplementedError, match="MLA slice"):
         attention.attn_init(cfg, generator=torch.Generator(),
                             device=torch.device("cpu"))
 
@@ -214,8 +215,3 @@ def test_apply_rope_matches_reference(fraction, dtype):
     _close(layers.rope_freqs(16, 10000.0, 8),
            ref_layers.rope_freqs(16, 10000.0, 8), 1e-6)
 
-
-def test_apply_mrope_waits_for_the_vlm_slice():
-    with pytest.raises(NotImplementedError, match="VLM"):
-        layers.apply_mrope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 3, 2),
-                           (1, 1, 2))

@@ -452,6 +452,9 @@ FLASH_SHAPES = [  # b, s, H, Hkv, hd, causal, window
     (1, 2176, 25, 5, 64, True, 0),    # one hymba global layer, batch 1
     (1, 300, 6, 3, 8, False, 0),      # hd 8 zero-filled to 16, 3 key tiles
     (2, 260, 4, 1, 16, True, 100),    # hd 16, window across tile edges
+    (1, 300, 32, 8, 80, True, 0),     # hd 80 zero-filled to 128, GQA 32/8
+    (1, 4200, 32, 8, 80, True, 4096),  # danube's window, passed by s
+    (2, 300, 16, 16, 80, False, 0),   # hubert's heads, non-causal
 ]
 
 
@@ -741,3 +744,60 @@ def test_train_step_on_card_against_the_plain_versions(cuda, monkeypatch):
         assert torch.isfinite(a).all()
         if a.dim() >= 2:
             assert _cosine(a, b_) >= 0.99
+
+
+def test_granite_moe_layer_on_card_against_the_plain_version(cuda,
+                                                             monkeypatch):
+    """One granite-moe-1b-a400m layer at full width in bfloat16 (16 heads
+    over 8 KV heads of 64, 32 experts of 512, top 8) on a prefill of 2 x
+    300 tokens: the attention launches the tensor-core kernel once, and
+    the layer agrees with the same layer on the plain attention. Top-k
+    routing is discrete, so the plain run takes the kernel run's expert
+    choices (each with its own routing weight): at most 2% of the tokens
+    would have chosen otherwise, the dropped shares are equal, and the
+    outputs agree within 2^-6 in norm (a rounding step of the attention,
+    carried through the bfloat16 expert products)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    from repro_torch.models import attention, moe
+    from repro_torch.models.transformer import layer_forward, layer_init
+    spec = get_config("granite-moe-1b-a400m").plan[0][0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = layer_init(spec, 1024, generator=gen, device=cuda,
+                   dtype=torch.bfloat16)
+    x = torch.randn(2, 300, 1024, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    real_route = moe._route
+    chosen, moved = [], []
+
+    def record(w, tokens, cfg):
+        out = real_route(w, tokens, cfg)
+        chosen.append(out[1])
+        return out
+
+    def replay(w, tokens, cfg):
+        _, own, aux = real_route(w, tokens, cfg)
+        top_i = chosen[0]
+        moved.append(int((own.sort(-1).values != top_i.sort(-1).values)
+                         .any(-1).sum()))
+        top_w = torch.softmax(tokens.float() @ w.float(), -1).gather(
+            -1, top_i)
+        return top_w / top_w.sum(-1, keepdim=True), top_i, aux
+
+    before = flash_attention.wgmma_launches
+    with torch.inference_mode():
+        monkeypatch.setattr(moe, "_route", record)
+        y_k, cache, m_k = layer_forward(p, x, spec, mode="prefill")
+        assert flash_attention.wgmma_launches == before + 1
+        monkeypatch.setattr(attention, "flash_attention",
+                            flash_attention_plain)
+        monkeypatch.setattr(moe, "_route", replay)
+        y_p, _, m_p = layer_forward(p, x, spec, mode="prefill")
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_k).all() and y_k.shape == x.shape
+    assert p["moe"]["router"].dtype == torch.float32
+    assert moved[0] <= 0.02 * 600
+    assert float(m_k["dropped"]) == float(m_p["dropped"])
+    err = (y_k.float() - y_p.float()).norm() / y_p.float().norm()
+    assert float(err) <= 2 ** -6

@@ -27,7 +27,6 @@ from repro.serve import ServeEngine as RefServeEngine
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.models import attention, layers, model, ssm
 from repro_torch.models.convert import from_reference
-from repro_torch.models.frontends import assemble
 from repro_torch.models.transformer import LayerSpec, layer_init
 from repro_torch.serve import ServeConfig, ServeEngine
 
@@ -401,6 +400,73 @@ def test_init_params_has_the_reference_structure():
     assert float(emb.abs().max()) <= 2.0
 
 
+# sha256 over (path, dtype, bytes) of every leaf of init_params(smoke
+# config, seed 0) on the CPU, taken with the initialiser that drew the
+# whole float32 tree before casting it; drawing and casting leaf by leaf
+# must not move a bit
+SMOKE_PARAM_DIGESTS = {
+    ("mamba2-370m", "float32"):
+        "f3f21f8435006a4e7f57b2a97d774bf18eee2a1b463248aa6a93d0a6bdcc0c49",
+    ("hymba-1.5b", "float32"):
+        "a446f4bfd558ea7583ebc3c9cd4f577d1f9abcfce5fe964f1cf0d263806d1220",
+    ("mamba2-370m", "bfloat16"):
+        "67e72331f107f202104adf29ab9e6f7901ece9b2ccf6d56ab7bbf111eeb0a283",
+    ("hymba-1.5b", "bfloat16"):
+        "baefe80ff6aae490fa251f59c56500850c52b8c9ae3189d69c78cc92cf1164a1",
+}
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch,dtype", list(SMOKE_PARAM_DIGESTS), ids=str)
+def test_init_params_draws_the_seed_parameters_bit_for_bit(arch, dtype):
+    """mamba2's and hymba's smoke parameters, in float32 and cast to
+    bfloat16, are the ones the draw-then-cast initialiser gave."""
+    import hashlib
+    params = model.init_params(get_smoke_config(arch), seed=0, device="cpu",
+                               dtype=getattr(torch, dtype))
+    h = hashlib.sha256()
+    for path, leaf in _leaves(params):
+        h.update(path.encode())
+        h.update(str(leaf.dtype).encode())
+        h.update(leaf.contiguous().view(torch.uint8).numpy().tobytes())
+    assert h.hexdigest() == SMOKE_PARAM_DIGESTS[(arch, dtype)]
+
+
+def test_init_params_casts_each_leaf_as_it_is_drawn(monkeypatch):
+    """No float32 matrix outlives its draw: every matrix the initialisers
+    return is already in the model dtype (the peak is the finished tree
+    plus one float32 leaf), and casting a float32 draw gives the same
+    tree."""
+    cfg = dataclasses.replace(get_smoke_config("hymba-1.5b"),
+                              dtype=torch.bfloat16)
+    seen = []
+    real = layers.truncated_normal
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out.dtype)
+        return out
+    monkeypatch.setattr(layers, "truncated_normal", spy)
+    got = model.init_params(cfg, seed=3, device="cpu")
+    assert seen and set(seen) == {torch.bfloat16}
+    monkeypatch.undo()
+    want = model.cast_params(model.init_params(cfg, seed=3, device="cpu",
+                                               dtype=torch.float32),
+                             torch.bfloat16)
+    for (p, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+
+
 def test_converter_refuses_a_tree_of_another_plan():
     cfg_ref = ref_get_smoke_config("mamba2-370m")
     cfg = get_smoke_config("mamba2-370m")
@@ -420,10 +486,14 @@ def _fields(obj, cls):
 
 def test_configs_match_reference():
     """Every field of the model config (but the dtype's type), of each
-    segment's LayerSpec and of its SSM and attention configs, and the
+    segment's LayerSpec and of its SSM, attention and MoE configs, and the
     segment counts, for the full and the smoke config of each ported
-    architecture."""
-    assert ARCH_NAMES == ["mamba2-370m", "hymba-1.5b"]
+    architecture: the reference's ten but deepseek-v2-236b, in its order."""
+    from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
+    from repro_torch.models import moe
+    assert ARCH_NAMES == [a for a in REF_ARCH_NAMES
+                          if a != "deepseek-v2-236b"]
+    assert len(ARCH_NAMES) == 9
     for arch, get, ref_get in (
             (arch, get, ref_get) for arch in ARCH_NAMES
             for get, ref_get in ((get_config, ref_get_config),
@@ -439,15 +509,15 @@ def test_configs_match_reference():
         for (spec, _), (spec_r, _) in zip(cfg.plan, ref.plan):
             for f in ("kind", "d_ff", "activation", "gated", "norm"):
                 assert getattr(spec, f) == getattr(spec_r, f)
-            assert spec.moe is None and spec_r.moe is None
-            assert _fields(spec.ssm, ssm.SSMConfig) == \
-                _fields(spec_r.ssm, ssm.SSMConfig)
-            assert (spec.attn is None) == (spec_r.attn is None)
-            if spec.attn is not None:
-                assert _fields(spec.attn, attention.AttnConfig) == \
-                    _fields(spec_r.attn, attention.AttnConfig)
+            for part, cls in (("ssm", ssm.SSMConfig),
+                              ("attn", attention.AttnConfig),
+                              ("moe", moe.MoEConfig)):
+                mine, theirs = getattr(spec, part), getattr(spec_r, part)
+                assert (mine is None) == (theirs is None)
+                if mine is not None:
+                    assert _fields(mine, cls) == _fields(theirs, cls)
         assert get_config(arch).dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="not ported yet"):
+    with pytest.raises(KeyError, match="MLA slice"):
         get_config("deepseek-v2-236b")
 
 
@@ -460,12 +530,6 @@ _SSM = ssm.SSMConfig(d_model=16, d_state=8, head_dim=8, chunk=8)
     (LayerSpec(kind="attn", attn=dataclasses.replace(_ATTN,
                                                      kv_lora_rank=4)),
      NotImplementedError),                                    # MLA
-    (LayerSpec(kind="hybrid", ssm=_SSM,
-               attn=dataclasses.replace(_ATTN, rope="mrope")),
-     NotImplementedError),                                    # M-RoPE
-    (LayerSpec(kind="ssm", ssm=_SSM, moe=object()), NotImplementedError),
-    (LayerSpec(kind="attn", attn=_ATTN, moe=object(), d_ff=32),
-     NotImplementedError),                                    # MoE
     (LayerSpec(kind="ssm"), ValueError),
     (LayerSpec(kind="hybrid", ssm=_SSM), ValueError),         # no attn
 ])
@@ -473,14 +537,6 @@ def test_unported_layer_kinds_raise(spec, err):
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(err):
         layer_init(spec, 16, generator=gen, device=CPU)
-
-
-@pytest.mark.parametrize("frontend", ["audio", "vlm"])
-def test_unported_frontends_raise(frontend):
-    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"),
-                              frontend=frontend)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        assemble(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("spec", [
@@ -498,8 +554,9 @@ def test_layers_that_now_build(spec):
                              else {"w_up", "w_down"})
     x = torch.randn(2, 5, 16, generator=gen)
     from repro_torch.models.transformer import layer_forward
-    y, cache = layer_forward(p, x, spec, mode="prefill")
+    y, cache, metrics = layer_forward(p, x, spec, mode="prefill")
     assert y.shape == x.shape and set(cache) == {spec.kind}
+    assert metrics == {}
 
 
 def test_serve_cli_on_the_host(capsys):

@@ -363,7 +363,7 @@ def test_kernel_calls_per_microbatch(arch, remat, per_layer, monkeypatch):
 def test_train_mode_builds_no_decode_cache():
     cfg = get_smoke_config("hymba-1.5b")
     params = model.init_params(cfg, device="cpu")
-    h, caches, _ = model.forward_hidden(cfg, params, _tt(_batch(
+    h, caches, _, _ = model.forward_hidden(cfg, params, _tt(_batch(
         "hymba-1.5b")), "train")
     assert caches is None
     from repro_torch.models import attention, ssm
