@@ -29,8 +29,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              non-causal, H / Hkv = 1, 4, 5 and 8, hd 8, 32, 64, 80 and
              128 (hd 80, zero-filled to the hd-128 instantiation, causal
              with 32 query over 8 KV heads, with window 4,096 passed by S
-             = 4,200, and non-causal 16 / 16), and S = 37 with window 8,
-             whose padded query rows see no key, in bfloat16 and float32;
+             = 4,200, and non-causal 16 / 16), S = 37 with window 8,
+             whose padded query rows see no key, and MLA's split head
+             dims: q and k 192 with v 128 (the (192, 128) instantiation)
+             causal at S = 300 and S = 130 (a partial last tile) and
+             non-causal, q and k 160 with v 96 (zero-filled to it) over
+             grouped KV heads with a window, and the smoke deepseek's 16 /
+             8 (zero-filled to (16, 16)), in bfloat16 and float32;
              binstats_flat with one segment holding every row, with
              50,000 mostly empty segments and with one segment far
              longer than a lane group's stride, and
@@ -171,35 +176,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-14. families — the seven families without an SSM layer at full width
-             and depth in bfloat16, random weights drawn on the card from
+14. families — the eight families without an SSM layer at full width and (but
+             deepseek) depth in bfloat16, random weights drawn on the card from
              --seed, one model on the card at a time, each parameter count
-             equal to the reference's: stablelm-3b (32 layers, hd 80,
-             partial RoPE, qkv biases), h2o-danube-1.8b (24 layers, hd 80,
-             window 4,096), nemotron-4-15b (32 layers, squared ReLU,
-             untied head), starcoder2-15b (40 layers, layernorm, GELU),
-             granite-moe-1b-a400m (24 MoE layers, 32 experts, top 8) and
-             qwen2-vl-7b (28 layers, M-RoPE; a 16 x 16 grid of random
-             patch embeddings before the text, ids (0, row, col) for a
-             patch and (i, i, i) for the text token at position i) served
-             through ``ServeEngine.generate``: 4 requests of 2,048 prompt
-             positions (qwen2-vl: 256 patches + 1,792 text tokens), 16
-             new tokens each; then hubert-xlarge's encoder forward (48
-             non-causal layers, hd 80) through ``loss_fn`` under inference
+             equal to the reference's: stablelm-3b (32 layers, hd 80, partial
+             RoPE, qkv biases), h2o-danube-1.8b (24 layers, hd 80, window
+             4,096), nemotron-4-15b (32 layers, squared ReLU, untied head),
+             starcoder2-15b (40 layers, layernorm, GELU), granite-moe-1b-a400m
+             (24 MoE layers, 32 experts, top 8) and qwen2-vl-7b (28 layers,
+             M-RoPE; a 16 x 16 grid of random patch embeddings before the text,
+             ids (0, row, col) for a patch and (i, i, i) for the text token at
+             position i) and deepseek-v2-236b (MLA: 128 heads, qk 128 nope + 64
+             rope, v 128, latents of 1,536 and 512; its dense first layer and 4
+             of its 59 MoE layers of 160 experts top 6 with 2 shared, depth cut
+             to fit the card: 16,750,740,480 parameters, the reference's count
+             for that cut) served through ``ServeEngine.generate``: 4 requests
+             of 2,048 prompt positions (qwen2-vl: 256 patches + 1,792 text
+             tokens), 16 new tokens each; then hubert-xlarge's encoder forward
+             (48 non-causal layers, hd 80) through ``loss_fn`` under inference
              mode on the data pipeline's 4 x 4,096 frames. The counters are
              zeroed just before and read just after: flash_attention must
-             launch once an attention layer, all on the tensor-core kernel
-             (32, 24, 32, 40, 24, 28, 48); the kernel is held against its
-             plain version on the path's own first-layer inputs; the
-             last-token logits against a plain-version prefill and the
-             first tokens as in the serve phase (granite's plain prefill
-             takes the kernel run's expert choices, and the free-running
-             gap, the dropped share and the tokens whose top-k differs are
-             printed beside); danube also decodes past its window (batch 1,
-             a prompt of 4,200); hubert's loss within 0.05 of the plain
-             version's. Peak memory, prefill ms, the decode median and one
-             profile of prefill and of 8 decode steps (hubert: of the
-             forward) are printed;
+             launch once an attention layer, all on the tensor-core kernel (32,
+             24, 32, 40, 24, 28, 5, 48), deepseek's all in the (192, 128)
+             instantiation; the kernel is held against its plain version on the
+             path's own first-layer inputs; the last-token logits against a
+             plain-version prefill and the first tokens as in the serve phase
+             (granite's plain prefill takes the kernel run's expert choices, as
+             deepseek's does, and the free-running gap, the dropped share and
+             the tokens whose top-k differs are printed beside); danube also
+             decodes past its window (batch 1, a prompt of 4,200); hubert's
+             loss within 0.05 of the plain version's. Peak memory, prefill ms,
+             the decode median and one profile of prefill and of 8 decode steps
+             (hubert: of the forward) are printed, and the peak through the
+             plain prefill;
 15. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -287,7 +296,8 @@ serving logits, computed in bfloat16 through every layer of the model
 (24 to 48), max |kernel - plain| <= 0.5 and mean <= 0.05, and each
 request's first token equal unless the plain logits' top-2 gap is below
 0.5; the same logits bound for the decode continuations (hymba, danube);
-for granite-moe the plain prefill takes the kernel run's expert choices
+for granite-moe and deepseek the plain prefill takes the kernel run's
+expert choices
 (top-k routing is discrete: a rounding step moves tokens near a tie to
 other experts, and the moved tokens compound over the layers); hubert's
 loss within 0.05 of the plain version's; rolling_stats, both
@@ -352,15 +362,23 @@ SERVE_SPECS = {
                           prompt=2048, new=16),
     "serve-qwen2-vl": dict(arch="qwen2-vl-7b", batch=4, prompt=1792,
                            new=16, grid=16),    # 256 patches + 1792 text
+    # DEPTH_CUTS; every attention call in the split-dim instantiation
+    "serve-deepseek": dict(arch="deepseek-v2-236b", batch=4, prompt=2048,
+                           new=16, flash_instance=(192, 128)),
 }
+# the layers of each segment of a model served with its depth cut:
+# deepseek-v2-236b's dense first layer and 4 of its 59 MoE layers (7.4 GiB
+# each in bfloat16) leave room beside its weights for the plain version's
+# dense (4, 128, 2048, 2048) float32 softmax
+DEPTH_CUTS = {"deepseek-v2-236b": (1, 4)}
 # hubert-xlarge's encoder forward (loss_fn) on the pipeline's frames
 ENCODE_SPEC = dict(arch="hubert-xlarge", batch=4, frames=4096)
 # the phases of the families without an SSM layer, in their order
 FAMILY_PHASES = ("serve-stablelm", "serve-danube", "serve-nemotron",
                  "serve-starcoder2", "serve-granite", "serve-qwen2-vl",
-                 "encode-hubert")
-# the reference's counts (jax.eval_shape of its init_params), which
-# tests/test_torch_families.py checks
+                 "serve-deepseek", "encode-hubert")
+# the reference's counts (jax.eval_shape of its init_params, on the config
+# cut as DEPTH_CUTS says), which tests/test_torch_families.py checks
 PARAM_COUNTS = {
     "mamba2-370m": 368_338_432,
     "hymba-1.5b": 1_590_080_320,
@@ -371,24 +389,36 @@ PARAM_COUNTS = {
     "granite-moe-1b-a400m": 1_334_628_352,
     "qwen2-vl-7b": 7_620_204_032,
     "hubert-xlarge": 945_912_320,
+    "deepseek-v2-236b": 16_750_740_480,
 }
 # b, s, H, P, G, N, chunk
 SSD_EDGE_SHAPES = ((2, 37, 4, 8, 2, 16, 8), (1, 64, 2, 16, 1, 32, 16),
                    (2, 16, 8, 8, 8, 8, 16), (1, 300, 32, 64, 1, 128, 128),
                    (1, 256, 4, 64, 1, 16, 128))
-# b, s, H, Hkv, hd, causal, window
-FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, True, 0), (2, 37, 5, 1, 64, True, 8),
-                     (1, 300, 10, 2, 64, True, 16),
-                     (1, 300, 8, 1, 128, False, 0),
-                     (1, 300, 4, 2, 32, True, 500),
-                     (1, 130, 4, 4, 16, True, 1),
-                     (1, 1100, 5, 5, 64, True, 1024),
+# b, s, H, Hkv, hd, hdv, causal, window
+FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, 8, True, 0),
+                     (2, 37, 5, 1, 64, 64, True, 8),
+                     (1, 300, 10, 2, 64, 64, True, 16),
+                     (1, 300, 8, 1, 128, 128, False, 0),
+                     (1, 300, 4, 2, 32, 32, True, 500),
+                     (1, 130, 4, 4, 16, 16, True, 1),
+                     (1, 1100, 5, 5, 64, 64, True, 1024),
                      # hd 80 (stablelm, danube, hubert) in the hd-128
                      # instantiation: causal GQA 32/8, danube's window
                      # 4096 passed by S, non-causal 16/16
-                     (1, 300, 32, 8, 80, True, 0),
-                     (1, 4200, 32, 8, 80, True, 4096),
-                     (2, 300, 16, 16, 80, False, 0))
+                     (1, 300, 32, 8, 80, 80, True, 0),
+                     (1, 4200, 32, 8, 80, 80, True, 4096),
+                     (2, 300, 16, 16, 80, 80, False, 0),
+                     # MLA's split head dims in the (192, 128)
+                     # instantiation: deepseek's qk 192 / v 128 causal,
+                     # with a partial last tile, non-causal; 160 / 96
+                     # zero-filled to it over grouped heads with a window;
+                     # the smoke deepseek's 16 / 8 zero-filled to (16, 16)
+                     (1, 300, 8, 8, 192, 128, True, 0),
+                     (1, 130, 8, 8, 192, 128, True, 0),
+                     (1, 300, 4, 4, 192, 128, False, 0),
+                     (1, 200, 4, 2, 160, 96, True, 64),
+                     (2, 37, 4, 4, 16, 8, True, 0))
 # n, window
 ROLLING_EDGE_SHAPES = ((1, 1), (5, 16), (1000, 100), (1024, 1024),
                        (2049, 64), (3000, 1500), (100, 1))
@@ -556,10 +586,14 @@ def phase_card():
 # iqr, rolling and CUDA-core SSD kernels
 PTXAS_SOURCES = ("flashattn", "ssd", "binstats", "histbin", "iqr", "rolling")
 TENSOR_CORE = ("flash_fwd_wgmma", "ssd_wgmma")
-PTXAS_KERNELS = (("flash_fwd_wgmmaILi16E", "flash_fwd_wgmma<16>"),
-                 ("flash_fwd_wgmmaILi32E", "flash_fwd_wgmma<32>"),
-                 ("flash_fwd_wgmmaILi64E", "flash_fwd_wgmma<64>"),
-                 ("flash_fwd_wgmmaILi128E", "flash_fwd_wgmma<128>"),
+PTXAS_KERNELS = (("flash_fwd_wgmmaILi16ELi16E", "flash_fwd_wgmma<16, 16>"),
+                 ("flash_fwd_wgmmaILi32ELi32E", "flash_fwd_wgmma<32, 32>"),
+                 ("flash_fwd_wgmmaILi64ELi64E", "flash_fwd_wgmma<64, 64>"),
+                 ("flash_fwd_wgmmaILi128ELi128E",
+                  "flash_fwd_wgmma<128, 128>"),
+                 ("flash_fwd_wgmmaILi192ELi128E",
+                  "flash_fwd_wgmma<192, 128>"),
+                 ("flash_fwd_f32ILi192ELi128E", "flash_fwd_f32<192, 128>"),
                  ("ssd_wgmmaILi16E", "ssd_wgmma<16>"),
                  ("ssd_wgmmaILi32E", "ssd_wgmma<32>"),
                  ("ssd_wgmmaILi64E", "ssd_wgmma<64>"),
@@ -776,11 +810,11 @@ def phase_kernels(dev):
     if sd.ssd_fused.wgmma_launches - tc_before != tc_want:
         raise AssertionError(f"{sd.ssd_fused.wgmma_launches - tc_before} "
                              f"tensor-core ssd launches, expected {tc_want}")
-    for b, s, H, Hkv, hd, causal, window in FLASH_EDGE_SHAPES:
+    for b, s, H, Hkv, hd, hdv, causal, window in FLASH_EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd))
+            q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d))
                                         .astype(np.float32)).to(dev, dtype)
-                       for n in (H, Hkv, Hkv))
+                       for n, d in ((H, hd), (Hkv, hd), (Hkv, hdv)))
             kw = dict(causal=causal, window=window)
             note("flash_attention", flash_err(
                 fa.flash_attention(q, k, v, **kw),
@@ -993,11 +1027,14 @@ def _launch_counters():
 
 def _zero(counters):
     """Set every launch count to 0, the tensor-core counts of
-    flash_attention and ssd_fused too."""
+    flash_attention and ssd_fused and flash_attention's counts by
+    instantiation too."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "wgmma_launches"):
             fn.wgmma_launches = 0
+        if hasattr(fn, "instances"):
+            fn.instances.clear()
 
 
 def _assert_torch_close(agg, anomalies, ser_agg, ser_anomalies):
@@ -1220,20 +1257,32 @@ def _head(batch, n):
                 if k == "positions3" else v) for k, v in batch.items()}
 
 
+def cut_depth(cfg, counts):
+    """``cfg`` with segment i cut to ``counts[i]`` layers (``counts`` None:
+    ``cfg`` as it is)."""
+    import dataclasses
+    if counts is None:
+        return cfg
+    return dataclasses.replace(cfg, plan=tuple(
+        (spec, n) for (spec, _), n in zip(cfg.plan, counts, strict=True)))
+
+
 def _init_model(arch, args, dev, tag):
-    """``arch``'s full config and its random bfloat16 parameters drawn on
-    the card, their count held to the reference's."""
+    """``arch``'s full config, its depth cut as DEPTH_CUTS says, and its
+    random bfloat16 parameters drawn on the card, their count held to the
+    reference's."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model
 
-    cfg = get_config(arch)
+    cfg = cut_depth(get_config(arch), DEPTH_CUTS.get(arch))
     t0 = time.perf_counter()
     params = model.init_params(cfg, seed=args.seed, device=dev)
     torch.cuda.synchronize()
     n_params = model.param_count(params)
-    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers "
+        f"{[n for _, n in cfg.plan]}, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab}, {cfg.meta_tokens} meta tokens, {n_params} "
         f"parameters in {cfg.dtype}, drawn on the card in "
         f"{time.perf_counter() - t0:.2f}s; "
@@ -1326,6 +1375,7 @@ def phase_serve(args, dev, tag):
         launches = {k: fn.launches for k, fn in counters.items()}
         tc = {k: counters[k].wgmma_launches
               for k in ("flash_attention", "ssd_fused")}
+        insts = dict(counters["flash_attention"].instances)
     finally:
         cap.close()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1335,13 +1385,21 @@ def phase_serve(args, dev, tag):
     dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
               if e.kind == KIND_DECODE]
     _check_launches(cfg, launches, tc, tag)
+    if "flash_instance" in spec:
+        want = {spec["flash_instance"]: launches["flash_attention"]}
+        log(f"{tag}: flash_attention launches by instantiation {insts}")
+        if insts != want:
+            raise AssertionError(f"flash_attention ran in {insts}, "
+                                 f"expected {want}")
     if tokens.shape != (b, n_new) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.shape}")
     errs = _captured_errs(cap.calls, tag)
 
     batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
-    has_moe = any(sp.moe is not None for sp, _ in cfg.plan)
+    moe_cfg = next((sp.moe for sp, _ in cfg.plan if sp.moe is not None),
+                   None)
+    torch.cuda.reset_peak_memory_stats(dev)
     routing = _Routing()
     with torch.inference_mode():
         with routing.record():
@@ -1350,7 +1408,7 @@ def phase_serve(args, dev, tag):
         with _Plain():
             lg_p, _, _ = model.prefill(cfg, params, batch, max_len,
                                        cfg.dtype)
-        if has_moe:
+        if moe_cfg is not None:
             # the plain prefill under the kernel run's expert choices
             # (``_Routing``): the gate below holds it to the kernel's; the
             # free-running gap and the moved tokens are printed beside
@@ -1365,9 +1423,12 @@ def phase_serve(args, dev, tag):
                 f"last-token logits |kernel - plain| max {free[0]:.6f}, "
                 f"mean {free[1]:.6f}; by layer, the tokens (of "
                 f"{b * (prefix + n_prompt)}) whose own top-"
-                f"{cfg.plan[0][0].moe.top_k} experts in the plain prefill "
+                f"{moe_cfg.top_k} experts in the plain prefill "
                 f"differ from the kernel run's choice: {routing.flips}")
             del m
+    log(f"{tag}: peak memory through the prefills with the kernels and "
+        f"the plain versions "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
     with _Plain():
         tokens_p = ServeEngine(cfg, params, scfg, device=dev).generate(host)
     if not (bool(torch.isfinite(lg_k).all()) and
@@ -3220,6 +3281,9 @@ def time_row(call, plain, library, out, inputs, ops, own,
         "device_ms_again": dev_ms[1], "other_device_ms": other_ms[0],
         "other_device_ms_again": other_ms[1], "own_launches": seen,
         "kernels_per_call": max(seen) / calls,
+        # the first reading that saw every call's own kernel
+        "device_ms_seen_all": next(
+            (d for d, k in zip(dev_ms, seen) if k >= calls), None),
         "other_device_ops": others, "plain_ms": _time_ms(plain),
         "library_ms": lib[0], "library_ms_again": lib[1],
         "bound_ms": max(t_bytes, t_ops),
@@ -3393,22 +3457,27 @@ def _ssd_rows(rows, shapes, names):
 
 def _flash_rows(rows, shapes, names):
     """``time_row`` of flash_attention at each path call in ``names``.
-    Bound: q, k, v read and o written once, or 4 hd FLOP per visible
-    (query, key) pair on the tensor cores of the inputs' type; yardstick:
-    one SDPA call with grouped KV heads (an explicit boolean mask for the
-    window)."""
+    Bound: q, k, v read and o written once, or 2 (hd + hdv) FLOP per
+    visible (query, key) pair on the tensor cores of the inputs' type;
+    yardstick: one SDPA call with grouped KV heads (an explicit boolean
+    mask for the window), or none where SDPA refuses the inputs (its
+    error is logged)."""
     import torch
     fn = _launch_counters()["flash_attention"]
     for row in names:
         (q, k, v), c_kw = shapes[row]
         b, s, H, hd = q.shape
         causal, window = c_kw.get("causal", True), c_kw.get("window", 0)
-        flops = b * H * _visible_pairs(s, causal, window) * 4 * hd
+        flops = b * H * _visible_pairs(s, causal, window) * 2 * (
+            hd + v.shape[3])
         out = fn(q, k, v, **c_kw)
-        lib = _sdpa(q, k, v, causal, window)
+        lib = _sdpa(q, k, v, causal, window, c_kw.get("scale"))
         plain_out = _plain("flash_attention")(q, k, v, **c_kw)
-        lib_err = float((lib().transpose(1, 2).float()
-                         - plain_out.float()).abs().max())
+        try:
+            lib_err = float((lib().transpose(1, 2).float()
+                             - plain_out.float()).abs().max())
+        except RuntimeError as e:
+            lib, lib_err = None, f"SDPA refused the inputs: {e}"
         del plain_out
         log(f"times: {row}: SDPA yardstick vs plain, largest |diff| "
             f"{lib_err}")
@@ -3456,7 +3525,7 @@ def _visible_pairs(s, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _sdpa(q, k, v, causal, window):
+def _sdpa(q, k, v, causal, window, scale=None):
     """One torch.nn.functional.scaled_dot_product_attention call on the
     same inputs (a timing yardstick only; the port never calls it)."""
     import torch
@@ -3464,12 +3533,12 @@ def _sdpa(q, k, v, causal, window):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window <= 0:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
     i = torch.arange(q.shape[1], device=q.device)[:, None]
     j = torch.arange(q.shape[1], device=q.device)[None, :]
     mask = (i - j < window) & ((i >= j) if causal else True)
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
 SOURCES = {
@@ -3572,7 +3641,7 @@ def main() -> int:
             raise AssertionError(f"{lib}'s SASS lacks {counts}: its kernel "
                                  "does not run on wgmma with TMA loads")
     wgmma = {k: v for k, v in regs.items() if k.startswith(TENSOR_CORE)}
-    if len(wgmma) != 8 or any(sp for _, sp in wgmma.values()):
+    if len(wgmma) != 9 or any(sp for _, sp in wgmma.values()):
         raise AssertionError(f"a tensor-core kernel spills: {wgmma}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3716,7 +3785,9 @@ def main() -> int:
             f"{t['device_ms']:.4f}, again {t['device_ms_again']:.4f}, "
             f"other device work {t['other_device_ms']:.4f}, again "
             f"{t['other_device_ms_again']:.4f}, own launches seen "
-            f"{t['own_launches']} in 20 calls, other device ops "
+            f"{t['own_launches']} in 20 calls (own kernels in the first "
+            f"reading that saw all: {t['device_ms_seen_all']}), other "
+            f"device ops "
             f"{t['other_device_ops']}, own kernels a call "
             f"{t['kernels_per_call']}; plain {t['plain_ms']:.4f}, bound "
             f"{t['bound_ms']:.4f} by "

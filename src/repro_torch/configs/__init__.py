@@ -1,8 +1,5 @@
-"""Architecture registry of the port, selectable by ``--arch <id>``.
-
-It lists the architectures the port can build, in the reference's order;
-deepseek-v2-236b comes with the MLA slice (ROADMAP Queue 1) and raises
-``KeyError`` until then."""
+"""Architecture registry of the port, selectable by ``--arch <id>``: the
+reference's ten architectures, in its order."""
 
 from __future__ import annotations
 
@@ -19,18 +16,15 @@ _MODULES: Dict[str, str] = {
     "starcoder2-15b": "starcoder2_15b",
     "hubert-xlarge": "hubert_xlarge",
     "mamba2-370m": "mamba2_370m",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "qwen2-vl-7b": "qwen2_vl_7b",
 }
-_LATER = {"deepseek-v2-236b": "the MLA slice (ROADMAP Queue 1)"}
 
 ARCH_NAMES: List[str] = list(_MODULES)
 
 
 def _mod(name: str):
-    if name in _LATER:
-        raise KeyError(f"arch {name!r} is not ported yet: it comes with "
-                       f"{_LATER[name]}; the port builds {ARCH_NAMES}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port builds "
                        f"{ARCH_NAMES}")

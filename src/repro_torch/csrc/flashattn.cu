@@ -13,12 +13,14 @@
 // visit bound of chunked_attention, which halves the work at 2,176 positions
 // and window 1024.
 //
-// q, k and v are read in the model's layout (B, S, heads, hd) through their
-// strides; query head h reads KV head h / (H / Hkv). Key j is visible to
+// q and k are read in the model's layout (B, S, heads, hd), v as (B, S, Hkv,
+// hdv) with hdv <= hd (MLA's split head dims: deepseek-v2 attends with
+// qk 192 = 128 nope + 64 rope and v 128), all through their strides; query
+// head h reads KV head h / (H / Hkv). Key j is visible to
 // query i iff j < S, i >= j when causal, and i - j < window when window > 0.
 // A row that sees no key gives 0: the sum of its weights is divided by
 // max(l, 1e-20). The output is written once, normalised, in q's type, to a
-// contiguous (B, S, H, hd) tensor; padded query rows write nothing.
+// contiguous (B, S, H, hdv) tensor; padded query rows write nothing.
 //
 // Two kernels, chosen by the inputs' type:
 //
@@ -43,7 +45,7 @@
 //     threads of its row by shuffles; scale * log2(e) folds into one FFMA
 //     before ex2; alpha = p = 0 while a row's max is -inf); only tiles that
 //     cross the causal diagonal, the window's lower edge or S are masked;
-//     then O += P V with wgmma m64n{hd}k16, P taken from the S accumulators
+//     then O += P V with wgmma m64n{hdv}k16, P taken from the S accumulators
 //     as the register A operand and V as an MN-major B operand in shared
 //     memory. P goes through no shared memory;
 //   - the overlap: a tile's softmax runs while the tensor cores still do
@@ -60,8 +62,16 @@
 // rows whose output is a small difference of large values
 // (tests/test_torch_flash_tiles.py shows both). The row sums l take the
 // unsplit fp32 p.
-// Instantiated for hd 16, 32, 64 and 128; a smaller hd (a multiple of 8)
-// runs in the next instantiation with zero-filled columns.
+// Each instantiation has its own (HD, HDV): Q and K tiles of HD columns,
+// V and O of HDV, each with its own row width, swizzle and byte count (the
+// K and V barriers expect their own). Instantiated for (16, 16), (32, 32),
+// (64, 64), (128, 128) and (192, 128); a call runs in the smallest with
+// HD >= hd and HDV >= hdv, with TMA's zero fill in the columns past hd and
+// hdv. At (192, 128) S = Q K^T takes 12 k-steps over three 128-byte column
+// chunks where hd 128 takes 8 over two; Q stays in shared memory, so the
+// wider QK costs steps, not registers, and the consumers keep the hd-128
+// accumulators (O: 64 floats a thread). Shared memory: Q 48 KiB and three
+// stages of 24 KiB K + 16 KiB V, 169 KiB.
 //
 // flash_fwd_f32 (float32, the reference-precision path): one block per
 // (batch, query head, 64-row query tile), scalar fp32 FMAs on the CUDA
@@ -78,12 +88,18 @@
 // the tensor cores (the second P V product) and one exp2 per visited pair on
 // the multi-function units, whose rate (16 a clock per SM) matches the
 // tensor cores' at hd 64.
+// At deepseek-v2's MLA prefill (B = 4, S = 2,048, H = Hkv = 128, hd 192,
+// hdv 128, bf16, causal) a call moves 1.342 GB (0.401 ms) and does 2 (hd +
+// hdv) = 640 FLOP per visible pair, 6.875e11 FLOP (0.695 ms): bound by
+// operations.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -128,25 +144,26 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* base,
   }
 }
 
-template <int HD>
+// Q and K tiles of HD columns (row stride HD + 4), V of HDV, P of BK
+template <int HD, int HDV>
 constexpr long smem_floats() {
-  return 2L * BQ * (HD + 4) + (long)BK * HD + (long)BQ * LDP;
+  return 2L * BQ * (HD + 4) + (long)BK * HDV + (long)BQ * LDP;
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int s,
-                  int n_heads, int group, int hd, long qsb, long qss,
+                  int n_heads, int group, int hd, int hdv, long qsb, long qss,
                   long qsh, long ksb, long kss, long ksh, long vsb, long vss,
                   long vsh, float scale, int causal, int window) {
   constexpr int LDQ = HD + 4;       // row stride of the Q and K tiles
-  constexpr int CW = HD / 16;       // accumulator columns per thread
+  constexpr int CW = HDV / 16;      // accumulator columns per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + BQ * LDQ;
   float* vs = ks + BK * LDQ;
-  float* ps = vs + BK * HD;
+  float* ps = vs + BK * HDV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -177,7 +194,7 @@ __global__ void __launch_bounds__(THREADS)
     const int k0 = kt * BK;
     __syncthreads();              // the last tile's readers are done
     load_tile<HD>(ks, LDQ, kb, kss, k0, s, hd, tid);
-    load_tile<HD>(vs, HD, vb, vss, k0, s, hd, tid);
+    load_tile<HDV>(vs, HDV, vb, vss, k0, s, hdv, tid);
     __syncthreads();
 
     float sc[4][4];
@@ -255,7 +272,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         float vv[CW];
 #pragma unroll
-        for (int j = 0; j < CW; ++j) vv[j] = vs[(kk + e) * HD + tx + 16 * j];
+        for (int j = 0; j < CW; ++j) vv[j] = vs[(kk + e) * HDV + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pe = e == 0 ? p4[i].x
@@ -274,26 +291,29 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;       // padded query rows write nothing
     const float den = fmaxf(l_run[i], 1e-20f);
-    float* orow = o + (((long)b * s + row) * n_heads + h) * hd;
+    float* orow = o + (((long)b * s + row) * n_heads + h) * hdv;
 #pragma unroll
     for (int j = 0; j < CW; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) orow[d] = acc[i][j] / den;
+      if (d < hdv) orow[d] = acc[i][j] / den;
     }
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const float* q, const float* k, const float* v, float* o, int b,
-           int s, int h, int hkv, int hd, const long* st, float scale,
-           int causal, int window, cudaStream_t stream) {
-  const int smem = (int)(smem_floats<HD>() * sizeof(float));
+           int s, int h, int hkv, int hd, int hdv, const long* st,
+           float scale, int causal, int window, cudaStream_t stream) {
+  const int smem = (int)(smem_floats<HD, HDV>() * sizeof(float));
+  static_assert(smem_floats<HD, HDV>() * sizeof(float) <= 227 * 1024,
+                "shared memory");
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((s + BQ - 1) / BQ, h, b);
-  flash_fwd_f32<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, s, h, h / hkv, hd, st[0], st[1], st[2], st[3], st[4],
+  flash_fwd_f32<HD, HDV><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, s, h, h / hkv, hd, hdv, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], scale, causal, window);
   return (int)cudaGetLastError();
 }
@@ -311,24 +331,40 @@ constexpr int CONSUMERS = 2 * 128;      // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32; // and one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory geometry of one instantiation. A tile of rows x HD bf16 is
-// stored as NCH column chunks of ROWB bytes a row (the swizzle's width:
-// 128 bytes, or the whole row when it is shorter), each chunk rows x ROWB
-// bytes, as TMA writes one box.
-template <int HD>
-struct Geo {
-  static constexpr int ROWB = HD * 2 < 128 ? HD * 2 : 128;
+// The shared-memory layout of a tile of rows x W bf16 columns: NCH column
+// chunks of ROWB bytes a row (the swizzle's width: 128 bytes, or the whole
+// row when it is shorter), each chunk rows x ROWB bytes, as TMA writes one
+// box.
+template <int W>
+struct Cols {
+  static constexpr int ROWB = W * 2 < 128 ? W * 2 : 128;
   static constexpr int CHUNK = ROWB / 2;          // columns per chunk
-  static constexpr int NCH = HD / CHUNK;
-  static constexpr int STAGES = HD == 128 ? 3 : 4;
-  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
-  static constexpr uint32_t KV_BYTES = BK * HD * 2;   // one K or V tile
-  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
-  // + 1024: the dynamic base is aligned up to the 1024-byte swizzle atom
-  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int NCH = W / CHUNK;
   // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
   static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "hd");
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  static_assert(W == 16 || W == 32 || W == 64 || W % 64 == 0, "width");
+};
+
+// Shared-memory geometry of one instantiation: Q and K tiles of HD
+// columns, V tiles (and the O accumulators) of HDV.
+template <int HD, int HDV>
+struct Geo {
+  using QK = Cols<HD>;
+  using V = Cols<HDV>;
+  static constexpr int STAGES = HD >= 128 ? 3 : 4;
+  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
+  static constexpr uint32_t K_BYTES = BK * HD * 2;    // one K tile
+  static constexpr uint32_t V_BYTES = BK * HDV * 2;   // one V tile
+  static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
+  // + 1024: the dynamic base is aligned up to the 1024-byte swizzle atom
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES;
+  static_assert(HDV <= HD && HDV <= 128, "wgmma_pv takes n <= 128");
+  static_assert(K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0,
+                "each tile starts on a swizzle atom");
   static_assert(SMEM <= 227 * 1024, "shared memory");
 };
 
@@ -392,13 +428,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout type.
-template <int HD>
+// byte offsets (16-byte units) and the swizzle layout type of a tile laid
+// out as C (a Cols).
+template <class C>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (Geo<HD>::LAYOUT << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (C::LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -441,6 +478,59 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same product with both descriptors built inside its PTX from the
+// 32-bit shared addresses a + AOFF and b + BOFF (the low word ((addr &
+// 0x3FFFF) >> 4) | LO, the high word HI, as desc builds them), so that no
+// descriptor is a value the compiler can hoist: the HD > 128 path of
+// S = Q K^T (issue_s says why).
+template <uint32_t AOFF, uint32_t BOFF, uint32_t LO, uint32_t HI>
+__device__ __forceinline__ void wgmma_ss_n64_at(float* d, uint32_t a,
+                                                uint32_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 la, lb, hi;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "add.u32 la, %32, %35;\nand.b32 la, la, 262143;\n"
+      "shr.u32 la, la, 4;\nor.b32 la, la, %37;\n"
+      "add.u32 lb, %33, %36;\nand.b32 lb, lb, 262143;\n"
+      "shr.u32 lb, lb, 4;\nor.b32 lb, lb, %37;\n"
+      "mov.b32 hi, %38;\n"
+      "mov.b64 da, {la, hi};\nmov.b64 db, {lb, hi};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a), "r"(b), "r"(accumulate), "n"(AOFF), "n"(BOFF), "n"(LO),
+        "n"(HI));
+}
+
+// Step KS of S = Q K^T by wgmma_ss_n64_at, its offsets constants.
+template <class QK, int KS>
+__device__ __forceinline__ void s_step_at(float* sacc, uint32_t aq,
+                                          uint32_t ak) {
+  constexpr int c = KS * 16 / QK::CHUNK, col = KS * 16 % QK::CHUNK;
+  constexpr uint32_t LO = (16 >> 4) << 16;
+  constexpr uint32_t HI = ((8 * QK::ROWB) >> 4) |
+                          static_cast<uint32_t>(QK::LAYOUT << 30);
+  wgmma_ss_n64_at<c * BQ * QK::ROWB + col * 2, c * BK * QK::ROWB + col * 2,
+                  LO, HI>(sacc, aq, ak, KS > 0);
+}
+
+template <class QK, int... KS>
+__device__ __forceinline__ void s_steps_at(float* sacc, uint32_t aq,
+                                           uint32_t ak,
+                                           std::integer_sequence<int, KS...>) {
+  (s_step_at<QK, KS>(sacc, aq, ak), ...);
 }
 
 // D (64 x 16, f32) += A (64 x 16, bf16 pairs in registers) *
@@ -609,12 +699,12 @@ __device__ __forceinline__ void softmax_tile(float* sc, Rows& rw, int k0,
   rw.l1 = rw.l1 * rw.a1 + rs1;
 }
 
-template <int HD>
+template <int HDV>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (HD == 16) wgmma_rs_n16(o, a, db);
-  else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (HDV == 16) wgmma_rs_n16(o, a, db);
+  else if constexpr (HDV == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (HDV == 64) wgmma_rs_n64(o, a, db);
   else wgmma_rs_n128(o, a, db);
 }
 
@@ -631,18 +721,21 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
 }
 
 // Barriers, 8 bytes each from `bars`: 0 the Q tile; 1 + st the K tile of
-// stage st; 1 + ST + st its V tile; 1 + 2 ST + st the stage's release by the
-// 8 consumer warps. Tile i of a CTA's visit (k0 = (t_hi - i) * BK) uses
-// stage i % ST in round i / ST, whose parity every role tracks alike.
-template <int HD>
+// stage st (K_BYTES); 1 + ST + st its V tile (V_BYTES); 1 + 2 ST + st the
+// stage's release by the 8 consumer warps. Tile i of a CTA's visit (k0 =
+// (t_hi - i) * BK) uses stage i % ST in round i / ST, whose parity every
+// role tracks alike.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     __nv_bfloat16* __restrict__ o, int s, int n_heads,
-                    int group, int hd, float scale_log2, int causal,
+                    int group, int hdv, float scale_log2, int causal,
                     int window) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
+  using QK = typename G::QK;
+  using VC = typename G::V;
   constexpr int ST = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * ST];
@@ -676,21 +769,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (tid == CONSUMERS) {
       const int hk = h / group;
       mbar_expect_tx(bar0, G::Q_BYTES);
-      for (int c = 0; c < G::NCH; ++c)
-        tma_load(sq + c * BQ * G::ROWB, &tq, bar0, c * G::CHUNK, h, q0, b);
+      for (int c = 0; c < QK::NCH; ++c)
+        tma_load(sq + c * BQ * QK::ROWB, &tq, bar0, c * QK::CHUNK, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % ST;
         const uint32_t par = (i / ST) & 1;
         mbar_wait(bar0 + 8 * (1 + 2 * ST + st), par ^ 1);   // stage free
         const int k0 = (t_hi - i) * BK;
-        const uint32_t sk = skv + st * G::STAGE_BYTES, sv = sk + G::KV_BYTES;
+        const uint32_t sk = skv + st * G::STAGE_BYTES, sv = sk + G::K_BYTES;
         const uint32_t fk = bar0 + 8 * (1 + st), fv = bar0 + 8 * (1 + ST + st);
-        mbar_expect_tx(fk, G::KV_BYTES);
-        for (int c = 0; c < G::NCH; ++c)
-          tma_load(sk + c * BK * G::ROWB, &tk, fk, c * G::CHUNK, hk, k0, b);
-        mbar_expect_tx(fv, G::KV_BYTES);
-        for (int c = 0; c < G::NCH; ++c)
-          tma_load(sv + c * BK * G::ROWB, &tv, fv, c * G::CHUNK, hk, k0, b);
+        mbar_expect_tx(fk, G::K_BYTES);
+        for (int c = 0; c < QK::NCH; ++c)
+          tma_load(sk + c * BK * QK::ROWB, &tk, fk, c * QK::CHUNK, hk, k0, b);
+        mbar_expect_tx(fv, G::V_BYTES);
+        for (int c = 0; c < VC::NCH; ++c)
+          tma_load(sv + c * BK * VC::ROWB, &tv, fv, c * VC::CHUNK, hk, k0, b);
       }
     }
   } else {
@@ -700,30 +793,43 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int r_lo = q0 + WG_ROWS * wg;
     const int row0 = r_lo + 16 * w + lane / 4, row1 = row0 + 8;
     const int cq = 2 * (lane % 4);
-    const uint32_t sqw = sq + WG_ROWS * wg * G::ROWB;   // this group's Q rows
+    const uint32_t sqw = sq + WG_ROWS * wg * QK::ROWB;  // this group's Q rows
 
-    float oacc[HD / 2];
+    float oacc[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) oacc[i] = 0.f;
     Rows rw{-INFINITY, -INFINITY, 0.f, 0.f, 0.f, 0.f};
     float sacc[BK / 2];            // S of the newest tile, then its P in fp32
     uint32_t ph[BK / 16][4], pl[BK / 16][4];   // P of the tile in P V
 
     // S = Q K^T with the K tile of stage st into sacc (issued, not awaited):
-    // hd / 16 steps of depth 16, each 32 bytes further along a
-    // swizzled row or in the next column chunk
+    // HD / 16 steps of depth 16, each 32 bytes further along a swizzled row
+    // or in the next column chunk. At HD 192 the compiler hoisted the 12
+    // steps' Q descriptors out of the tile loop, and those registers, live
+    // through the softmax, spilled (ptxas: 168 registers, 28 bytes of spill
+    // stores); unrolling by 4 instead avoided the spill but serialised the
+    // products (ptxas C7520; 3.16 ms a deepseek call against 1.86). So
+    // HD > 128 builds each descriptor inside the product's PTX
+    // (wgmma_ss_n64_at: 161 registers, no spill), and HD <= 128 keeps the
+    // C++ descriptors, 7% faster at hd 128 (both on one NVIDIA H100 80GB
+    // HBM3, 700 W)
     auto issue_s = [&](int st) {
       const uint32_t sk = skv + st * G::STAGE_BYTES;
       wg_fence();
+      if constexpr (HD > 128) {
+        s_steps_at<QK>(sacc, sqw, sk,
+                       std::make_integer_sequence<int, HD / 16>{});
+      } else {
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        const int c = ks * 16 / G::CHUNK, col = ks * 16 % G::CHUNK;
-        wgmma_ss_n64(sacc,
-                     desc<HD>(sqw + c * BQ * G::ROWB + col * 2, 16,
-                              8 * G::ROWB),
-                     desc<HD>(sk + c * BK * G::ROWB + col * 2, 16,
-                              8 * G::ROWB),
-                     ks > 0);
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          const int c = ks * 16 / QK::CHUNK, col = ks * 16 % QK::CHUNK;
+          wgmma_ss_n64(sacc,
+                       desc<QK>(sqw + c * BQ * QK::ROWB + col * 2, 16,
+                                8 * QK::ROWB),
+                       desc<QK>(sk + c * BK * QK::ROWB + col * 2, 16,
+                                8 * QK::ROWB),
+                       ks > 0);
+        }
       }
       wg_commit();
     };
@@ -731,22 +837,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     // V's rows are the depth, 16 keys (two 8-row groups) a step, each step
     // once with P's hi part and once with its lo part
     auto issue_pv = [&](int st) {
-      const uint32_t sv = skv + st * G::STAGE_BYTES + G::KV_BYTES;
+      const uint32_t sv = skv + st * G::STAGE_BYTES + G::K_BYTES;
 #pragma unroll
-      for (int r = 0; r < HD / 2; r += 4) {
+      for (int r = 0; r < HDV / 2; r += 4) {
         oacc[r] *= rw.a0;
         oacc[r + 1] *= rw.a0;
         oacc[r + 2] *= rw.a1;
         oacc[r + 3] *= rw.a1;
       }
-      hold<HD / 2>(oacc);
+      hold<HDV / 2>(oacc);
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks) {
         const uint64_t dv =
-            desc<HD>(sv + ks * 16 * G::ROWB, BK * G::ROWB, 8 * G::ROWB);
-        wgmma_pv<HD>(oacc, ph[ks], dv);
-        wgmma_pv<HD>(oacc, pl[ks], dv);
+            desc<VC>(sv + ks * 16 * VC::ROWB, BK * VC::ROWB, 8 * VC::ROWB);
+        wgmma_pv<HDV>(oacc, ph[ks], dv);
+        wgmma_pv<HDV>(oacc, pl[ks], dv);
       }
       wg_commit();
     };
@@ -795,7 +901,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       softmax_tile(sacc, rw, k0_of(i), s, r_lo, row0, cq, causal, window,
                    scale_log2);
       wg_wait<0>();              // P V(i - 1) has landed
-      hold<HD / 2>(oacc);
+      hold<HDV / 2>(oacc);
       if (lane == 0) mbar_arrive(bar0 + 8 * (1 + 2 * ST + (i - 1) % ST));
       split_p();
     }
@@ -804,7 +910,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     issue_pv((n_tiles - 1) % ST);
     if (wg == 0) turn_pass(theirs);
     wg_wait<0>();
-    hold<HD / 2>(oacc);
+    hold<HDV / 2>(oacc);
     float l0 = rw.l0, l1 = rw.l1;
 
 #pragma unroll
@@ -814,12 +920,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
     const long base = static_cast<long>(b) * s;
-    __nv_bfloat16* o0 = o + ((base + row0) * n_heads + h) * hd;
-    __nv_bfloat16* o1 = o + ((base + row1) * n_heads + h) * hd;
+    __nv_bfloat16* o0 = o + ((base + row0) * n_heads + h) * hdv;
+    __nv_bfloat16* o1 = o + ((base + row1) * n_heads + h) * hdv;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HDV / 8; ++j) {
       const int col = 8 * j + cq;
-      if (col >= hd) continue;    // zero-filled columns past hd
+      if (col >= hdv) continue;   // zero-filled columns past hdv
       if (row0 < s)
         *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
             __floats2bfloat162_rn(oacc[4 * j] / d0, oacc[4 * j + 1] / d0);
@@ -884,39 +990,56 @@ bool tensor_map(CUtensorMap* map, const void* base, int hd, int heads, int s,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
-           int h, int hkv, int hd, const long* st, float scale, int causal,
-           int window, cudaStream_t stream) {
-  using G = Geo<HD>;
-  constexpr CUtensorMapSwizzle sw = G::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+           int h, int hkv, int hd, int hdv, const long* st, float scale,
+           int causal, int window, cudaStream_t stream) {
+  using G = Geo<HD, HDV>;
+  using QK = typename G::QK;
+  using VC = typename G::V;
   CUtensorMap mq, mk, mv;
-  const int c = G::CHUNK;
-  if (!tensor_map(&mq, q, hd, h, s, b, st[2], st[1], st[0], c, BQ, sw) ||
-      !tensor_map(&mk, k, hd, hkv, s, b, st[5], st[4], st[3], c, BK, sw) ||
-      !tensor_map(&mv, v, hd, hkv, s, b, st[8], st[7], st[6], c, BK, sw))
+  if (!tensor_map(&mq, q, hd, h, s, b, st[2], st[1], st[0], QK::CHUNK, BQ,
+                  QK::SWIZZLE) ||
+      !tensor_map(&mk, k, hd, hkv, s, b, st[5], st[4], st[3], QK::CHUNK, BK,
+                  QK::SWIZZLE) ||
+      !tensor_map(&mv, v, hdv, hkv, s, b, st[8], st[7], st[6], VC::CHUNK, BK,
+                  VC::SWIZZLE))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((s + BQ - 1) / BQ, h, b);
-  flash_fwd_wgmma<HD><<<grid, THREADS, G::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, h, h / hkv, hd,
+  flash_fwd_wgmma<HD, HDV><<<grid, THREADS, G::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, h, h / hkv, hdv,
       scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// Arguments both kernels take: hd a multiple of 8 up to 128, h a multiple
-// of hkv, strides multiples of 8 elements, 16-byte aligned pointers.
+// The instantiations, (HD, HDV) each, smallest first: a call runs in the
+// first that takes its (hd, hdv).
+struct Inst {
+  int hd, hdv;
+};
+constexpr Inst INSTANCES[] = {{16, 16}, {32, 32}, {64, 64}, {128, 128},
+                              {192, 128}};
+
+Inst pick(int hd, int hdv) {
+  for (const Inst& i : INSTANCES)
+    if (hd <= i.hd && hdv <= i.hdv) return i;
+  return {0, 0};
+}
+
+// Arguments both kernels take: hd and hdv multiples of 8 with hdv <= hd and
+// an instantiation that takes them, h a multiple of hkv, strides multiples
+// of 8 elements, 16-byte aligned pointers.
 bool valid_args(const void* q, const void* k, const void* v, int b, int s,
-                int h, int hkv, int hd, const long* strides) {
-  if (b < 1 || s < 1 || h < 1 || hkv < 1 || h % hkv != 0 || hd < 8 ||
-      hd > 128 || hd % 8 != 0 || b > 65535 || h > 65535)
+                int h, int hkv, int hd, int hdv, const long* strides) {
+  if (b < 1 || s < 1 || h < 1 || hkv < 1 || h % hkv != 0 || hdv < 8 ||
+      hdv > hd || hd % 8 != 0 || hdv % 8 != 0 || pick(hd, hdv).hd == 0 ||
+      b > 65535 || h > 65535)
     return false;
   for (int i = 0; i < 9; ++i)
     if (strides[i] % 8 != 0) return false;
@@ -924,56 +1047,60 @@ bool valid_args(const void* q, const void* k, const void* v, int b, int s,
           reinterpret_cast<uintptr_t>(v)) % 16 == 0;
 }
 
+// One launch of namespace NS's kernel (tc or f32) in the instantiation that
+// takes (hd, hdv).
+#define FLASH_DISPATCH(NS, ...)                                        \
+  do {                                                                 \
+    const Inst inst = pick(hd, hdv);                                   \
+    if (inst.hd == 16) return NS::launch<16, 16>(__VA_ARGS__);         \
+    if (inst.hd == 32) return NS::launch<32, 32>(__VA_ARGS__);         \
+    if (inst.hd == 64) return NS::launch<64, 64>(__VA_ARGS__);         \
+    if (inst.hd == 128) return NS::launch<128, 128>(__VA_ARGS__);      \
+    return NS::launch<192, 128>(__VA_ARGS__);                          \
+  } while (0)
+
 }  // namespace
 
 extern "C" {
 
-// q (b, s, h, hd), k and v (b, s, hkv, hd), each addressed through its
-// (batch, position, head) strides in elements (strides: q's three, then
-// k's, then v's; the last dimension is contiguous). o (b, s, h, hd),
-// contiguous, q's type, is written. hd is a multiple of 8 up to 128, h a
-// multiple of hkv, every stride a multiple of 8 and every pointer 16-byte
-// aligned. Each returns a CUDA error code (cudaErrorInvalidValue for
-// arguments outside those limits).
+// q (b, s, h, hd), k (b, s, hkv, hd) and v (b, s, hkv, hdv), each addressed
+// through its (batch, position, head) strides in elements (strides: q's
+// three, then k's, then v's; the last dimension is contiguous). o (b, s, h,
+// hdv), contiguous, q's type, is written. hd and hdv are multiples of 8,
+// hdv <= hd, and (hd, hdv) fits an instantiation (flash_attn_instance); h
+// is a multiple of hkv, every stride a multiple of 8 and every pointer
+// 16-byte aligned. Each returns a CUDA error code (cudaErrorInvalidValue
+// for arguments outside those limits).
+
+// The instantiation a call with head dims (hd, hdv) runs in, as
+// HD << 16 | HDV, or 0 when none takes them.
+int flash_attn_instance(int hd, int hdv) {
+  const Inst i = pick(hd, hdv);
+  return i.hd << 16 | i.hdv;
+}
 
 // bfloat16 on the tensor cores (flash_fwd_wgmma); scale > 0.
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
-                    int b, int s, int h, int hkv, int hd, const long* strides,
-                    float scale, int causal, int window, void* stream) {
-  if (!valid_args(q, k, v, b, s, h, hkv, hd, strides) || !(scale > 0.f))
+                    int b, int s, int h, int hkv, int hd, int hdv,
+                    const long* strides, float scale, int causal, int window,
+                    void* stream) {
+  if (!valid_args(q, k, v, b, s, h, hkv, hd, hdv, strides) || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 16)
-    return tc::launch<16>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                          causal, window, st);
-  if (hd <= 32)
-    return tc::launch<32>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                          causal, window, st);
-  if (hd <= 64)
-    return tc::launch<64>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                          causal, window, st);
-  return tc::launch<128>(q, k, v, o, b, s, h, hkv, hd, strides, scale, causal,
-                         window, st);
+  FLASH_DISPATCH(tc, q, k, v, o, b, s, h, hkv, hd, hdv, strides, scale,
+                 causal, window, st);
 }
 
 // float32 on the CUDA cores (flash_fwd_f32).
 int flash_attn_f32(const float* q, const float* k, const float* v, float* o,
-                   int b, int s, int h, int hkv, int hd, const long* strides,
-                   float scale, int causal, int window, void* stream) {
-  if (!valid_args(q, k, v, b, s, h, hkv, hd, strides))
+                   int b, int s, int h, int hkv, int hd, int hdv,
+                   const long* strides, float scale, int causal, int window,
+                   void* stream) {
+  if (!valid_args(q, k, v, b, s, h, hkv, hd, hdv, strides))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 16)
-    return f32::launch<16>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                           causal, window, st);
-  if (hd <= 32)
-    return f32::launch<32>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                           causal, window, st);
-  if (hd <= 64)
-    return f32::launch<64>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                           causal, window, st);
-  return f32::launch<128>(q, k, v, o, b, s, h, hkv, hd, strides, scale,
-                          causal, window, st);
+  FLASH_DISPATCH(f32, q, k, v, o, b, s, h, hkv, hd, hdv, strides, scale,
+                 causal, window, st);
 }
 
 }  // extern "C"

@@ -3,21 +3,28 @@ PyTorch version.
 
 Both take the model's layout (``repro/kernels/flashattn/ops.py``)::
 
-    q (b, s, H, hd), k and v (b, s, Hkv, hd), H a multiple of Hkv
+    q (b, s, H, hd), k (b, s, Hkv, hd), v (b, s, Hkv, hdv),
+    H a multiple of Hkv, hdv <= hd
 
-and return ``(b, s, H, hd)`` in q's dtype. Query head ``h`` reads KV head
-``h // (H // Hkv)``. Key ``j`` is visible to query ``i`` iff ``i >= j``
-when ``causal`` and ``i - j < window`` when ``window > 0``; a row that
-sees no key gives 0. ``scale`` defaults to ``hd ** -0.5``.
+and return ``(b, s, H, hdv)`` in q's dtype: v's head dim may be smaller
+than the query and key one, as MLA's is (deepseek-v2: hd 192 = 128 nope +
+64 rope, hdv 128; ``repro/models/attention.py::chunked_attention`` takes
+the same). Query head ``h`` reads KV head ``h // (H // Hkv)``. Key ``j``
+is visible to query ``i`` iff ``i >= j`` when ``causal`` and
+``i - j < window`` when ``window > 0``; a row that sees no key gives 0.
+``scale`` defaults to ``hd ** -0.5``, of the query and key head dim.
 
 :func:`flash_attention` given CPU tensors runs
 :func:`flash_attention_plain`; given CUDA tensors it launches a kernel of
 ``repro_torch/csrc/flashattn.cu`` on q, k and v as they lie, through their
 strides, or raises. The kernel follows the dtype: bfloat16 runs the
 tensor-core kernel (``flash_attn_bf16``: wgmma products, K/V streamed by
-TMA), float32 the CUDA-core kernel (``flash_attn_f32``).
-``flash_attention.launches`` counts every kernel launch and
-``flash_attention.wgmma_launches`` those of the tensor-core kernel.
+TMA), float32 the CUDA-core kernel (``flash_attn_f32``), each in the
+smallest of its instantiations (HD, HDV) = (16, 16), (32, 32), (64, 64),
+(128, 128) or (192, 128) that takes (hd, hdv).
+``flash_attention.launches`` counts every kernel launch,
+``flash_attention.wgmma_launches`` those of the tensor-core kernel and
+``flash_attention.instances`` every launch by its (HD, HDV).
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through :class:`_FlashAttention`: its forward is that same dispatch,
@@ -42,19 +49,21 @@ from .. import _build
 from .._autograd import recompute_grads
 from .._check import stream_ptr
 
-MAX_HEAD_DIM = 128    # the kernel's limits (csrc/flashattn.cu)
-ALIGN = 8             # elements: hd and every stride, 16-byte loads
+ALIGN = 8             # elements: hd, hdv and every stride, 16-byte loads
 
 
 def _check_shapes(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-d (b, s, heads, head_dim)")
     b, s, H, hd = q.shape
-    if k.shape != v.shape:
+    if k.shape[:3] != v.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd):
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
+    if v.shape[3] > hd:
+        raise ValueError(f"v's head_dim {v.shape[3]} is above q and k's "
+                         f"{hd}")
     if k.shape[2] < 1 or H % k.shape[2]:
         raise ValueError(f"{H} query heads do not split over {k.shape[2]} "
                          "KV heads")
@@ -101,8 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel's contract, ``repro/kernels/flashattn/ops.py::flash_attention``,
     with the KV heads grouped instead of expanded).
 
-    The kernel takes bfloat16 or float32 q, k and v of one dtype, a head
-    dimension that is a multiple of 8 up to 128, a contiguous last
+    The kernel takes bfloat16 or float32 q, k and v of one dtype, head
+    dims hd and hdv that are multiples of 8 and fit an instantiation
+    (hd up to 128, or up to 192 with hdv up to 128), a contiguous last
     dimension, other strides that are multiples of 8 and 16-byte aligned
     data, and in bfloat16 a positive scale; it raises on anything else.
     With grad mode on and any of q, k, v requiring grad the call goes
@@ -123,14 +133,17 @@ def _forward(q, k, v, causal, window, scale):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_shapes(q, k, v)
     b, s, H, hd = q.shape
-    Hkv = k.shape[2]
+    Hkv, hdv = k.shape[2], v.shape[3]
     if q.dtype not in (torch.bfloat16, torch.float32) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"q/k/v dtype {q.dtype}/{k.dtype}/{v.dtype}: the "
                         "kernel takes one of bfloat16 or float32")
-    if hd > MAX_HEAD_DIM or hd % ALIGN:
-        raise ValueError(f"head_dim {hd}: the kernel takes a multiple of "
-                         f"{ALIGN} up to {MAX_HEAD_DIM}")
+    lib = _lib()
+    inst = lib.flash_attn_instance(hd, hdv)
+    if hd % ALIGN or hdv % ALIGN or not inst:
+        raise ValueError(f"head_dim {hd} (v {hdv}): the kernel takes "
+                         f"multiples of {ALIGN} up to 128, or q and k's up "
+                         "to 192 with v's up to 128")
     if s < 1 or b < 1:
         raise ValueError("flash_attention: empty batch or sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -146,23 +159,25 @@ def _forward(q, k, v, causal, window, scale):
     if tensor_cores and not _scale(hd, scale) > 0:
         raise ValueError(f"scale {scale}: the bfloat16 kernel takes a "
                          "positive scale")
-    lib = _lib()
     fn = lib.flash_attn_bf16 if tensor_cores else lib.flash_attn_f32
-    out = torch.empty((b, s, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, H, hdv), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_long * 9)(*q.stride()[:3], *k.stride()[:3],
                                   *v.stride()[:3])
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, s, H, Hkv, hd, strides, _scale(hd, scale), int(causal),
-                  int(window), stream_ptr(q.device))
+                  b, s, H, Hkv, hd, hdv, strides, _scale(hd, scale),
+                  int(causal), int(window), stream_ptr(q.device))
     flash_attention.launches += 1
     flash_attention.wgmma_launches += tensor_cores
+    key = (inst >> 16, inst & 0xFFFF)
+    flash_attention.instances[key] = flash_attention.instances.get(key, 0) + 1
     _build.check(code, "flash_attention")
     return out
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.instances = {}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -195,9 +210,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.flash_attn_bf16, lib.flash_attn_f32):
-            fn.argtypes = [p, p, p, p, i, i, i, i, i,
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
                            ctypes.POINTER(ctypes.c_long), ctypes.c_float, i,
                            i, p]
             fn.restype = i
+        lib.flash_attn_instance.argtypes = [i, i]
+        lib.flash_attn_instance.restype = i
         lib._typed = True
     return lib

@@ -1,5 +1,5 @@
-"""Grouped-query and sliding-window attention, prefill and decode, after
-``repro/models/attention.py``.
+"""Grouped-query, sliding-window and multi-head latent (MLA) attention,
+prefill and decode, after ``repro/models/attention.py``.
 
 Prefill runs :func:`repro_torch.kernels.flashattn.flash_attention`: on a
 CUDA tensor that is the hand-written online-softmax kernel, which visits
@@ -13,8 +13,16 @@ Shapes: q (B, S, H, hd), k and v (B, S, Hkv, hd); query head ``h`` reads KV
 head ``h // (H // Hkv)``. Projections are ``torch.matmul`` in the model
 dtype. Rotary embeddings: standard, partial (the leading fraction of
 head_dim) or qwen2-vl's M-RoPE, whose positions are (B, 3, S) (t, h, w)
-ids. MLA (deepseek-v2) comes with that model's slice and raises until
-then. Mesh and sharding anchors are not part of the port (one card).
+ids.
+
+MLA (deepseek-v2): queries and keys come from low-rank latents, with a
+decoupled RoPE part (``qk_rope_dim``, its key shared by the heads) after
+the ``qk_nope_dim`` part, so prefill attends with split head dims: q and k
+(B, S, H, nope + rope), v (B, S, H, v_head_dim), through the same kernel.
+Its cache holds the normed latent (B, C, kv_lora_rank) and the rotated
+rope key (B, C, qk_rope_dim), shared by the heads, and decode runs in the
+weight-absorbed latent form, in plain PyTorch, as the reference's does.
+Mesh and sharding anchors are not part of the port (one card).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flashattn import flash_attention
-from .layers import apply_mrope, apply_rope, dense_init
+from .layers import apply_mrope, apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
 
@@ -60,14 +68,6 @@ class AttnConfig:
         return self.kv_lora_rank > 0
 
 
-def check_config(cfg: AttnConfig) -> None:
-    """Raise for the attention forms the port does not build yet."""
-    if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA attention is not ported yet: it comes with the MLA slice "
-            "(deepseek-v2-236b; ROADMAP Queue 1)")
-
-
 # --- parameter init ----------------------------------------------------------
 
 def attn_init(cfg: AttnConfig, *, generator: torch.Generator,
@@ -75,7 +75,8 @@ def attn_init(cfg: AttnConfig, *, generator: torch.Generator,
               dtype: torch.dtype = torch.float32) -> Dict:
     """Parameters of one attention block: the drawn matrices in
     ``dtype``, the biases in float32 (the model casts them)."""
-    check_config(cfg)
+    if cfg.is_mla:
+        return mla_init(cfg, generator=generator, device=device, dtype=dtype)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = {"generator": generator, "device": device, "dtype": dtype}
     p = {
@@ -92,10 +93,34 @@ def attn_init(cfg: AttnConfig, *, generator: torch.Generator,
     return p
 
 
+def mla_init(cfg: AttnConfig, *, generator: torch.Generator,
+             device: torch.device,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    """MLA's parameters: the reference's leaves, shapes and fan-ins, the
+    two latent norms' scales in float32."""
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = {"generator": generator, "device": device, "dtype": dtype}
+    ones = {"dtype": torch.float32, "device": device}
+    return {
+        "wq_a": dense_init((d, ql), fan_in=d, **kw),          # down-proj
+        "wq_b": dense_init((ql, h, dn + dr), fan_in=ql, **kw),
+        "wkv_a": dense_init((d, kl), fan_in=d, **kw),         # latent
+        "wk_rope": dense_init((d, dr), fan_in=d, **kw),       # shared rope k
+        "wk_b": dense_init((kl, h, dn), fan_in=kl, **kw),     # up-proj K
+        "wv_b": dense_init((kl, h, dv), fan_in=kl, **kw),     # up-proj V
+        "wo": dense_init((h, dv, d), fan_in=h * dv, **kw),
+        "q_norm": {"scale": torch.ones(ql, **ones)},
+        "kv_norm": {"scale": torch.ones(kl, **ones)},
+    }
+
+
 # --- projections -------------------------------------------------------------
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) @ (D, heads, hd) -> (B, S, heads, hd), one matmul."""
+    """(B, S, D) @ (D, heads, hd) -> (B, S, heads, hd), one matmul (any
+    trailing shape of ``w``: (D, r) gives (B, S, r))."""
     return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
 
 
@@ -130,9 +155,11 @@ def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
                  cache: bool = True,
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Training / prefill forward. Returns (out, cache entries): the
-    full-sequence k and v (B, S, Hkv, hd) in the model dtype, or None
-    when ``cache`` is False (training keeps no decode cache)."""
-    check_config(cfg)
+    full-sequence k and v (B, S, Hkv, hd) in the model dtype (MLA: its
+    latent and rope key), or None when ``cache`` is False (training keeps
+    no decode cache)."""
+    if cfg.is_mla:
+        return mla_forward(params, x, cfg, positions, cache)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -149,7 +176,8 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     SWA or max_len otherwise; ``cache_index`` is the number of positions
     already absorbed (the absolute position of the new token). The cache
     is updated in place and returned."""
-    check_config(cfg)
+    if cfg.is_mla:
+        return mla_decode(params, x, cache, cfg, cache_index)
     b = x.shape[0]
     # a decoded token is text: M-RoPE's three ids advance together
     shape = (b, 3, 1) if cfg.rope == "mrope" else (b, 1)
@@ -188,8 +216,87 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
 
 def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device: torch.device) -> Dict:
-    check_config(cfg)
     c = min(cfg.window, max_len) if cfg.window > 0 else max_len
+    if cfg.is_mla:
+        return {"latent": torch.zeros((batch, c, cfg.kv_lora_rank),
+                                      dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, c, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device)}
     shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --- MLA (deepseek-v2) -------------------------------------------------------
+
+def _mla_query(params, x: torch.Tensor, cfg: AttnConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, nope + rope): the up-projected query, RoPE on its rope
+    part."""
+    dn = cfg.qk_nope_dim
+    q_lat = rmsnorm(params["q_norm"], _heads(x, params["wq_a"]))
+    q = _heads(q_lat, params["wq_b"])
+    return torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions,
+                                              cfg.rope_theta)], dim=-1)
+
+
+def _mla_latent(params, x: torch.Tensor, cfg: AttnConfig,
+                positions: torch.Tensor):
+    """The cache entries of x's positions: the normed latent (B, S, kl)
+    and the rotated rope key (B, S, rope) that every head shares."""
+    latent = rmsnorm(params["kv_norm"], _heads(x, params["wkv_a"]))
+    k_rope = apply_rope(_heads(x, params["wk_rope"])[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]
+    return latent, k_rope
+
+
+def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
+                positions: Optional[torch.Tensor] = None,
+                cache: bool = True) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA train / prefill: the latent expanded to per-head keys and
+    values, attended with the rope key broadcast over the heads. Returns
+    (out, {"latent", "k_rope"} or None)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = _mla_query(params, x, cfg, positions)
+    latent, k_rope = _mla_latent(params, x, cfg, positions)
+    k_nope = _heads(latent, params["wk_b"])
+    v = _heads(latent, params["wv_b"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
+    out = flash_attention(q, k, v, causal=cfg.causal, scale=1.0 / math.sqrt(
+        cfg.qk_nope_dim + cfg.qk_rope_dim))
+    return _out(params, out), ({"latent": latent, "k_rope": k_rope}
+                               if cache else None)
+
+
+def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
+               cache_index: int) -> Tuple[torch.Tensor, Dict]:
+    """Weight-absorbed MLA decode: scores and the weighted sum run in the
+    latent space, and W_UV lifts the sum to the heads.
+
+    x: (B, 1, D); cache {"latent": (B, C, kl), "k_rope": (B, C, rope)},
+    updated in place at slot ``min(cache_index, C - 1)`` and returned."""
+    b, dt = x.shape[0], x.dtype
+    dn = cfg.qk_nope_dim
+    pos = torch.full((b, 1), cache_index, dtype=torch.int64, device=x.device)
+    q = _mla_query(params, x, cfg, pos)
+    latent_new, k_rope_new = _mla_latent(params, x, cfg, pos)
+    c = cache["latent"].shape[1]
+    slot = min(cache_index, c - 1)
+    cache["latent"][:, slot] = latent_new[:, 0].to(cache["latent"].dtype)
+    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    latent, k_rope = cache["latent"].to(dt), cache["k_rope"].to(dt)
+
+    # W_UK absorbed into the query: (B, 1, H, kl)
+    q_abs = torch.einsum("bshk,lhk->bshl", q[..., :dn],
+                         params["wk_b"].to(dt))
+    scores = torch.einsum("bshl,bcl->bshc", q_abs, latent)
+    scores = scores + torch.einsum("bshr,bcr->bshc", q[..., dn:], k_rope)
+    scores = scores.float() / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    valid = torch.arange(c, device=x.device) <= slot
+    p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+    ctx = torch.einsum("bshc,bcl->bshl", p.to(dt), latent)
+    out = torch.einsum("bshl,lhv->bshv", ctx, params["wv_b"].to(dt))
+    return _out(params, out), cache

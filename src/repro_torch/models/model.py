@@ -269,7 +269,10 @@ def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
     out = {}
     if "attn" in pre:
         a = pre["attn"]
-        if spec.attn.window > 0:
+        if spec.attn.is_mla:
+            out["attn"] = {k: _pad_positions(a[k].to(dtype), max_len)
+                           for k in ("latent", "k_rope")}
+        elif spec.attn.window > 0:
             w = min(spec.attn.window, max_len)
             out["attn"] = {k: _ring_from_prefill(a[k].to(dtype), w)
                            for k in ("k", "v")}

@@ -16,8 +16,6 @@ The CUDA kernel against its plain version, on the card, is in
 tests/test_torch_cuda.py.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,6 +93,50 @@ def test_flash_attention_window_edges():
     _close(out, v)                         # each query sees only itself
     wide = flash_attention_plain(q, k, v, causal=True, window=100)
     _close(wide, flash_attention_plain(q, k, v, causal=True, window=0))
+
+
+# b, s, H, Hkv, hd, hdv, causal, window: MLA's split head dims (the smoke
+# deepseek's qk 16 / v 8 and deepseek-v2's 192 / 128), non-causal, and
+# grouped KV heads with a window
+SPLIT_CASES = [
+    (2, 37, 4, 4, 16, 8, True, 0),
+    (1, 70, 4, 4, 192, 128, True, 0),
+    (1, 70, 3, 3, 192, 128, False, 0),
+    (2, 50, 6, 2, 24, 16, True, 16),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_head_dims_match_chunked_attention(case):
+    """The wrapper (CPU: the plain version) and the plain version at split
+    head dims against the reference's ``chunked_attention``, the function
+    its MLA prefill attends with (its Pallas wrapper takes one head dim),
+    over 16-position chunks, in float32 within rtol = atol = 1e-5 (sums in
+    another order); the default scale is the query and key head dim's."""
+    b, s, H, Hkv, hd, hdv, causal, window = case
+    rng = np.random.default_rng(s + hd)
+    q, k = (rng.normal(size=(b, s, n, hd)).astype(np.float32)
+            for n in (H, Hkv))
+    v = rng.normal(size=(b, s, Hkv, hdv)).astype(np.float32)
+    want = ref_attention.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_chunk=16, kv_chunk=16)
+    for fn in (flash_attention, flash_attention_plain):
+        got = fn(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                 window=window)
+        assert tuple(got.shape) == (b, s, H, hdv)
+        _close(got, want, 1e-5)
+
+
+def test_split_head_dims_refuse_a_wider_or_misshapen_v():
+    """v's head dim may be smaller than q and k's, never larger, and its
+    other dims are k's."""
+    q, k = torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16)
+    for fn in (flash_attention, flash_attention_plain):
+        with pytest.raises(ValueError, match="above"):
+            fn(q, k, torch.zeros(1, 4, 2, 24))
+        with pytest.raises(ValueError, match="differ"):
+            fn(q, k, torch.zeros(1, 4, 1, 8))
 
 
 # --- the attention block -----------------------------------------------------
@@ -179,18 +221,6 @@ def test_attn_decode_before_the_ring_wraps_matches_reference():
         y, cache = attention.attn_decode(params, torch.from_numpy(x1),
                                          cache, cfg, t)
         _close(y, y_r)
-
-
-@pytest.mark.parametrize("kind", ["mla"])
-def test_unported_attention_forms_raise(kind):
-    """MLA waits for its own slice (M-RoPE is ported:
-    tests/test_torch_families.py)."""
-    cfg = attention.AttnConfig(d_model=16, n_heads=2, n_kv_heads=2,
-                               head_dim=8)
-    cfg = dataclasses.replace(cfg, kv_lora_rank=4)
-    with pytest.raises(NotImplementedError, match="MLA slice"):
-        attention.attn_init(cfg, generator=torch.Generator(),
-                            device=torch.device("cpu"))
 
 
 # --- rotary embedding --------------------------------------------------------

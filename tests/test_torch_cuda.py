@@ -527,6 +527,99 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
         flash_attention(q, k, v)
 
 
+SPLIT_SHAPES = [  # b, s, H, Hkv, hd, hdv, causal, window
+    (1, 300, 8, 8, 192, 128, True, 0),    # deepseek-v2's MLA dims
+    (1, 130, 8, 8, 192, 128, True, 0),    # a partial last query tile
+    (1, 300, 4, 4, 192, 128, False, 0),   # non-causal
+    (2, 333, 8, 2, 192, 128, True, 100),  # grouped heads, a window
+    (1, 200, 4, 2, 160, 96, True, 64),    # zero-filled to (192, 128)
+    (2, 37, 4, 4, 16, 8, True, 0),        # the smoke deepseek's, (16, 16)
+    (1, 300, 4, 4, 128, 64, True, 0),     # v zero-filled to (128, 128)
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_split_head_dims_on_card(cuda, shape, dtype):
+    """v's head dim below q and k's (MLA): the output takes v's, the
+    launch runs in the smallest instantiation that takes both, and the
+    kernel agrees with the plain version as in
+    test_flash_attention_kernel_on_card."""
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    b, s, H, Hkv, hd, hdv, causal, window = shape
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).to(cuda, dtype)
+        for n, d in ((H, hd), (Hkv, hd), (Hkv, hdv)))
+    inst = (192, 128) if hd > 128 else (max(hd, 16), max(hd, 16))
+    before = flash_attention.instances.get(inst, 0)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.instances[inst] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (b, s, H, hdv)
+    rtol = 2e-4 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=2e-4)
+
+
+def test_flash_attention_kernel_refuses_split_dims_it_cannot_take(cuda):
+    """v's head dim above q and k's, and q and k's above 128 with v's
+    above 128 or q and k's above 192, have no instantiation."""
+    from repro_torch.kernels.flashattn import flash_attention
+
+    def qkv(hd, hdv, dtype):
+        return [torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)
+                for d in (hd, hd, hdv)]
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="above"):
+            flash_attention(*qkv(64, 128, dtype))
+        for hd, hdv in ((192, 136), (192, 192), (200, 128), (256, 128)):
+            with pytest.raises(ValueError, match="head_dim"):
+                flash_attention(*qkv(hd, hdv, dtype))
+
+
+def test_mla_block_on_card_against_the_plain_version(cuda, monkeypatch):
+    """One deepseek-v2-236b MLA block at full width in bfloat16 (128
+    heads, qk 128 + 64, v 128, latents 1,536 and 512) on a prefill of 2 x
+    300 tokens: one launch in the (192, 128) instantiation, the output
+    within 2^-6 in norm of the same block on the plain attention (a
+    rounding step of the attention through the bf16 output projection),
+    and the absorbed decode of position 300 within the same of the
+    expanded prefill of 301 positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    from repro_torch.models import attention
+    cfg = get_config("deepseek-v2-236b").plan[0][0].attn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = attention.attn_init(cfg, generator=gen, device=cuda,
+                            dtype=torch.bfloat16)
+    x = torch.randn(2, 301, cfg.d_model, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = flash_attention.instances.get((192, 128), 0)
+    with torch.inference_mode():
+        y_k, pre = attention.attn_forward(p, x[:, :300], cfg)
+        assert flash_attention.instances[(192, 128)] == before + 1
+        y_full, _ = attention.attn_forward(p, x, cfg)
+        cache = attention.attn_init_cache(cfg, 2, 304, torch.bfloat16, cuda)
+        for key in cache:
+            cache[key][:, :300] = pre[key]
+        y_d, _ = attention.attn_decode(p, x[:, 300:], cache, cfg, 300)
+        monkeypatch.setattr(attention, "flash_attention",
+                            flash_attention_plain)
+        y_p, _ = attention.attn_forward(p, x[:, :300], cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_k).all() and y_k.shape == x[:, :300].shape
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+    assert rel(y_k, y_p) <= 2 ** -6
+    assert rel(y_d, y_full[:, 300:]) <= 2 ** -6
+
+
 ROLLING_SHAPES = [  # n, window
     (1, 1), (5, 16),                 # one value; window above n
     (1000, 100), (1024, 1024),       # window == n == one tile

@@ -404,18 +404,26 @@ def _leaves(tree, path=""):
 
 
 def test_chip_smoke_parameter_counts_are_the_reference_counts():
-    """The full-size counts chip_smoke.py holds each served model to are
-    the reference's, by ``jax.eval_shape`` of its ``init_params``."""
+    """The counts chip_smoke.py holds each served model to are the
+    reference's, by ``jax.eval_shape`` of its ``init_params`` on the full
+    config, or on the config cut to the depth chip_smoke.py serves
+    (deepseek-v2-236b: its dense layer and 4 MoE layers)."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    assert smoke.DEPTH_CUTS == {"deepseek-v2-236b": (1, 4)}
     for arch, n in smoke.PARAM_COUNTS.items():
-        shapes = jax.eval_shape(lambda a=arch: ref_model.init_params(
-            ref_get_config(a), jax.random.PRNGKey(0)))
+        cfg = smoke.cut_depth(ref_get_config(arch),
+                              smoke.DEPTH_CUTS.get(arch))
+        shapes = jax.eval_shape(lambda c=cfg: ref_model.init_params(
+            c, jax.random.PRNGKey(0)))
         assert ref_model.param_count(shapes) == n, arch
+    full = jax.eval_shape(lambda: ref_model.init_params(
+        ref_get_config("deepseek-v2-236b"), jax.random.PRNGKey(0)))
+    assert ref_model.param_count(full) == 235_217_146_880
 
 
 def test_encoder_only_cli_exits():

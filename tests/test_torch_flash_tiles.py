@@ -27,8 +27,14 @@ is why the kernel issues the second product.
 
 Shapes: every flash edge shape of ``chip_smoke.py`` and one hymba-1.5b
 layer at batch 1 (S = 2,176, 25 query heads over 5 KV heads of 64, window
-1,024 and global). Inputs come from numpy seeds. Tolerance: the card's
-bfloat16 one, rtol 2^-7 and atol 2e-4 (tests/test_torch_cuda.py).
+1,024 and global). At MLA's split head dims (q and k hd, v hdv < hd: the
+(192, 128) instantiation's 12-step S = Q K^T and 128-column P V, and the
+smoke deepseek's 16 / 8, zero-filled to (16, 16)) the oracle is the
+reference's ``chunked_attention``, the function its MLA prefill attends
+with (its Pallas wrapper takes one head dim), computed in float32 on the
+same bfloat16 inputs and rounded once to bfloat16 as the kernel's output
+is. Inputs come from numpy seeds. Tolerance: the card's bfloat16 one,
+rtol 2^-7 and atol 2e-4 (tests/test_torch_cuda.py).
 """
 
 import math
@@ -39,6 +45,7 @@ import pytest
 import torch
 
 from repro.kernels.flashattn import flash_attention as ref_flash_attention
+from repro.models.attention import chunked_attention
 
 BQ, BK, HALF = 128, 64, 64        # the kernel's tiles (csrc/flashattn.cu)
 LOG2E = 1.4426950408889634
@@ -50,6 +57,13 @@ EDGE_SHAPES = [(2, 37, 4, 4, 8, True, 0), (2, 37, 5, 1, 64, True, 8),
                (1, 1100, 5, 5, 64, True, 1024)]
 HYMBA_SHAPES = [(1, 2176, 25, 5, 64, True, 1024),
                 (1, 2176, 25, 5, 64, True, 0)]
+# b, s, H, Hkv, hd, hdv, causal, window: chip_smoke.py's split-dim
+# FLASH_EDGE_SHAPES
+SPLIT_SHAPES = [(1, 300, 8, 8, 192, 128, True, 0),
+                (1, 130, 8, 8, 192, 128, True, 0),
+                (1, 300, 4, 4, 192, 128, False, 0),
+                (1, 200, 4, 2, 160, 96, True, 64),
+                (2, 37, 4, 4, 16, 8, True, 0)]
 
 
 def needs_mask(k0, r_lo, s, causal, window):
@@ -60,10 +74,12 @@ def needs_mask(k0, r_lo, s, causal, window):
 
 
 def emulate(q, k, v, causal, window, split=True):
-    """q (b, s, H, hd), k and v (b, s, Hkv, hd), float32 holding bfloat16
-    values; returns the kernel's (b, s, H, hd) output as float32 (with
-    ``split=False``, P rounded once instead of split in two)."""
+    """q (b, s, H, hd), k (b, s, Hkv, hd) and v (b, s, Hkv, hdv), float32
+    holding bfloat16 values; returns the kernel's (b, s, H, hdv) output as
+    float32 (with ``split=False``, P rounded once instead of split in
+    two)."""
     b, s, H, hd = q.shape
+    hdv = v.shape[-1]
     g = H // k.shape[2]
     qh = q.permute(0, 2, 1, 3)
     kh = k.repeat_interleave(g, 2).permute(0, 2, 1, 3)
@@ -72,7 +88,7 @@ def emulate(q, k, v, causal, window, split=True):
     pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, n_pad - s))
     qh, kh, vh = pad(qh), pad(kh), pad(vh)
     sl2 = torch.tensor(hd ** -0.5 * LOG2E, dtype=torch.float32)
-    out = torch.zeros(b, H, n_pad, hd)
+    out = torch.zeros(b, H, n_pad, hdv)
     for q0 in range(0, s, BQ):
         q_last = min(q0 + BQ - 1, s - 1)
         hi = q_last if causal else s - 1
@@ -82,7 +98,7 @@ def emulate(q, k, v, causal, window, split=True):
             qt = qh[:, :, r_lo:r_lo + HALF]
             m = torch.full((b, H, HALF), -math.inf)
             l = torch.zeros(b, H, HALF)
-            acc = torch.zeros(b, H, HALF, hd)
+            acc = torch.zeros(b, H, HALF, hdv)
             for k0 in range(hi // BK * BK, lo // BK * BK - 1, -BK):
                 sc = (qt @ kh[:, :, k0:k0 + BK].transpose(-1, -2)) * sl2
                 cols = torch.arange(k0, k0 + BK)[None, :]
@@ -147,3 +163,20 @@ def test_kernel_arithmetic_matches_reference(shape):
 def test_single_bf16_p_breaks_the_tolerance():
     got, want = _case(EDGE_SHAPES[0], split=False)
     assert (np.abs(got - want) > 2e-4 + 2 ** -7 * np.abs(want)).any()
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_split_dims_arithmetic_matches_chunked_attention(shape):
+    b, s, H, Hkv, hd, hdv, causal, window = shape
+    rng = np.random.default_rng(s + H + hd)
+    q, k = (rng.normal(size=(b, s, n, hd)).astype(np.float32)
+            for n in (H, Hkv))
+    v = rng.normal(size=(b, s, Hkv, hdv)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16).float()
+    got = emulate(t(q), t(k), t(v), causal, window).numpy()
+    want = chunked_attention(*(jnp.asarray(t(a).numpy()) for a in (q, k, v)),
+                             causal=causal, window=window, q_chunk=64,
+                             kv_chunk=64)
+    want = np.asarray(jnp.asarray(want).astype(jnp.bfloat16), np.float32)
+    assert got.shape == want.shape == (b, s, H, hdv)
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2e-4)

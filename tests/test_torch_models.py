@@ -487,13 +487,12 @@ def _fields(obj, cls):
 def test_configs_match_reference():
     """Every field of the model config (but the dtype's type), of each
     segment's LayerSpec and of its SSM, attention and MoE configs, and the
-    segment counts, for the full and the smoke config of each ported
-    architecture: the reference's ten but deepseek-v2-236b, in its order."""
+    segment counts, for the full and the smoke config of each
+    architecture: the reference's ten, in its order."""
     from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
     from repro_torch.models import moe
-    assert ARCH_NAMES == [a for a in REF_ARCH_NAMES
-                          if a != "deepseek-v2-236b"]
-    assert len(ARCH_NAMES) == 9
+    assert ARCH_NAMES == REF_ARCH_NAMES
+    assert len(ARCH_NAMES) == 10
     for arch, get, ref_get in (
             (arch, get, ref_get) for arch in ARCH_NAMES
             for get, ref_get in ((get_config, ref_get_config),
@@ -517,8 +516,6 @@ def test_configs_match_reference():
                 if mine is not None:
                     assert _fields(mine, cls) == _fields(theirs, cls)
         assert get_config(arch).dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="MLA slice"):
-        get_config("deepseek-v2-236b")
 
 
 _ATTN = attention.AttnConfig(d_model=16, n_heads=2, n_kv_heads=1,
@@ -527,9 +524,6 @@ _SSM = ssm.SSMConfig(d_model=16, d_state=8, head_dim=8, chunk=8)
 
 
 @pytest.mark.parametrize("spec,err", [
-    (LayerSpec(kind="attn", attn=dataclasses.replace(_ATTN,
-                                                     kv_lora_rank=4)),
-     NotImplementedError),                                    # MLA
     (LayerSpec(kind="ssm"), ValueError),
     (LayerSpec(kind="hybrid", ssm=_SSM), ValueError),         # no attn
 ])

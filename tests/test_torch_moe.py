@@ -4,9 +4,9 @@
 path (no mesh). The weights come from the reference's ``moe_init`` as
 numpy, the tokens from numpy seeds; everything runs in float32 on the
 CPU. Configs: granite-moe's smoke MoEConfig (8 experts, top 4, no shared
-expert) and deepseek-v2's (8 experts, top 2, one shared expert, built
-directly since the deepseek config itself waits for the MLA slice), at
-their own capacity factor of 2.0, where every assignment is routed, and
+expert) and deepseek-v2's (8 experts, top 2, one shared expert; the whole
+smoke model is in tests/test_torch_mla.py), at their own capacity factor
+of 2.0, where every assignment is routed, and
 at 0.5, where some drop. Tolerance: rtol = atol = 1e-4 on outputs and
 the aux loss (float32 sums in another order); the routing (top-k
 indices, slots, kept assignments) and the dropped share are exact.
