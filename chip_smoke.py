@@ -244,8 +244,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              master weights drawn on the card from --seed, a bfloat16
              working copy, remat "full", sequences of 4096 (the
              reference's train_4k) from the port's ``make_batch``,
-             microbatch 4 x grad_accum 2, 12 steps, an asynchronous
-             checkpoint at step 9, the straggler monitor every 4 steps.
+             microbatch 4 x grad_accum 2, 8 steps, an asynchronous
+             checkpoint at step 6, the straggler monitor every 4 steps.
              First the first microbatch's loss and gradients with the
              kernels against the same under the plain versions (loss
              within 0.05, each matrix gradient's cosine >= 0.98, the
@@ -255,7 +255,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              recompute) a microbatch, every launch on the tensor-core
              kernel, and iqr_fences at least once an analysis. Losses
              finite, the mean of the last 3 below the first 3's. A second
-             Trainer resumes from the step-9 checkpoint alone: its losses
+             Trainer resumes from the step-6 checkpoint alone: its losses
              within 1e-3 relative of the run's. The run's telemetry DB
              goes through ``VariabilityPipeline`` (torch backend), and a
              recorder of 8 hosts, one 3x slower, must be flagged by
@@ -271,14 +271,43 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              2, 6 steps, no checkpoint; flash_attention and ssd_fused
              must each launch 32 + 32 a microbatch on their tensor-core
              kernels; the plain-version check, losses and profile as in
+             train;
+19. train-<family> — the eight families without an SSM layer trained
+             through ``Trainer.run`` at full width, one on the card at a
+             time, micro 1 x grad_accum 2 (granite 2 x 2) of 2,048
+             positions, 6 steps, no checkpoint, the monitor every 3 steps:
+             stablelm-3b (32 layers), h2o-danube-1.8b (24, sequences of
+             4,200 past its 4,096 window), nemotron-4-15b (1 of 32 layers,
+             its untied 256,000 x 6,144 embedding and head 3.15 B of its
+             3.54 B parameters), starcoder2-15b (4 of 40), granite-moe
+             (24 MoE layers), qwen2-vl-7b (8 of 28; 256 patches and 1,792
+             text tokens), hubert-xlarge (48 non-causal layers, 4,096
+             frames, the loss on the masked frames) and deepseek-v2-236b
+             (its dense first layer), each cut (TRAIN_DEPTH_CUTS) to the
+             most layers whose 20 B a parameter of training state fits the
+             card, each count the reference's. The first-microbatch check
+             runs on the bfloat16 working copy alone (deepseek's on its
+             dense layer and one MoE layer of 160 experts, whose training
+             state would take 97 GB), the plain pass of an MoE model
+             under the kernel pass's expert choices (the free-running
+             plain loss and the moved tokens printed beside) and its
+             kernel pass run twice, equal bit for bit (granite, deepseek).
+             flash_attention must launch once a layer a microbatch and
+             once more in its remat recompute, every launch on the
+             tensor-core kernel in the family's instantiation ((128, 128)
+             for hd 80 and 128, (64, 64) for granite, (192, 128) for
+             MLA); losses falling, the monitor's launches, step ms, tokens
+             a second and peak memory beside the reckoned state as in
              train. Then the training calls are timed as in times
-             (ssd_fused at both models' first-layer calls, flash_attention
-             at hymba's window call, iqr_fences at the monitor's largest
-             table), and last the two profiled steps run. The training
-             phases come after times and host trace, and their profiles
-             last of all: in their wake the profiler lost the device
-             events of short calls;
-19. reap   — stop the rank pools' forkserver and resource tracker
+             (ssd_fused at mamba2's and hymba's first-layer calls,
+             flash_attention at hymba's first window call and each
+             family's first-layer call, iqr_fences at the monitor's
+             largest table), and last mamba2's and hymba's profiled steps
+             run (their trained states wait on the host meanwhile). The
+             training phases come after times and host trace, and the
+             profiles last of all: in their wake the profiler lost the
+             device events of short calls;
+20. reap   — stop the rank pools' forkserver and resource tracker
              (core.pipeline.stop_rank_pool_server) and fail if a process
              this script started, or one started below it, still runs.
 
@@ -305,7 +334,8 @@ columns, rtol 1e-4 and atol 1e-4 * max(1, max|x|) (the reference's
 rtol = atol = 1e-4, scaled for stall-magnitude values); training, whose
 forward runs in bfloat16 through every layer and whose backward is the
 plain recompute either way: loss within 0.05 of the plain versions' and
-each matrix gradient's cosine >= 0.98; resumed losses within 1e-3
+each matrix gradient's cosine >= 0.98 (granite's and deepseek's plain
+pass under the kernel pass's expert choices); resumed losses within 1e-3
 relative (the same kernels on the same data, only their float order);
 the monitor's fences and flagged hosts equal to numpy's exactly.
 
@@ -1258,13 +1288,14 @@ def _head(batch, n):
 
 
 def cut_depth(cfg, counts):
-    """``cfg`` with segment i cut to ``counts[i]`` layers (``counts`` None:
-    ``cfg`` as it is)."""
+    """``cfg`` with segment i cut to ``counts[i]`` layers, a segment cut
+    to 0 left out (``counts`` None: ``cfg`` as it is)."""
     import dataclasses
     if counts is None:
         return cfg
     return dataclasses.replace(cfg, plan=tuple(
-        (spec, n) for (spec, _), n in zip(cfg.plan, counts, strict=True)))
+        (spec, n) for (spec, _), n in zip(cfg.plan, counts, strict=True)
+        if n))
 
 
 def _init_model(arch, args, dev, tag):
@@ -1538,22 +1569,74 @@ def phase_encode(args, dev, tag="encode-hubert"):
     return launches, errs, cap.calls
 
 
-# one spec a training phase: the architecture at full width and depth,
-# the sequence (hymba's 128 meta tokens come on top), microbatch, grad
+# the training phases' depth cuts: the layers kept of each segment and the
+# reference's parameter count of the cut config (jax.eval_shape of its
+# init_params; tests/test_torch_train_families.py checks them). A step
+# holds 20 B a parameter (float32 master weights, Adam's m and v, the
+# bfloat16 working copy and gradients, the float32 accumulator), so each
+# cut is the most layers whose state fits one 80 GB card
+TRAIN_DEPTH_CUTS = {
+    "nemotron-4-15b": ((1,), 3_535_816_704),      # 65.9 GiB: the head is
+    "starcoder2-15b": ((4,), 2_139_205_632),      # 3.15 B of it; 39.8 GiB
+    "qwen2-vl-7b": ((8,), 2_959_048_192),         # 55.1 GiB
+    "deepseek-v2-236b": ((1, 0), 862_274_560),    # the dense layer, 16.1 GiB
+}
+# deepseek's MoE layers under training: 4.83 B parameters with one MoE
+# layer (97 GB of training state) fit no card, so its gradient check runs
+# on the dense layer and one MoE layer in the bfloat16 working copy with no
+# optimizer state (27 GiB for the weights and the two gradient sets)
+DEEPSEEK_MOE_CHECK = ((1, 1), 4_834_391_040)
+# one spec a training phase: the architecture at full width (and depth but
+# for TRAIN_DEPTH_CUTS), the sequence (hymba's 128 meta tokens come on top;
+# qwen2-vl's ``patches`` image patches are part of it), microbatch, grad
 # accumulation, steps, the asynchronous checkpoint's step (None: no
-# checkpoint, no resume), the monitor's period and the peak learning rate
-# (2 warm-up steps; hymba's loss rose over 6 steps at 1e-3 and at 3e-4).
-# mamba2's checkpoint at step 9 leaves the resumed run 3 steps (6 at step
-# 6): its steps of 13-14 s on a slow host kept the script too near 1200 s
+# checkpoint, no resume), the monitor's period, the peak learning rate (2
+# warm-up steps; hymba's loss rose over 6 steps at 1e-3 and at 3e-4; at
+# 3e-4 so did stablelm's, danube's, nemotron's, starcoder2's and
+# qwen2-vl's, whose first update moves every weight by the same lr: the
+# wider the model, the lower the rate its loss falls at), the
+# flash_attention instantiation every launch must take, and whether one
+# more step is profiled at the end. mamba2's 8 steps with the checkpoint at
+# step 6 leave the time limit room for the eight families' phases
 TRAIN_SPECS = {
     "train": dict(arch="mamba2-370m", seq=4096, micro=4, accum=2,
-                  steps=12, ckpt=9, monitor=4, lr=1e-3),
+                  steps=8, ckpt=6, monitor=4, lr=1e-3, profile=True),
     "train-hymba": dict(arch="hymba-1.5b", seq=2048, micro=2, accum=2,
-                        steps=6, ckpt=None, monitor=3, lr=1e-4),
+                        steps=6, ckpt=None, monitor=3, lr=1e-4,
+                        flash_instance=(64, 64), profile=True),
+    "train-stablelm": dict(arch="stablelm-3b", seq=2048, micro=1, accum=2,
+                           steps=6, ckpt=None, monitor=3, lr=1e-5,
+                           flash_instance=(128, 128)),
+    "train-danube": dict(arch="h2o-danube-1.8b", seq=4200, micro=1,
+                         accum=2, steps=6, ckpt=None, monitor=3, lr=3e-5,
+                         flash_instance=(128, 128)),   # past its 4096 window
+    "train-nemotron": dict(arch="nemotron-4-15b", seq=2048, micro=1,
+                           accum=2, steps=6, ckpt=None, monitor=3, lr=3e-6,
+                           flash_instance=(128, 128)),
+    "train-starcoder2": dict(arch="starcoder2-15b", seq=2048, micro=1,
+                             accum=2, steps=6, ckpt=None, monitor=3,
+                             lr=3e-6, flash_instance=(128, 128)),
+    "train-granite": dict(arch="granite-moe-1b-a400m", seq=2048, micro=2,
+                          accum=2, steps=6, ckpt=None, monitor=3, lr=1e-3,
+                          flash_instance=(64, 64)),
+    "train-qwen2-vl": dict(arch="qwen2-vl-7b", seq=2048, patches=256,
+                           micro=1, accum=2, steps=6, ckpt=None, monitor=3,
+                           lr=5e-6, flash_instance=(128, 128)),
+    "train-hubert": dict(arch="hubert-xlarge", seq=4096, micro=1, accum=2,
+                         steps=6, ckpt=None, monitor=3, lr=3e-4,
+                         flash_instance=(128, 128)),
+    "train-deepseek": dict(arch="deepseek-v2-236b", seq=2048, micro=1,
+                           accum=2, steps=6, ckpt=None, monitor=3, lr=3e-4,
+                           flash_instance=(192, 128),
+                           check=DEEPSEEK_MOE_CHECK),
 }
+# the training calls of flash_attention timed in train times
+TRAIN_FLASH_ROWS = tuple(f"flash_attention/{tag}" for tag, spec in
+                         TRAIN_SPECS.items() if "flash_instance" in spec)
 TRAIN_LOSS_TOL = 0.05         # |loss with kernels - loss with plain|
 TRAIN_COSINE = 0.98           # each matrix gradient, kernels vs plain
 RESUME_RTOL = 1e-3            # resumed losses against the uninterrupted
+STATE_BYTES = 20              # a parameter's training state in a step
 STRAGGLER_HOSTS, STRAGGLER_SLOW = 8, 3.0
 RECOMPUTE_RANGES = ("ssd_fused.plain_recompute",
                     "flash_attention.plain_recompute")
@@ -1575,34 +1658,85 @@ def _leaf_names(params):
             for path, _ in leaves_with_paths(params)]
 
 
-def _kernels_against_plain(cfg, params, mb, tag):
-    """Loss and gradients of one microbatch with the kernels and under
-    ``_Plain``; returns (loss gap, worst (cosine, leaf), the kernels'
-    first calls)."""
+def _cosine(a, b):
+    """The cosine of two gradients in float64, read a slice at a time
+    (``row_slices``: a float64 copy of nemotron-4-15b's 1.57 B-element
+    head would take 12.6 GB)."""
     import torch
 
-    from repro_torch.models import attention, ssm
+    from repro_torch.train.optim import row_slices
+    dot, na, nb = (torch.zeros((), dtype=torch.float64, device=a.device)
+                   for _ in range(3))
+    for x, y in zip(row_slices(a), row_slices(b)):
+        x, y = x.double(), y.double()
+        dot += (x * y).sum()
+        na += (x * x).sum()
+        nb += (y * y).sum()
+    if float(na) == float(nb) == 0.0:
+        return 1.0          # a leaf the loss does not reach (hubert's embed)
+    return float(dot / (na.sqrt() * nb.sqrt()).clamp_min(1e-30))
+
+
+def _kernels_against_plain(cfg, params, mb, tag):
+    """Loss and gradients of one microbatch with the kernels and under
+    ``_Plain``. For an MoE model a second kernel pass must give the
+    first one's loss, metrics and gradients bit for bit (the dispatch's
+    backward sums each token's k rows), the plain pass takes the kernel
+    pass's expert choices (``_Routing``: the forward's and the remat
+    recompute's), and the free-running plain loss and the tokens whose
+    own top-k differs are printed beside. Returns
+    (loss gap, loss with the kernels, plain loss, worst (cosine, leaf),
+    the kernels' first calls)."""
+    import torch
+
+    from repro_torch.models import attention, model, ssm
     from repro_torch.train.step import (TrainConfig, loss_and_grads,
                                         working_copy)
+
+    def grads():
+        return loss_and_grads(cfg, working_copy(cfg, TrainConfig(), params),
+                              mb)
     cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
                   key=_flash_key)
+    routing = _Routing()
     try:
-        loss_k, _, g_k = loss_and_grads(cfg, working_copy(
-            cfg, TrainConfig(), params), mb)
+        with routing.record():
+            loss_k, m_k, g_k = grads()
     finally:
         cap.close()
-    with _Plain():
-        loss_p, _, g_p = loss_and_grads(cfg, working_copy(
-            cfg, TrainConfig(), params), mb)
+    if routing.chosen:
+        loss_2, m_2, g_2 = grads()
+        differ = [name for name, a, b in zip(_leaf_names(params), g_k, g_2)
+                  if not torch.equal(a, b)]
+        same_m = all(torch.equal(m_k[k], m_2[k]) for k in m_k)
+        log(f"{tag}: a second kernel pass of the first microbatch: loss "
+            f"{float(loss_2)!r} (first {float(loss_k)!r}), metrics equal "
+            f"{same_m}, {len(g_k) - len(differ)} of {len(g_k)} gradients "
+            f"equal bit for bit")
+        if differ or not same_m or not torch.equal(loss_k, loss_2):
+            raise AssertionError(f"{tag}: two kernel passes differ "
+                                 f"(gradients {differ[:5]})")
+        del g_2
+        with torch.no_grad(), _Plain():
+            free = float(model.loss_fn(cfg, params, mb)[0])
+        with _Plain(), routing.replay():
+            loss_p, _, g_p = grads()
+        log(f"{tag}: dropped share {float(m_k['dropped']):.6f}, aux loss "
+            f"{float(m_k['aux_loss']):.6f}; plain loss free-running "
+            f"{free:.6f} (gap to the kernels' {abs(free - float(loss_k)):.6f});"
+            f" by call (each layer's forward, then the remat recomputes "
+            f"from the last layer), the tokens (of {mb['labels'].numel()}) "
+            f"whose own top-k experts in the plain pass differ from the "
+            f"kernel pass's choice: {routing.flips}")
+    else:
+        with _Plain():
+            loss_p, _, g_p = grads()
     worst = (2.0, "")
     for name, a, b in zip(_leaf_names(params), g_k, g_p):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{tag}: gradient {name} not finite")
         if a.dim() >= 2:
-            a64, b64 = a.double().flatten(), b.double().flatten()
-            cos = float(a64 @ b64 / (a64.norm() * b64.norm()).clamp_min(
-                1e-30))
-            worst = min(worst, (cos, name))
+            worst = min(worst, (_cosine(a, b), name))
     calls = {k: (tuple(t.detach() if hasattr(t, "detach") else t
                        for t in a), kw) for k, (a, kw) in cap.calls.items()}
     return abs(float(loss_k) - float(loss_p)), float(loss_k), \
@@ -1705,51 +1839,73 @@ def _straggler_check(dev, tag):
                              "disagree")
 
 
+def _train_cfg(arch, cut=None):
+    """(config, parameter count): ``arch``'s full config cut to ``cut`` =
+    (layers a segment, the reference's count of the cut) or, by default,
+    as TRAIN_DEPTH_CUTS says (full depth where it says nothing)."""
+    from repro_torch.configs import get_config
+    counts, n = cut or TRAIN_DEPTH_CUTS.get(arch, (None, PARAM_COUNTS[arch]))
+    return cut_depth(get_config(arch), counts), n
+
+
 def phase_train(args, dev, card, tag):
-    """``TRAIN_SPECS[tag]`` trained at full width and depth through
-    ``Trainer.run`` on the card; returns (launches, |kernel - plain| on
-    the path's own inputs by kernel, the kernels' first calls, the
-    monitor's largest fence table, a function that profiles one more step
-    of the trained state)."""
+    """``TRAIN_SPECS[tag]`` trained at full width (its depth cut as
+    TRAIN_DEPTH_CUTS says) through ``Trainer.run`` on the card; returns
+    (launches, |kernel - plain| on the path's own inputs by kernel, the
+    kernels' first calls, the monitor's largest fence table, a function
+    that profiles one more step of the trained state or None)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import (GenerationConfig, PipelineConfig,
                                   VariabilityPipeline, anomaly)
     from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import model
     from repro_torch.telemetry import KIND_TRAIN
     from repro_torch.train import (AdamWConfig, RunConfig, TrainConfig,
-                                   Trainer, init_state)
+                                   Trainer)
+    from repro_torch.train.optim import tree_map
     from repro_torch.train.step import batch_to
 
     spec = TRAIN_SPECS[tag]
-    cfg = get_config(spec["arch"])
+    cfg, n_params = _train_cfg(spec["arch"])
     micro, accum, steps = spec["micro"], spec["accum"], spec["steps"]
     tcfg = TrainConfig(optim=AdamWConfig(peak_lr=spec["lr"], warmup_steps=2,
                                          total_steps=steps),
                        grad_accum=accum)
-    dcfg = DataConfig(batch=micro * accum, seq=spec["seq"], seed=args.seed)
+    dcfg = DataConfig(batch=micro * accum, seq=spec["seq"], seed=args.seed,
+                      vlm_patches=spec.get("patches", 64))
     tokens = micro * accum * spec["seq"]
-    log(f"{tag}: {cfg.name} at full width and depth ({cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
-        f"{cfg.meta_tokens} meta tokens), float32 master weights, a "
-        f"{cfg.dtype} working copy, remat {cfg.remat!r}; microbatch "
-        f"{micro} x {spec['seq']} tokens, grad_accum {accum}, {steps} "
-        f"steps, peak lr {spec['lr']}, seed {args.seed} [{card}]")
+    state_gib = STATE_BYTES * n_params / 2**30
+    log(f"{tag}: {cfg.name} at full width ({cfg.n_layers} layers "
+        f"{[n for _, n in cfg.plan]}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.meta_tokens} meta tokens), {n_params} "
+        f"parameters, {state_gib:.1f} GiB of training state at "
+        f"{STATE_BYTES} B each; float32 master weights, a {cfg.dtype} "
+        f"working copy, remat {cfg.remat!r}; microbatch {micro} x "
+        f"{spec['seq']} positions, grad_accum {accum}, {steps} steps, peak "
+        f"lr {spec['lr']}, seed {args.seed} [{card}]")
 
-    # the first microbatch with the kernels and with the plain versions
-    state = init_state(cfg, args.seed, dev)
+    # the first microbatch with the kernels and with the plain versions, on
+    # the bfloat16 working copy alone (``spec["check"]``: a deeper cut)
+    c_cfg, c_n = _train_cfg(spec["arch"], spec.get("check"))
+    params = model.init_params(c_cfg, seed=args.seed, device=dev)
+    if model.param_count(params) != c_n:
+        raise AssertionError(f"{tag}: {model.param_count(params)} "
+                             f"parameters, the reference has {c_n}")
     mb = batch_to({k: v[:micro] for k, v in
-                   make_batch(cfg, dcfg, 0).items()}, dev)
+                   make_batch(c_cfg, dcfg, 0).items()}, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     gap, loss_k, loss_p, (cos, leaf), calls = _kernels_against_plain(
-        cfg, state["params"], mb, tag)
-    del state, mb
+        c_cfg, params, mb, tag)
+    log(f"{tag}: first microbatch on {c_cfg.n_layers} layers "
+        f"{[n for _, n in c_cfg.plan]} ({c_n} parameters), loss with the "
+        f"kernels {loss_k:.6f}, with the plain versions {loss_p:.6f} (gap "
+        f"{gap:.6f}, tolerance {TRAIN_LOSS_TOL}); smallest gradient cosine "
+        f"{cos:.6f} at {leaf} (tolerance {TRAIN_COSINE}); peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    del params, mb
     torch.cuda.empty_cache()
-    log(f"{tag}: first microbatch, loss with the kernels {loss_k:.6f}, "
-        f"with the plain versions {loss_p:.6f} (gap {gap:.6f}, tolerance "
-        f"{TRAIN_LOSS_TOL}); smallest gradient cosine {cos:.6f} at {leaf} "
-        f"(tolerance {TRAIN_COSINE})")
     if gap > TRAIN_LOSS_TOL or cos < TRAIN_COSINE:
         raise AssertionError(f"{tag}: kernels and plain versions disagree")
     errs = {}
@@ -1794,14 +1950,19 @@ def phase_train(args, dev, card, tag):
             launches = {k: fn.launches for k, fn in counters.items()}
             tc = {k: counters[k].wgmma_launches
                   for k in ("ssd_fused", "flash_attention")}
+            insts = dict(counters["flash_attention"].instances)
         finally:
             anomaly.iqr_fences = real_fences
         peak = torch.cuda.max_memory_allocated(dev)
         losses = res["losses"]
+        if model.param_count(res["state"]["params"]) != n_params:
+            raise AssertionError(f"{tag}: the trained model does not hold "
+                                 f"the reference's {n_params} parameters")
         want = _train_launches(cfg, steps * accum)
         log(f"{tag}: launches {launches}; on the tensor-core kernels {tc}; "
-            f"expected {want} (one forward and one remat recompute a layer "
-            f"a microbatch); {analyses[0]} monitor analyses, actions "
+            f"flash_attention by instantiation {insts}; expected {want} "
+            f"(one forward and one remat recompute a layer a microbatch); "
+            f"{analyses[0]} monitor analyses, actions "
             f"{[a for a, _ in res['monitor_actions']]}")
         for name, n in want.items():
             if launches[name] != n or tc[name] != n:
@@ -1809,23 +1970,29 @@ def phase_train(args, dev, card, tag):
                                      f"{launches[name]} times, {tc[name]} "
                                      f"on its tensor-core kernel; expected "
                                      f"{n}")
+        inst_want = ({spec["flash_instance"]: want["flash_attention"]}
+                     if want["flash_attention"] else {})
+        if insts != inst_want:
+            raise AssertionError(f"{tag}: flash_attention ran in {insts}, "
+                                 f"expected {inst_want}")
         if analyses[0] < 1 or launches["iqr_fences"] < analyses[0]:
             raise AssertionError(f"{tag}: {launches['iqr_fences']} "
                                  f"iqr_fences launches for {analyses[0]} "
                                  "monitor analyses")
-        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
-        log(f"{tag}: losses {np.round(losses, 4).tolist()}; mean of the "
-            f"first 3 {first:.4f}, of the last 3 {last:.4f}")
-        if not np.isfinite(losses).all() or not last < first:
-            raise AssertionError(f"{tag}: losses not finite or not falling")
         step_ms = [(e.end_ns - e.start_ns) / 1e6
                    for e in trainer.telemetry.steps if e.kind == KIND_TRAIN]
         med = float(np.median(step_ms))
         log(f"{tag}: step ms median {med:.1f} (min {min(step_ms):.1f}, max "
             f"{max(step_ms):.1f}, {len(step_ms)} steps, the first with the "
             f"warm-up); {tokens / med * 1e3:.0f} tokens/s at the median; "
-            f"peak memory {peak / 2**30:.3f} GiB; run {wall:.2f}s with its "
-            f"checkpoints and monitor [{card}]")
+            f"peak memory {peak / 2**30:.3f} GiB (the state reckoned at "
+            f"{state_gib:.1f} GiB); run {wall:.2f}s with its checkpoints "
+            f"and monitor [{card}]")
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        log(f"{tag}: losses {np.round(losses, 4).tolist()}; mean of the "
+            f"first 3 {first:.4f}, of the last 3 {last:.4f}")
+        if not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"{tag}: losses not finite or not falling")
 
         if spec["ckpt"]:
             _resume_check(cfg, tcfg, dcfg, rcfg, args, dev, work, losses,
@@ -1859,10 +2026,17 @@ def phase_train(args, dev, card, tag):
     log(f"{tag}: iqr_fences on the monitor's largest table "
         f"({table[0][0].shape[0]} scores, {table[0][0].dtype}): |kernel - "
         f"plain| {errs['iqr_fences']}")
+    if not spec.get("profile"):
+        return launches, errs, calls, table, None
+    # the trained state waits on the host for the profiles at the end, so
+    # the later phases have the card
+    state = tree_map(lambda t: t.cpu(), res["state"])
+    del res, trainer
 
     def profile():
         """One more step's device time under torch.profiler."""
-        _profile_step(cfg, tcfg, dcfg, res["state"], dev, steps, tag, card)
+        _profile_step(cfg, tcfg, dcfg, tree_map(lambda t: t.to(dev), state),
+                      dev, steps, tag, card)
     return launches, errs, calls, table, profile
 
 
@@ -3493,12 +3667,13 @@ def _flash_rows(rows, shapes, names):
 
 def phase_train_times(shapes):
     """The training paths' rows, timed after the training phases and
-    before their profiles: ssd_fused at both models' first-layer training
-    calls, flash_attention at hymba's first window call, iqr_fences at the
-    monitor's largest fence table."""
+    before their profiles: ssd_fused at mamba2's and hymba's first-layer
+    training calls, flash_attention at hymba's first window call and at
+    each other family's first-layer call, iqr_fences at the monitor's
+    largest fence table."""
     rows = {}
     _ssd_rows(rows, shapes, ("ssd_fused/train", "ssd_fused/train-hymba"))
-    _flash_rows(rows, shapes, ("flash_attention/train-hymba",))
+    _flash_rows(rows, shapes, TRAIN_FLASH_ROWS)
     (scores, occ), kw = shapes["iqr_fences/monitor"]
     rows["iqr_fences/monitor"] = iqr_row(
         _launch_counters()["iqr_fences"], _plain("iqr_fences"), scores, occ,
@@ -3565,9 +3740,8 @@ ALSO = {"binstats": ("binstats/table1",),
                        "iqr_fences/120k", "iqr_fences/monitor"),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
                       "ssd_fused/train-hymba"),
-        "flash_attention": ("flash_attention/global",
-                            "flash_attention/train-hymba") + tuple(
-            f"flash_attention/{tag}" for tag in FAMILY_PHASES),
+        "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
+        + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES),
         "rolling_stats": ("rolling_stats/stall",)}
 
 
@@ -3734,12 +3908,17 @@ def main() -> int:
     for tag in TRAIN_SPECS:
         t_launches, t_errs, t_calls, table, profile = phase_train(
             args, dev, card, tag)
-        profiles.append((tag, profile))
-        shapes[f"ssd_fused/{tag}"] = t_calls["ssd_fused"]
-        launches[f"ssd_fused/{tag}"] = t_launches["ssd_fused"]
-        if "flash_attention/window" in t_calls:
-            shapes[f"flash_attention/{tag}"] = \
-                t_calls["flash_attention/window"]
+        if profile is not None:
+            profiles.append((tag, profile))
+        if "ssd_fused" in t_calls:
+            shapes[f"ssd_fused/{tag}"] = t_calls["ssd_fused"]
+            launches[f"ssd_fused/{tag}"] = t_launches["ssd_fused"]
+        # the first window layer's call (hymba), else the first layer's
+        key = next((k for k in ("flash_attention/window",
+                                "flash_attention/global") if k in t_calls),
+                   None)
+        if key is not None:
+            shapes[f"flash_attention/{tag}"] = t_calls[key]
             launches[f"flash_attention/{tag}"] = \
                 t_launches["flash_attention"]
         launches["iqr_fences/monitor"] = launches.get(
@@ -3747,16 +3926,19 @@ def main() -> int:
         tables.append(table)
         for name, e in t_errs.items():
             errs[name] = max(errs[name], e)
+        del t_calls, profile
+        _free(dev)
         lap(tag)
     shapes["iqr_fences/monitor"] = max(tables,
                                        key=lambda c: c[0][0].shape[0])
-    del t_calls, tables
+    del tables
     times.update(phase_train_times(shapes))
     lap("train times")
     for tag, profile in profiles:       # last: the profiles are the largest
         profile()
+        _free(dev)
         lap(f"{tag} profile")
-    del profiles, profile
+    del profiles
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

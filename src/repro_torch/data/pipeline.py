@@ -11,9 +11,8 @@ frontend variants (audio frames / vision patches) the stub archs need.
 A background-thread prefetcher overlaps generation with the device step.
 
 A copy of ``repro/data/pipeline.py``: numpy only, the same bytes for
-every (seed, step, host). The audio and VLM branches are kept for the
-families still to be ported (ROADMAP Queue 1); the port's own configs
-take the LM branch.
+every (seed, step, host). hubert-xlarge takes the audio branch,
+qwen2-vl-7b the VLM one, the other configs the LM branch.
 """
 
 from __future__ import annotations

@@ -1,14 +1,22 @@
 """Training CLI::
 
-    python -m repro_torch.launch.train --arch mamba2-370m|hymba-1.5b
+    python -m repro_torch.launch.train --arch ARCH
         [--smoke] [--device cuda] [--steps 100] [--batch 8] [--seq 64]
         [--lr 3e-3] [--grad-accum 1] [--workdir DIR]
 
+``ARCH`` is any of the ten architectures: mamba2-370m, hymba-1.5b,
+stablelm-3b, h2o-danube-1.8b, nemotron-4-15b, starcoder2-15b,
+granite-moe-1b-a400m, qwen2-vl-7b, hubert-xlarge and deepseek-v2-236b.
 Trains on the card (``--device cpu`` runs the plain versions on the
-host), after ``repro/launch/train.py``: synthetic data, AdamW, periodic
-asynchronous checkpoints with auto-resume from ``--workdir``, and the
-straggler monitor on the run's own step telemetry. ``--production-mesh``
-(tensor parallelism over a mesh) is not ported yet.
+host), after ``repro/launch/train.py``: synthetic data from the pipeline
+(audio frames and a loss mask for hubert-xlarge, image patches and
+M-RoPE positions for qwen2-vl-7b), AdamW, periodic asynchronous
+checkpoints with auto-resume from ``--workdir``, and the straggler
+monitor on the run's own step telemetry. A full config must fit the card
+at 20 B a parameter of training state (the 15 B models and
+deepseek-v2-236b do not; ``--smoke`` fits anywhere).
+``--production-mesh`` (tensor parallelism over a mesh) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ import os
 import tempfile
 from typing import Optional, Sequence
 
-from ..configs import get_config, get_smoke_config
+from ..configs import ARCH_NAMES, get_config, get_smoke_config
 from ..data.pipeline import DataConfig
 from ..device import resolve_device
 from ..train import AdamWConfig, RunConfig, TrainConfig, Trainer
@@ -26,7 +34,8 @@ from ..train import AdamWConfig, RunConfig, TrainConfig, Trainer
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_NAMES,
+                    help="one of the ten architectures")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=100)

@@ -4,7 +4,8 @@ The optimizer state is a pair of trees {m, v} mirroring the parameters:
 float32 moments beside float32 master weights. Gradients may arrive in
 bfloat16 (the compressed working copy's); the update runs in float32,
 under ``torch.no_grad()``, and writes the parameters and moments in
-place, where the reference's jitted step donates them.
+place, where the reference's jitted step donates them, one slice of a
+leaf at a time (``row_slices``).
 
 Parameter trees are the port's: dictionaries of tensors, with each
 segment a list of per-layer dictionaries.
@@ -124,11 +125,28 @@ def adamw_update(cfg: AdamWConfig, grads, state: Dict, params,
                                   tree_leaves(grads),
                                   tree_leaves(state["m"]),
                                   tree_leaves(state["v"])):
-        g = g.float() * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay > 0 and _decay_mask(path) and p.dim() >= 2:
-            u = u + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
+        decay = cfg.weight_decay > 0 and _decay_mask(path) and p.dim() >= 2
+        for ps, gs, ms, vs in zip(*(row_slices(t) for t in (p, g, m, v))):
+            gs = gs.float() * scale
+            ms.copy_(cfg.b1 * ms + (1 - cfg.b1) * gs)
+            vs.copy_(cfg.b2 * vs + (1 - cfg.b2) * gs * gs)
+            u = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
+            if decay:
+                u = u + cfg.weight_decay * ps.float()
+            ps.copy_((ps.float() - lr * u).to(ps.dtype))
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+SLICE = 1 << 24      # elements of a leaf updated at a time
+
+
+def row_slices(t: torch.Tensor) -> List[torch.Tensor]:
+    """Views of ``t`` along its first axis of about ``SLICE`` elements
+    each (``t`` itself when it has no axis): the update's float32
+    temporaries stay at 64 MB however large a leaf is (nemotron-4-15b's
+    embedding and head hold 1.57 B elements each), and its arithmetic,
+    element by element, is that of the whole leaf."""
+    if t.dim() == 0 or t.numel() <= SLICE:
+        return [t]
+    rows = max(1, SLICE * t.shape[0] // t.numel())
+    return list(t.split(rows))

@@ -104,7 +104,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                 del g_i
                 lsum = lsum + loss_i
                 ms.append(m_i)
-            grads = [g / n for g in grads]
+            for g in grads:                # in place: no second float32 set
+                g.div_(n)
             loss = lsum / n
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

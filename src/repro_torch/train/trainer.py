@@ -3,8 +3,9 @@ auto-resume and the straggler monitor's hooks, after
 ``repro/train/trainer.py``.
 
 Everything runs on ``device`` (the card by default): the step's kernels
-(``ssd`` in every layer, ``flashattn`` in hymba's), and the monitor's
-fences on the ``iqr`` kernel. Each step is timed by
+(``ssd`` in every SSM and hybrid layer, ``flashattn`` in every attention
+and hybrid layer, MLA's included), and the monitor's fences on the
+``iqr`` kernel. Each step is timed by
 ``TelemetryRecorder.timed`` around work that ends by reading the loss
 back, which waits for the device.
 """

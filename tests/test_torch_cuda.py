@@ -804,6 +804,75 @@ def test_flash_function_on_card(cuda, case):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("case", [(1, 300, 8, 8, 192, 128, True, 0),
+                                  (1, 130, 4, 4, 192, 128, True, 0),
+                                  (2, 300, 16, 16, 80, 80, False, 0)],
+                         ids=str)
+def test_flash_function_split_dims_and_noncausal_on_card(cuda, case):
+    """The training calls of MLA (q and k 192, v 128, causal; a partial
+    last tile at S = 130) and of hubert (hd 80, non-causal) under
+    autograd: one tensor-core launch in the instantiation that takes the
+    head dims, and the gradients of q, k and v are autograd of the plain
+    version, equal within rtol = atol = 1e-5."""
+    from repro_torch.kernels.flashattn import (flash_attention,
+                                               flash_attention_plain)
+    b, s, H, Hkv, hd, hdv, causal, window = case
+    gen = torch.Generator(cuda).manual_seed(s + hd)
+    bf = torch.bfloat16
+    base = [torch.randn(b, s, n, d, device=cuda, generator=gen).to(bf)
+            for n, d in ((H, hd), (Hkv, hd), (Hkv, hdv))]
+    g_o = torch.randn(b, s, H, hdv, device=cuda, generator=gen).to(bf)
+    grads = []
+    before = flash_attention.wgmma_launches
+    inst = (192, 128) if hd > 128 else (128, 128)
+    n_inst = flash_attention.instances.get(inst, 0)
+    for fn in (flash_attention, flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in base]
+        out = fn(*ins, causal=causal, window=window)
+        assert out.shape == (b, s, H, hdv)
+        (out.float() * g_o.float()).sum().backward()
+        grads.append([t.grad for t in ins])
+    assert flash_attention.wgmma_launches == before + 1
+    assert flash_attention.instances[inst] == n_inst + 1
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b_.float().cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_granite_moe_backward_is_bitwise_deterministic_on_card(cuda):
+    """granite-moe-1b-a400m at full width, two of its 24 MoE layers, in
+    the bfloat16 working copy: two loss_and_grads of one microbatch of 2
+    x 1024 tokens give the same loss, metrics and gradients bit for bit
+    (the router, the stable-sort dispatch whose gather reads each token
+    k times, the fixed-order combine, their backward under remat, and
+    the attention's plain recompute)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import model
+    from repro_torch.train.step import (TrainConfig, batch_to,
+                                        loss_and_grads, working_copy)
+    full = get_config("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(full, plan=((full.plan[0][0], 2),))
+    params = model.init_params(cfg, seed=0, device=cuda)
+    batch = batch_to(make_batch(cfg, DataConfig(batch=2, seq=1024), 0),
+                     cuda)
+    runs = [loss_and_grads(cfg, working_copy(cfg, TrainConfig(), params),
+                           batch) for _ in range(2)]
+    (l1, m1, g1), (l2, m2, g2) = runs
+    assert torch.isfinite(l1) and torch.equal(l1, l2)
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+    router = [i for i, g in enumerate(g1) if g.dtype == torch.float32
+              and g.dim() == 2 and g.shape[1] == 32]
+    assert len(router) == 2 and all(bool(g1[i].abs().sum() > 0)
+                                    for i in router)
+    for a, b_ in zip(g1, g2):
+        assert torch.equal(a, b_)
+
+
 def test_train_step_on_card_against_the_plain_versions(cuda, monkeypatch):
     """A two-layer bf16 hybrid model at tensor-core shapes: loss and
     gradients with the kernels against the same step with the plain
