@@ -86,7 +86,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              version. The float32 drift of the reference oracle's formula
              (one float32 prefix over the whole series) is printed beside;
 7. delta   — a store grown by an append: the delta aggregation on the card
-             must equal a cold one bit for bit;
+             must equal a cold one bit for bit (a cache-free copy of the
+             store before the append is kept for the collective phase);
 8. diff    — ``VariabilityPipeline.diff`` of the main phase's store (A)
              against store B, the same Table-1 inventory with the kernel
              names respecialized (name variant 1) and the layer_norm family
@@ -148,7 +149,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              iqr_fences. A fresh interpreter that never touches CUDA first
              times the process backend's phase 1 at the largest rank count
              under the fork and the forkserver start methods;
-12. serve  — mamba2-370m at full width and depth (48 layers, d_model
+12. collective — the paper's collaborative merge across ranks:
+             COLLECTIVE_RANKS (4) rank processes (this script with
+             --collective-rank), all on cuda:0, in a gloo group with a
+             timeout, the kernels already built by this process. Every
+             rank runs ``VariabilityPipeline.query`` on the torch backend
+             over a cache-free copy of the main phase's store (its section
+             of each shard's rows through binstats_flat and histbin_flat
+             on the card, the tables merged across ranks, the fences on
+             every rank), then the delta phase's append onto a copy of
+             that phase's store as it was before its append (a first P =
+             4 run fills the P = 4 partial cache; phase 1 on rank 0) and a
+             cold rerun. The counters are zeroed just before and read just
+             after each run: every rank must launch binstats_flat,
+             histbin_flat and iqr_fences, and holds each against its plain
+             version on its own inputs. Every rank's result must be equal;
+             the P = 4 result must equal the main phase's P = 1 one
+             (counts, min, max, sketch counts, flags and top windows
+             exactly, sums within RTOL), and the delta its cold rerun bit
+             for bit. Each rank's seconds and the seconds of each
+             collective call are printed;
+13. serve  — mamba2-370m at full width and depth (48 layers, d_model
              1024, vocab 50280) in bfloat16, random weights drawn on the
              card from --seed, through ``ServeEngine.generate``: 8
              requests of 2048 prompt tokens, 32 new tokens each. The
@@ -161,7 +182,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              bfloat16 tolerance below) and first tokens. Device kernel
              time by name for one prefill and 8 decode steps is read
              with torch.profiler;
-13. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
+14. serve-hymba — hymba-1.5b at full width and depth (32 hybrid layers,
              3 global and 29 with window 1024, d_model 1600, vocab 32001,
              128 meta tokens) in bfloat16, random weights drawn on the card
              from --seed, through ``ServeEngine.generate``: 8 requests of
@@ -176,7 +197,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              give prefill(N)'s logits at batch 2 with a prompt longer than
              the window (the meta-token and ring bookkeeping). Device
              kernel time by name is read as in the serve phase;
-14. families — the eight families without an SSM layer at full width and (but
+15. families — the eight families without an SSM layer at full width and (but
              deepseek) depth in bfloat16, random weights drawn on the card from
              --seed, one model on the card at a time, each parameter count
              equal to the reference's: stablelm-3b (32 layers, hd 80, partial
@@ -209,7 +230,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the decode median and one profile of prefill and of 8 decode steps
              (hubert: of the forward) are printed, and the peak through the
              plain prefill;
-15. times  — each kernel, its plain version and a one-call PyTorch
+16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
              yardstick by CUDA events, then the device time of a call under
@@ -228,7 +249,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000 (a reading that saw fewer kernels than calls lost
              profiler events and is taken again, up to 4 more times);
-16. host trace — time.perf_counter_ns around each step of the
+17. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
              stream lookup, binding call and launch, result check) over
@@ -239,13 +260,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              whole wrapper call; then core.anomaly.iqr_detect at the main
              path's call over 2,000 calls, split into host prep, upload,
              kernel call, the two device-to-host reads and host ranking;
-17. train  — mamba2-370m trained at full width and depth (48 layers,
+18. train  — mamba2-370m trained at full width and depth (48 layers,
              d_model 1024, vocab 50280) through ``Trainer.run``: float32
              master weights drawn on the card from --seed, a bfloat16
              working copy, remat "full", sequences of 4096 (the
              reference's train_4k) from the port's ``make_batch``,
-             microbatch 4 x grad_accum 2, 8 steps, an asynchronous
-             checkpoint at step 6, the straggler monitor every 4 steps.
+             microbatch 4 x grad_accum 2, 6 steps, an asynchronous
+             checkpoint at step 4, the straggler monitor every 3 steps.
              First the first microbatch's loss and gradients with the
              kernels against the same under the plain versions (loss
              within 0.05, each matrix gradient's cosine >= 0.98, the
@@ -255,7 +276,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              recompute) a microbatch, every launch on the tensor-core
              kernel, and iqr_fences at least once an analysis. Losses
              finite, the mean of the last 3 below the first 3's. A second
-             Trainer resumes from the step-6 checkpoint alone: its losses
+             Trainer resumes from the step-4 checkpoint alone: its losses
              within 1e-3 relative of the run's. The run's telemetry DB
              goes through ``VariabilityPipeline`` (torch backend), and a
              recorder of 8 hosts, one 3x slower, must be flagged by
@@ -265,14 +286,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the tensor-core forward kernels, the plain recompute in
              backward (kernels under its ``record_function`` range), the
              matrix products and the rest;
-18. train-hymba — hymba-1.5b likewise (32 hybrid layers, 3 global and
+19. train-hymba — hymba-1.5b likewise (32 hybrid layers, 3 global and
              29 with window 1024, 128 meta tokens): sequences of 2048
              (2176 positions, past the window), microbatch 2 x grad_accum
              2, 6 steps, no checkpoint; flash_attention and ssd_fused
              must each launch 32 + 32 a microbatch on their tensor-core
              kernels; the plain-version check, losses and profile as in
              train;
-19. train-<family> — the eight families without an SSM layer trained
+20. train-<family> — the eight families without an SSM layer trained
              through ``Trainer.run`` at full width, one on the card at a
              time, micro 1 x grad_accum 2 (granite 2 x 2) of 2,048
              positions, 6 steps, no checkpoint, the monitor every 3 steps:
@@ -307,7 +328,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              training phases come after times and host trace, and the
              profiles last of all: in their wake the profiler lost the
              device events of short calls;
-20. reap   — stop the rank pools' forkserver and resource tracker
+21. reap   — stop the rank pools' forkserver and resource tracker
              (core.pipeline.stop_rank_pool_server) and fail if a process
              this script started, or one started below it, still runs.
 
@@ -1176,7 +1197,7 @@ def phase_main(args, work):
     stalls = [tr.kernels.memory_stall[np.argsort(tr.kernels.start,
                                                  kind="stable")]
               for tr in ds.traces]
-    return launches, errs, shapes, stalls, paths
+    return launches, errs, shapes, stalls, paths, res
 
 
 class _Plain:
@@ -1596,11 +1617,12 @@ DEEPSEEK_MOE_CHECK = ((1, 1), 4_834_391_040)
 # qwen2-vl's, whose first update moves every weight by the same lr: the
 # wider the model, the lower the rate its loss falls at), the
 # flash_attention instantiation every launch must take, and whether one
-# more step is profiled at the end. mamba2's 8 steps with the checkpoint at
-# step 6 leave the time limit room for the eight families' phases
+# more step is profiled at the end. mamba2's 6 steps with the checkpoint at
+# step 4 (cut from 12 and 9, then from 8 and 6) leave the time limit room
+# for the eight families' phases and the collective phase
 TRAIN_SPECS = {
     "train": dict(arch="mamba2-370m", seq=4096, micro=4, accum=2,
-                  steps=8, ckpt=6, monitor=4, lr=1e-3, profile=True),
+                  steps=6, ckpt=4, monitor=3, lr=1e-3, profile=True),
     "train-hymba": dict(arch="hymba-1.5b", seq=2048, micro=2, accum=2,
                         steps=6, ckpt=None, monitor=3, lr=1e-4,
                         flash_instance=(64, 64), profile=True),
@@ -2757,6 +2779,11 @@ def phase_delta(args, work):
     store = os.path.join(root, "store")
     pipe = VariabilityPipeline(_cfg(args, "torch"))
     pipe.run(paths, store)
+    # the collective phase appends the same grown DBs (the manifest keys
+    # its watermarks by path) to a copy of the store before the append,
+    # without its caches
+    copy = os.path.join(work, "collective", "delta_store")
+    _bare_copy(store, copy)
     for tr, p in zip(ds.traces, paths):
         append_rank_db(p, trace_remainder(tr, cutoff))
     delta = pipe.append(paths, store)
@@ -2779,6 +2806,7 @@ def phase_delta(args, work):
     log(f"delta: {len(a.recomputed_shards)} shards recomputed, "
         f"{a.partial_hits} from the partial cache; delta == cold bitwise "
         f"({len(b.recomputed_shards)} shards cold)")
+    return paths, copy
 
 
 # the layer_norm family of the synthetic name table (ids congruent mod 21),
@@ -3404,6 +3432,213 @@ def phase_ranks(args, work, paths, card):
     log(f"ranks: Fig 1c table {json.dumps(table)}")
 
 
+# the collective phase: rank processes on the one card, a gloo group
+COLLECTIVE_RANKS = 4
+COLLECTIVE_TIMEOUT_S = 300       # the group's; the phase's is 600 s
+COLLECTIVE_FIELDS = ("count", "sum", "sumsq", "min", "max")
+
+
+def _result_arrays(agg, anomalies):
+    """An aggregation's moment fields, sketch counts (exact in float32:
+    integer counts below 2^24), fence flags and top windows."""
+    import numpy as np
+    out = {f: getattr(agg.grouped, f) for f in COLLECTIVE_FIELDS}
+    out["quantile"] = agg.reduced["quantile"].counts.astype(np.float32)
+    out["flags"] = anomalies.flags
+    out["top_windows"] = anomalies.top_windows
+    return out
+
+
+def collective_rank(args) -> int:
+    """One rank of the collective phase, in a process of its own
+    (``chip_smoke.py --collective-rank R``): phases 2 and 3 of the main
+    phase's store, then the delta phase's append and a cold rerun, at P =
+    COLLECTIVE_RANKS in a gloo group on cuda:0. Writes its record (and,
+    on rank 0, the main store's result) under the phase's directory."""
+    import datetime
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import TraceStore, VariabilityPipeline, pipeline
+    from repro_torch.core import anomaly, distributed
+    from repro_torch.kernels import _build
+
+    root = args.collective_dir
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    torch.cuda.set_device(0)
+    _build.operators()                  # built by the parent: loaded only
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args.collective_port}",
+        rank=args.collective_rank, world_size=COLLECTIVE_RANKS,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    rank = dist.get_rank()
+    counters = _launch_counters()
+    pipe = VariabilityPipeline(_cfg(args, "torch"))
+    rec = {"rank": rank, "pid": os.getpid()}
+
+    cap = Capture(((distributed, "binstats_flat"),
+                   (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
+    try:
+        dist.barrier()
+        _zero(counters)
+        distributed.collective_times(reset=True)
+        t0 = time.perf_counter()
+        q = pipe.query(spec["main"], [pipe.cfg.to_query()])[0]
+        torch.cuda.synchronize()
+        rec["main_s"] = time.perf_counter() - t0
+        rec["main_launches"] = _path_launches(counters)
+        rec["main_collectives"] = distributed.collective_times(reset=True)
+    finally:
+        cap.close()
+    if q.cache_hit or q.result.partial_hits:
+        raise AssertionError("the P = 4 run served cached entries")
+    errs = {}
+    args_bs, _ = cap.calls["binstats_flat"]
+    errs["binstats_flat"] = moments_err(counters["binstats_flat"](*args_bs),
+                                        _plain("binstats_flat")(*args_bs))
+    args_hb, _ = cap.calls["histbin_flat"]
+    errs["histbin_flat"] = hist_err(counters["histbin_flat"](*args_hb),
+                                    _plain("histbin_flat")(*args_hb))
+    args_iq, kw_iq = cap.calls["iqr_fences"]
+    errs["iqr_fences"] = iqr_err(counters["iqr_fences"](*args_iq, **kw_iq),
+                                 _plain("iqr_fences")(*args_iq, **kw_iq))
+    rec["errs"], rec["rows"] = errs, int(args_bs[0].shape[0])
+    arrays = _result_arrays(q.result, q.anomalies)
+    digest = hashlib.sha256()
+    for k in sorted(arrays):
+        digest.update(np.ascontiguousarray(arrays[k]).tobytes())
+    rec["main_digest"] = digest.hexdigest()
+    if rank == 0:
+        np.savez(os.path.join(root, "main_p4.npz"), **arrays)
+    del q, arrays
+
+    # the delta phase's store before its append: a P = 4 run fills the
+    # P = 4 partial namespace, the append's delta reads it back
+    store = spec["delta_store"]
+    pipe.aggregate(store)
+    _zero(counters)
+    distributed.collective_times(reset=True)
+    t0 = time.perf_counter()
+    delta = pipe.append(spec["delta_paths"], store)
+    torch.cuda.synchronize()
+    rec["delta_s"] = time.perf_counter() - t0
+    rec["delta_launches"] = _path_launches(counters)
+    rec["delta_collectives"] = distributed.collective_times(reset=True)
+    agg = delta.aggregation
+    if agg.partial_hits < 1 or not agg.recomputed_shards:
+        raise AssertionError("the P = 4 delta served no partial or "
+                             "recomputed nothing")
+    cold_dir = os.path.join(root, "cold")
+    if rank == 0:
+        _bare_copy(store, cold_dir)
+    dist.barrier()
+    t0 = time.perf_counter()
+    cold = pipe.aggregate(cold_dir)
+    torch.cuda.synchronize()
+    rec["cold_s"] = time.perf_counter() - t0
+    if cold.partial_hits != 0:
+        raise AssertionError("the P = 4 cold run read cached partials")
+    for f in COLLECTIVE_FIELDS:
+        np.testing.assert_array_equal(getattr(agg.grouped, f),
+                                      getattr(cold.grouped, f))
+    np.testing.assert_array_equal(agg.reduced["quantile"].counts,
+                                  cold.reduced["quantile"].counts)
+    rec["delta_shards"] = [len(agg.recomputed_shards), agg.partial_hits,
+                           len(cold.recomputed_shards)]
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    pipeline.stop_rank_pool_server()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_collective(args, work, main_res, delta_copy, card):
+    """The paper's collaborative merge across ranks: COLLECTIVE_RANKS
+    rank processes on cuda:0 in a gloo group run phases 2 and 3 of a copy
+    of the main phase's store, then the delta phase's append and a cold
+    rerun; the P = 4 result must equal the main phase's P = 1 one and the
+    delta its cold rerun bit for bit."""
+    import socket
+
+    import numpy as np
+
+    root = os.path.join(work, "collective")
+    os.makedirs(root, exist_ok=True)
+    main_copy = os.path.join(root, "main")
+    _bare_copy(os.path.join(work, "store"), main_copy)
+    delta_paths, delta_store = delta_copy
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump({"main": main_copy, "delta_paths": delta_paths,
+                   "delta_store": delta_store}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+           str(args.seed), "--ranks", str(args.ranks), "--duration",
+           str(args.duration), "--collective-dir", root,
+           "--collective-port", str(port), "--collective-rank"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(COLLECTIVE_RANKS)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            _, err = p.communicate(
+                timeout=max(600 - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            _, err = p.communicate()
+            failed.append(f"rank {r} timed out: {err[-2000:]}")
+            continue
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}: {err[-3000:]}")
+    seconds = time.perf_counter() - t0
+    if failed:
+        raise AssertionError("collective: " + "\n".join(failed))
+    recs = []
+    for r in range(COLLECTIVE_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    for rec in recs:
+        for key in ("main_launches", "delta_launches"):
+            _need_launches(f"collective rank {rec['rank']} ({key})",
+                           rec[key])
+        calls = {}
+        for name, s in rec["main_collectives"]:
+            calls.setdefault(name, []).append(round(s, 4))
+        log(f"collective rank {rec['rank']} (pid {rec['pid']}): "
+            f"{rec['rows']} rows of the main store in its section; "
+            f"phases 2+3 {rec['main_s']:.3f}s, launches "
+            f"{rec['main_launches']}; delta {rec['delta_s']:.3f}s, launches "
+            f"{rec['delta_launches']}; cold {rec['cold_s']:.3f}s; "
+            f"collective seconds in phases 2+3 {calls}; |kernel - plain| "
+            f"on its inputs {rec['errs']} [{card}]")
+    if len({rec["main_digest"] for rec in recs}) != 1:
+        raise AssertionError("the ranks' P = 4 results differ")
+    got = dict(np.load(os.path.join(root, "main_p4.npz")))
+    want = _result_arrays(main_res.aggregation, main_res.anomalies)
+    for f in ("count", "min", "max", "quantile", "flags", "top_windows"):
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    for f in ("sum", "sumsq"):
+        np.testing.assert_allclose(got[f], want[f], rtol=RTOL, err_msg=f)
+    recomputed, hits, cold = recs[0]["delta_shards"]
+    log(f"collective: {COLLECTIVE_RANKS} ranks on cuda:0 over gloo; P = "
+        f"{COLLECTIVE_RANKS} == the main phase's P = 1 (counts, min, max, "
+        f"sketch counts, {int(want['flags'].sum())} flags and the top "
+        f"windows exact, sums rtol {RTOL}); every rank's result equal; "
+        f"delta ({recomputed} shards recomputed, {hits} from the P = 4 "
+        f"partial cache) == cold ({cold} shards) bitwise; {seconds:.3f}s "
+        f"[{card}]")
+    return seconds
+
+
 def _time_ms(fn, iters=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -3776,6 +4011,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--duration", type=float, default=120.0)
+    # one rank of the collective phase (started by that phase)
+    for flag, kind in (("--collective-rank", int), ("--collective-port", int),
+                       ("--collective-dir", str)):
+        ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3792,6 +4031,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.collective_rank is not None:
+        return collective_rank(args)
     from repro_torch.kernels import _build
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3829,7 +4070,8 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches, errs, shapes, stalls, paths = phase_main(args, work)
+        launches, errs, shapes, stalls, paths, main_res = phase_main(
+            args, work)
         log(f"kernels on the main path's inputs, largest |kernel - plain|:"
             f" {errs}")
         lap("main")
@@ -3837,7 +4079,7 @@ def main() -> int:
             dev, stalls)
         del stalls
         lap("stall")
-        phase_delta(args, work)
+        delta_copy = phase_delta(args, work)
         lap("delta")
         d_errs = phase_diff(args, work, card)
         for name, e in d_errs.items():
@@ -3849,6 +4091,9 @@ def main() -> int:
         lap("stream")
         phase_ranks(args, work, paths, card)
         lap("ranks")
+        phase_collective(args, work, main_res, delta_copy, card)
+        del main_res
+        lap("collective")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # binstats' timestamp form and rolling_stats run on the micro path; the

@@ -24,7 +24,11 @@ Layout (one module per paper concept, as in :mod:`repro.core`):
                 alignment across stores, per-(bin, group) distribution
                 shift off the cached sketches, ranked DiffReport with a
                 pass/regressed verdict CI can gate on
-  distributed   device entry points over the kernels (world size 1)
+  distributed   device entry points over the kernels, and their merge
+                across the ranks of a torch.distributed group (one
+                process a rank: all_to_all + rank-order adds + all_gather)
+  group         the process group: world size, rank, rank-0 writes with
+                a barrier, and the plan check that fails every rank
   pipeline      the end-to-end entry (serial | process | torch backends;
                 phase 1 of process and torch on a rank process pool) with the
                 append -> delta-aggregate -> re-fence loop, the two-store

@@ -70,6 +70,10 @@ post-segment-reduce tensors and cached in a
 ``precision="torch-float32"`` partial namespace — so after an append the
 kernels run only over the appended rows, and clean shards re-enter the
 merge as host partials without touching the device.
+Inside a ``torch.distributed`` group of P > 1 ranks the torch producer
+splits each dirty shard's rows across the ranks and merges their device
+tables (:mod:`repro_torch.core.distributed`); every rank runs the same
+plan and rank 0 alone writes (:func:`execute_plan`).
 
 Declarative query engine
 ------------------------
@@ -93,6 +97,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import hashlib
 import os
 import threading
 import time
@@ -103,6 +108,7 @@ import numpy as np
 
 import collections
 
+from .group import _rank, _world_size, agree, on_rank0, refuse_in_group
 from .query import (DEFAULT_METRIC, LanePlan, Query, QueryPlan,
                     QueryResult)
 from .reducers import (BinStats, QuantileSketch, get_reducer,
@@ -841,6 +847,12 @@ def _slotwise_device_partition(counts: Sequence[int], n_dev: int,
     return row, valid
 
 
+def _digest(obj) -> str:
+    """A short hash of ``repr(obj)``, equal in every process (unlike
+    ``hash`` of a string)."""
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:12]
+
+
 # Host-side figures of the calling thread's last torch producer run, one
 # entry per reducer suite batch: rows reduced, segments, and the seconds
 # spent building the segment order (read by chip_smoke.py; nothing in the
@@ -879,17 +891,30 @@ def compute_lane_partials_torch(store: TraceStore,
     the padding never touches a kept metric's sums.
 
     Row order is what both bit-identity guarantees (delta vs cold, fused
-    batch vs standalone) rest on. Rows are taken slot-wise
-    (:func:`_slotwise_device_partition`, one device), then put in a
-    stable order by segment within each slot — one stable argsort of the
-    concatenated ids, since slots own disjoint, increasing segment
-    ranges. The binstats kernel walks each segment's rows in that order,
-    so every slot's float32 partial is a fixed-order function of its own
-    rows, whatever else is in the batch. The ordered ids, values and
-    valid mask are uploaded ONCE per suite and shared by its reducers.
+    batch vs standalone) rest on. Rows are split slot-wise over the
+    process group's P ranks (:func:`_slotwise_device_partition`): rank r
+    keeps rows ``[r*n/P, (r+1)*n/P)`` of every slot (the valid rows of
+    its block ``[r*width, (r+1)*width)``; P = 1 without a group), then
+    puts them in a stable order by segment within each slot — one stable
+    argsort of the concatenated ids, since slots own disjoint,
+    increasing segment ranges. The binstats kernel walks each segment's
+    rows in that order, so every rank's float32 partial of a slot is a
+    fixed-order function of that slot's rows alone, and the merge across
+    ranks (:func:`~repro_torch.core.distributed._collaborative_reduce`)
+    adds the P partials in rank order wherever the slot sits, whatever
+    else is in the batch. The ordered ids, values and valid mask are
+    uploaded ONCE per suite and shared by its reducers.
+
+    At P > 1 every rank reads every dirty shard (the price of keeping
+    the reference's row split: each rank needs its section of every
+    slot), the ranks first agree on the batches' shapes (each suite's
+    hash, segments, metrics and slots) and every rank raises when they
+    differ; the merged tables are replicated, and rank 0 alone writes
+    the partial packs, every rank waiting for it.
 
     With ``persist``, each partial lands in its lane's
-    ``precision="torch-float32"`` partial namespace stamped with the
+    ``precision="torch-float32"`` partial namespace (``-p<P>`` at P > 1,
+    see :func:`~repro_torch.core.query.lane_precision`) stamped with the
     shard fingerprint — the cache a later delta serves clean shards from
     without touching the device.
     """
@@ -912,19 +937,29 @@ def compute_lane_partials_torch(store: TraceStore,
     # [off_k, off_k + B_k*G_k) in scan order, one batch per reducer suite
     stats: List[Dict[str, float]] = []
     _PRODUCER.stats = stats
+    world, rank = _world_size(), _rank()
     all_live = [s for s in scans if s[3] is not None]
     groups: Dict[Tuple[str, ...], List] = {}
     for s in all_live:
         groups.setdefault(lanes[s[0]].reducers, []).append(s)
+    shapes, plan = {}, []
     for suite, live in groups.items():
-        m_max = max(len(lanes[li].metrics) for li, _, _, _ in live)
         seg_sizes = [len(sp.bins) * len(sp.group_keys)
                      for _, _, sp, _ in live]
         seg_offs = np.concatenate([[0], np.cumsum(seg_sizes)])
-        n_seg = int(seg_offs[-1])
         # segment count rounded up to a 128 multiple, as the reference
         # does: the surplus segments receive no rows and are never sliced
-        n_seg_dev = -(-max(n_seg, 1) // 128) * 128
+        n_seg_dev = -(-max(int(seg_offs[-1]), 1) // 128) * 128
+        m_max = max(len(lanes[li].metrics) for li, _, _, _ in live)
+        shapes[suite] = (seg_offs, n_seg_dev, m_max)
+        slots = [(li, sp.idx, len(rows[0])) for li, _, sp, rows in live]
+        plan.append((_digest(suite), n_seg_dev, m_max, len(live),
+                     _digest(slots)))
+    # a plan that differs across ranks fails on every rank here, before
+    # a collective that some ranks would never enter
+    agree("device batches", plan)
+    for suite, live in groups.items():
+        seg_offs, n_seg_dev, m_max = shapes[suite]
         seg_all = np.concatenate(
             [local_bin * len(sp.group_keys) + gids + seg_offs[k]
              for k, (_, _, sp, (_, _, local_bin, gids))
@@ -937,17 +972,19 @@ def compute_lane_partials_torch(store: TraceStore,
             vals_parts.append(v)
         vals_all = np.concatenate(vals_parts, axis=1)
         row, valid = _slotwise_device_partition(
-            [len(rows[0]) for _, _, _, rows in live], 1)
+            [len(rows[0]) for _, _, _, rows in live], world)
         t_order = time.perf_counter()
+        width = row.shape[0] // world
+        block = slice(rank * width, (rank + 1) * width)
+        row = row[block][valid[block]]        # this rank's section
         seg_p = seg_all[row].astype(np.int32)
-        seg_p[~valid] = 0
         order = np.argsort(seg_p, kind="stable")
-        seg_p, row, valid = seg_p[order], row[order], valid[order]
+        seg_p, row = seg_p[order], row[order]
         order_s = time.perf_counter() - t_order
         seg_t = torch.from_numpy(seg_p).to(device)
         vals_t = torch.from_numpy(
             np.ascontiguousarray(vals_all[:, row], np.float32)).to(device)
-        valid_t = torch.from_numpy(valid).to(device)
+        valid_t = torch.ones(seg_p.shape, dtype=torch.bool, device=device)
         stats.append({"rows": int(seg_p.shape[0]), "n_seg": n_seg_dev,
                       "metrics": m_max, "order_seconds": order_s})
         reduced = {name: get_reducer(name).device_reduce(
@@ -972,9 +1009,11 @@ def compute_lane_partials_torch(store: TraceStore,
                 sp, lane.plan, lane.metrics, lane.query.group_by, fp)
         out[li].append(sp)
     # one pack write per shard, all lanes batched — same consolidation
-    # as the host producer
-    for idx, batch in batches.items():
-        store.write_partials(int(idx), batch)
+    # as the host producer; rank 0 alone writes, every rank waits for it
+    def write():
+        for idx, batch in batches.items():
+            store.write_partials(int(idx), batch)
+    on_rank0(write, "the partial-pack writes")
     return out
 
 
@@ -1149,9 +1188,13 @@ def finalize_aggregation(store: TraceStore, plan: ShardPlan,
     if key is not None:
         if covered is None:
             covered = store.shard_fingerprint()
-        store.write_summary(key, summary_payload(
-            plan, metrics, group_by, result.group_keys, merged,
-            kind_bytes, covered=covered))
+        payload = summary_payload(plan, metrics, group_by,
+                                  result.group_keys, merged, kind_bytes,
+                                  covered=covered)
+
+        def write():
+            store.write_summary(key, payload)
+        on_rank0(write, "the summary write")   # rank 0 writes, all wait
     return result
 
 
@@ -1301,9 +1344,21 @@ def execute_plan(qplan: QueryPlan, use_cache: bool = True,
     :class:`ScanPool` — dirty shards scan concurrently and pack appends
     ride the pool's single writer; results stay bit-identical to the
     serial scan (ignored by the torch backend and ``compute_fn``).
+
+    Inside a ``torch.distributed`` group of P > 1 ranks every rank runs
+    this on the same store (the torch backend only, with its own
+    producer): the ranks agree on the plan (lanes, cache hits, dirty
+    shards) and raise together if it differs, reduce their sections of
+    the dirty rows and merge them across ranks, and rank 0 alone writes
+    packs and summaries while the others wait; every rank returns the
+    same results.
     """
     t0 = time.perf_counter()
     store = qplan.store
+    if qplan.backend != "torch":
+        refuse_in_group(f"the {qplan.backend!r} backend")
+    if compute_fn is not None:
+        refuse_in_group("a custom compute_fn")
     results: List[Optional[QueryResult]] = [None] * len(qplan.lanes)
     # batch-level dedupe: lanes whose canonical identity coincides
     # (reordered metrics/reducers, equivalent predicates) share ONE
@@ -1339,6 +1394,7 @@ def execute_plan(qplan: QueryPlan, use_cache: bool = True,
             lane.summary_key = None
         live.append(i)
 
+    work_items: List[Tuple[int, List[int]]] = []
     if live:
         # ONE (memoized) stat pass serves every lane's dirty
         # classification AND the summaries' covered fingerprints
@@ -1366,6 +1422,14 @@ def execute_plan(qplan: QueryPlan, use_cache: bool = True,
             for s in dirty:
                 work.setdefault(int(s), []).append(i)
         work_items = sorted(work.items())
+    # at P > 1 every rank must hold the same lanes, cache hits and dirty
+    # shards (they read one store that rank 0 alone writes): if any
+    # differs, every rank raises here rather than wait in a collective
+    agree("query plans", [
+        [(lane.query.cache_key(), lane.precision, lane.plan.t_start,
+          lane.plan.t_end, lane.plan.n_shards) for lane in qplan.lanes],
+        live, work_items])
+    if live:
         if compute_fn is not None:
             fresh = compute_fn(work_items, qplan, use_cache)
         elif qplan.backend == "torch":
@@ -1455,6 +1519,7 @@ def run_incremental(store: TraceStore, n_shard_files: int, plan: ShardPlan,
     with the canonical engine (each side overwrites the other's files).
     Pass metrics sorted, or use :func:`run_queries` /
     :func:`run_aggregation`, which canonicalize for you."""
+    refuse_in_group("run_incremental (the host engine)")
     mlist = list(metrics)
     suite = normalize_reducers(reducers)
     # ONE (memoized) stat pass serves dirty classification AND the

@@ -1,12 +1,48 @@
 """Device backend for the paper's collaborative analysis, in PyTorch.
 
 The reference backend (``repro.core.distributed``) maps the paper's MPI
-ranks onto mesh devices: each device reduces its block of rows, then a
-round-robin ``psum_scatter`` + ``all_gather`` (and ``pmin``/``pmax``)
-merges the per-device tables. This port runs on one card, so that merge is
-the identity (:func:`_collaborative_sum`, :func:`_collaborative_reduce`);
-a ``torch.distributed`` group with more than one rank is refused until the
-multi-rank merge is ported.
+ranks onto mesh devices under one controller: each device reduces its
+block of rows, then a round-robin ``psum_scatter`` + ``all_gather`` (and
+``pmin``/``pmax``) merges the per-device tables. The port runs one process
+a rank (SPMD): every rank calls the same entry point inside the default
+``torch.distributed`` process group that its caller set up (``torchrun``,
+or ``init_process_group`` with an address, a world size and a rank), and
+the merge runs over whatever backend that group has, gloo or NCCL; the
+port picks none itself. Without a group, or in a group of one, the merge
+is the identity.
+
+The merge across P ranks (:func:`_collaborative_reduce`):
+
+  * the additive channels (count, sum, sumsq; the sketch's bucket
+    counts) ride :func:`_collaborative_sum`: the table is padded along
+    its segment axis to a multiple of P and cut into P contiguous
+    blocks, block r owned by rank r as in the reference's tiled
+    ``psum_scatter``; one ``all_to_all_single`` hands each rank the P
+    copies of its block, which it adds in ascending rank order with
+    plain elementwise adds; one ``all_gather`` rebuilds the table on
+    every rank. The library's ``reduce_scatter`` / ``all_reduce(SUM)``
+    are not used for these: a ring sums an element in an order that
+    depends on the chunk it falls in, chunks depend on the table's
+    length, and a shard's segments sit at other offsets in a delta run
+    than in a cold one, so its float32 sums would change. Here every
+    element is ``b[0] + b[1] + ... + b[P-1]`` wherever it sits;
+  * min and max ride ``all_reduce`` MIN and MAX, exact in any order.
+
+The ±3.4e38 sentinels survive both (a sum of zeros, a min or max against
+the sentinel), and so does the kernels' order verdict: a NaN count on
+any rank lands in the owning rank's sum and is gathered by every rank,
+so every rank's ``device_reduce`` raises, and none waits on the others.
+gloo takes CUDA tensors for these three collectives (it stages them
+through the host itself), so the tables stay on the card between the
+kernels and the merge. ``collective_times()`` records the host seconds
+of each collective call, waits for slower ranks included.
+
+The process-group plumbing of the pipeline above lives in
+:mod:`repro_torch.core.group` (the world size, rank and collective
+times are re-exported here): ``on_rank0`` (a store write or phase 1 on
+rank 0 alone, every rank waiting for it and raising if it failed) and
+``agree`` (every rank raises when the ranks' plans differ, rather than
+wait in a collective the others never enter).
 
 Where the reference calls ``jax.ops.segment_*``, the port calls its own
 CUDA kernels on CUDA tensors, and their plain PyTorch versions on CPU
@@ -24,8 +60,9 @@ tensors:
     form (float32 timestamps relative to the trace start);
   * :func:`distributed_iqr` — the ``iqr`` kernel.
 
-Results stay on the input's device; every table keeps the reference's
-layout and its ±3.4e38 min/max sentinels.
+Each rank passes its own rows; results are replicated on every rank and
+stay on the input's device; every table keeps the reference's layout and
+its ±3.4e38 min/max sentinels.
 """
 
 from __future__ import annotations
@@ -33,28 +70,19 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.binstats.ops import binstats, binstats_flat, disordered
 # bucketize: the quantile sketch's float32 log2 bucket, shared with the
 # histbin kernel's plain version (re-exported as the reference does)
 from ..kernels.histbin.ops import bucketize, histbin_flat  # noqa: F401
 from ..kernels.iqr.ops import iqr_fences
+# the process-group plumbing lives in .group (no kernel imports, so the
+# engine can import it at module level)
+from .group import _rank, _timed, _world_size, collective_times  # noqa: F401
 from .reducers import N_BUCKETS
 
 STATS = 5   # count, sum, sumsq, min, max
-
-
-def _world_size() -> int:
-    """1 unless a ``torch.distributed`` group is up; more than one rank
-    is not supported yet."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        ws = torch.distributed.get_world_size()
-        if ws > 1:
-            raise NotImplementedError(
-                f"the collaborative merge across {ws} ranks is not ported "
-                "yet; run at world size 1")
-        return ws
-    return 1
 
 
 def _valid_or_all(valid: Optional[torch.Tensor],
@@ -108,18 +136,50 @@ def derive(stats: torch.Tensor) -> dict:
 
 
 def _collaborative_sum(vals: torch.Tensor, dim: int) -> torch.Tensor:
-    """Round-robin additive merge along ``dim`` across ranks: the
-    identity at world size 1."""
-    _world_size()
-    return vals
+    """Round-robin additive merge along ``dim`` across the group's P
+    ranks; the identity at P = 1. ``dim`` is padded to a multiple of P
+    and cut into P contiguous blocks, block r owned by rank r; one
+    ``all_to_all_single`` brings rank r the P ranks' copies of block r,
+    added in ascending rank order; one ``all_gather`` of the owned
+    blocks rebuilds the table on every rank. Each element is the same
+    fixed-order sum wherever it sits in the table."""
+    world = _world_size()
+    if world == 1:
+        return vals
+    n = vals.shape[dim]
+    x = vals.movedim(dim, 0)
+    blk = -(-n // world)
+    if blk * world != n:
+        x = torch.cat([x, x.new_zeros((blk * world - n,) + x.shape[1:])])
+    x = x.contiguous()
+    recv = torch.empty_like(x)
+    _timed("all_to_all_single",
+           lambda: dist.all_to_all_single(recv, x))
+    parts = recv.view((world, blk) + x.shape[1:])
+    owned = parts[0]
+    for r in range(1, world):
+        owned = owned + parts[r]
+    owned = owned.contiguous()
+    blocks = [torch.empty_like(owned) for _ in range(world)]
+    _timed("all_gather", lambda: dist.all_gather(blocks, owned))
+    return torch.cat(blocks)[:n].movedim(0, dim).contiguous()
 
 
 def _collaborative_reduce(local: torch.Tensor) -> torch.Tensor:
-    """Round-robin merge of a (..., n_bins, 5) moment table across ranks
-    (sums scattered and gathered, min/max all-reduced): the identity at
-    world size 1."""
-    _world_size()
-    return local
+    """Round-robin merge of a (..., n_bins, 5) moment table across the
+    group's ranks; the identity at P = 1. count, sum and sumsq ride
+    :func:`_collaborative_sum` along the bin axis (all metrics in one
+    exchange); min and max ride ``all_reduce`` MIN and MAX."""
+    if _world_size() == 1:
+        return local
+    sums = _collaborative_sum(local[..., :3], local.ndim - 2)
+    mn = local[..., 3].clone(memory_format=torch.contiguous_format)
+    mx = local[..., 4].clone(memory_format=torch.contiguous_format)
+    _timed("all_reduce_min",
+           lambda: dist.all_reduce(mn, op=dist.ReduceOp.MIN))
+    _timed("all_reduce_max",
+           lambda: dist.all_reduce(mx, op=dist.ReduceOp.MAX))
+    return torch.cat([sums, mn[..., None], mx[..., None]], dim=-1)
 
 
 def distributed_binstats_from_bins(bin_ids: torch.Tensor,

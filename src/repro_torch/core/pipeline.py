@@ -78,6 +78,18 @@ float32 device report never answers an exact diff.
 and the streaming ingest plane (:mod:`repro_torch.serve`) on the same
 backend and device.
 
+Process groups. Inside a ``torch.distributed`` group of P > 1 ranks (one
+process a rank, set up by the caller), every rank calls the same method on
+the same store and gets the same result: phase 1 (``generate``, ``run``,
+``append``) runs on rank 0's rank pool while the others wait; phase 2 on
+the ``torch`` backend splits each dirty shard's rows across the ranks and
+merges their tables (:mod:`repro_torch.core.distributed`); phase 3's
+fences run on every rank over the replicated table; rank 0 alone writes
+the store (partial packs, summaries, the diff cache), each write followed
+by a barrier (:mod:`repro_torch.core.group`). ``serial`` and ``process``,
+``serve`` and ``stream`` raise there (ROADMAP.md); nothing falls back to
+one rank.
+
 The phases and their timings are reported separately (the paper's Fig 1c
 plots Data Generation vs Data Aggregation duration vs #ranks).
 """
@@ -108,6 +120,7 @@ from .query import (LanePlan, Query, QueryPlan, QueryResult,
 from .reducers import normalize_reducers
 from .anomaly import (IQRReport, anomalous_bins, is_quantile_score,
                       report_for_query, top_variability_bins)
+from .group import _world_size, on_rank0, refuse_in_group
 from .generation import (AppendReport, GenerationConfig, GenerationReport,
                          _resolve_sources, generate_rank,
                          generation_manifest_extra, global_time_range,
@@ -355,9 +368,24 @@ class VariabilityPipeline:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # -- process-group checks ------------------------------------------------
+    def _check_group(self, what: str) -> None:
+        """Inside a group of P > 1 ranks only the torch backend runs."""
+        if self.cfg.backend != "torch":
+            refuse_in_group(f"{what} on the {self.cfg.backend!r} backend")
+
     # -- phase 1 -------------------------------------------------------------
     def generate(self, db_paths: Sequence[str], out_dir: str,
                  ) -> GenerationReport:
+        """Phase 1 into ``out_dir``. In a group of P > 1 ranks it runs on
+        rank 0 (on its rank pool) while the other ranks wait, and every
+        rank returns rank 0's report."""
+        self._check_group("phase 1")
+        return on_rank0(lambda: self._generate(db_paths, out_dir),
+                        "phase 1")
+
+    def _generate(self, db_paths: Sequence[str], out_dir: str,
+                  ) -> GenerationReport:
         cfg, gen = self.cfg, self.cfg.generation
         t0 = time.perf_counter()
         # one sniff per source here; workers re-resolve from the pickled
@@ -471,6 +499,7 @@ class VariabilityPipeline:
         rest of the caches by ``use_summary_cache=False``.
         """
         from .diff import DiffReport, diff_results
+        self._check_group("diff")
         t0 = time.perf_counter()
         base = query if query is not None else self.cfg.to_query()
         dq = diff_query(base)
@@ -510,11 +539,13 @@ class VariabilityPipeline:
             shard_reads_a=reads_a, shard_reads_b=reads_b,
             seconds=time.perf_counter() - t0)
         if fp is not None:
-            tmp = cache_path + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump({"store_fingerprint": fp,
-                           "report": rep.to_payload()}, f)
-            os.replace(tmp, cache_path)
+            def write():
+                tmp = cache_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"store_fingerprint": fp,
+                               "report": rep.to_payload()}, f)
+                os.replace(tmp, cache_path)
+            on_rank0(write, "the diff cache write")  # rank 0 writes
         return rep
 
     def _diff_fingerprint(self, store_a: str, store_b: str,
@@ -534,11 +565,12 @@ class VariabilityPipeline:
                        for s in (store_a, store_b)],
             "thresholds": (None if thresholds is None
                            else thresholds.to_dict()),
-            "precision": lane_precision(self.cfg.backend),
+            "precision": lane_precision(self.cfg.backend, _world_size()),
         }
 
     def _run_queries(self, store_dir: str,
                      queries: Sequence[Query]) -> List[QueryResult]:
+        self._check_group("phase 2")
         cfg = self.cfg
         qplan = QueryPlan.compile(store_dir, list(queries),
                                   backend=cfg.backend,
@@ -597,8 +629,11 @@ class VariabilityPipeline:
         partial cache, only dirty/new shard files are rescanned — and
         re-fence the anomalies. End-to-end O(dirty shards); the refreshed
         result is bit-identical to a cold full re-analysis on the same
-        backend."""
-        rep = run_append(db_paths, work_dir)
+        backend. In a group of P > 1 ranks the append runs on rank 0
+        while the other ranks wait, and the delta runs on every rank."""
+        self._check_group("append")
+        rep = on_rank0(lambda: run_append(db_paths, work_dir),
+                       "phase 1 (append)")
         return self._analyze(rep, work_dir)
 
     def serve(self, store_dir: str, host: str = "127.0.0.1",

@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .group import _world_size
 from .reducers import normalize_reducers
 from .sharding import ShardPlan
 
@@ -275,12 +276,19 @@ class Query:
         return keep
 
 
-def lane_precision(backend: str) -> str:
+def lane_precision(backend: str, world: int = 1) -> str:
     """The cache namespace a backend's partials, summaries and diff
     reports live in: torch results get their own, never served to (or
     by) the exact host path or another package's float32 one; ``serial``
-    and ``process`` share ``"exact"`` (the same bits)."""
-    return "torch-float32" if backend == "torch" else "exact"
+    and ``process`` share ``"exact"`` (the same bits). A torch partial's
+    float32 sums are a function of how its rows were split across the
+    ``world`` ranks that reduced them, so a group of P > 1 ranks keeps
+    ``"torch-float32-p<P>"`` apart: a delta never merges partials of
+    another split, and stays bit-identical to a cold run at its own P
+    (the reference's jax namespace is one for every mesh size)."""
+    if backend != "torch":
+        return "exact"
+    return "torch-float32" if world == 1 else f"torch-float32-p{world}"
 
 
 # -- diff specs (two-store comparison; see repro_torch.core.diff) ----------
@@ -394,7 +402,7 @@ class QueryPlan:
         dev = resolve_device(device) if backend == "torch" else None
         man = store.read_manifest()
         file_plan = ShardPlan(man.t_start, man.t_end, man.n_shards)
-        precision = lane_precision(backend)
+        precision = lane_precision(backend, _world_size())
         lanes = []
         for q in queries:
             if not isinstance(q, Query):

@@ -166,6 +166,7 @@ import numpy as np
 from repro_torch.core.aggregation import ScanPool
 from repro_torch.device import resolve_device
 from repro_torch.core.anomaly import report_for_query
+from repro_torch.core.group import _world_size
 from repro_torch.core.generation import run_append
 from repro_torch.core.query import Query, QueryPlan
 from repro_torch.core.reducers import N_BUCKETS, QuantileSketch, bucket_of
@@ -444,6 +445,11 @@ class QueryService:
 
     def __init__(self, store_dir: str,
                  cfg: Optional[ServiceConfig] = None) -> None:
+        world = _world_size()
+        if world > 1:
+            raise RuntimeError(
+                f"a query service in a group of {world} ranks: serving and "
+                "streaming across ranks are not ported yet (ROADMAP.md)")
         self.cfg = cfg or ServiceConfig()
         self.store = TraceStore(store_dir)
         self.man = self.store.read_manifest()

@@ -963,3 +963,55 @@ def test_granite_moe_layer_on_card_against_the_plain_version(cuda,
     assert float(m_k["dropped"]) == float(m_p["dropped"])
     err = (y_k.float() - y_p.float()).norm() / y_p.float().norm()
     assert float(err) <= 2 ** -6
+
+
+# the rank processes of the merge test below: two ranks on the one card,
+# over gloo, each holding its own moment table on the card
+_MERGE_RANK = """
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.core.distributed import _collaborative_reduce
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+torch.cuda.set_device(0)
+tables = []
+for r in range(2):
+    rng = np.random.default_rng(100 + r)
+    t = rng.normal(0, 1e4, (3, 1001, 5)).astype(np.float32)
+    t[..., 0] = rng.integers(0, 50, (3, 1001))
+    t[:, ::7, 3], t[:, ::7, 4] = 3.4e38, -3.4e38     # empty cells
+    tables.append(torch.from_numpy(t).cuda())
+got = _collaborative_reduce(tables[rank])
+assert got.is_cuda and got.shape == (3, 1001, 5)
+want = torch.cat([tables[0][..., :3] + tables[1][..., :3],
+                  torch.minimum(tables[0][..., 3:4], tables[1][..., 3:4]),
+                  torch.maximum(tables[0][..., 4:], tables[1][..., 4:])], -1)
+assert torch.equal(got, want), (got - want).abs().max()
+dist.destroy_process_group()
+print('OK')
+"""
+
+
+def test_collaborative_reduce_two_ranks_on_the_card_bitwise(cuda):
+    """``_collaborative_reduce`` over gloo with CUDA tensors in two rank
+    processes on one card equals the sums in rank order and the min / max
+    bit for bit (1001 bins: not a multiple of 2, so the merge pads)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    procs = [subprocess.Popen([sys.executable, "-c", _MERGE_RANK, str(r),
+                               str(port)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=180)
+        assert p.returncode == 0 and "OK" in out, err[-3000:]
