@@ -26,10 +26,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the tensor-core kernel;
              flash_attention with S not a multiple of the tile, causal
              with window 0, windows of 1, 8 and 16 and one above S,
-             non-causal, H / Hkv = 1, 4, 5 and 8, hd 8, 32, 64, 80 and
-             128 (hd 80, zero-filled to the hd-128 instantiation, causal
-             with 32 query over 8 KV heads, with window 4,096 passed by S
-             = 4,200, and non-causal 16 / 16), S = 37 with window 8,
+             non-causal, H / Hkv = 1, 4, 5, 7, 8 and 12 (7 and 12: a
+             rank's heads of qwen2-vl and starcoder2 at T = 4), hd 8, 32,
+             64, 80 and 128 (hd 80, zero-filled to the hd-128
+             instantiation, causal with 32 query over 8 KV heads, with
+             window 4,096 passed by S = 4,200, and non-causal 16 / 16),
+             S = 37 with window 8,
              whose padded query rows see no key, and MLA's split head
              dims: q and k 192 with v 128 (the (192, 128) instantiation)
              causal at S = 300 and S = 130 (a partial last tile) and
@@ -230,6 +232,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the decode median and one profile of prefill and of 8 decode steps
              (hubert: of the forward) are printed, and the peak through the
              plain prefill;
+15b. tp    — tensor-parallel serving: 4 rank processes (chip_smoke.py
+             --rank-role tp --collective-rank R, started by the phase), all
+             on cuda:0 in a gloo group, each draw h2o-danube-1.8b and then
+             mamba2-370m whole at full width and depth from --seed, and serve
+             1 request of 2,048 prompt tokens + 8 new through
+             ``ServeEngine(..., mesh=make_host_mesh(model=4))``: each rank
+             keeps its shards (its parameter bytes must equal
+             ``bytes_per_device``), runs flash_attention on its 8 query and
+             2 KV heads (24 launches a prefill, all tensor-core) or
+             ssd_fused on its 8 SSM heads (48), and adds the partials with
+             ordered sums over gloo. Rank 0 first decodes the whole tree
+             greedily at P = 1; the TP prefill logits, and 7 decode steps
+             teacher-forced on P = 1's tokens (the timed generate's own
+             where its tokens are P = 1's, else a second TP pass), must
+             agree with P = 1's within the serving gates, every rank's
+             logits and tokens must be equal bit for bit,
+             and each rank's kernel calls are held against the plain
+             versions; prefill ms, decode ms a token, peak GiB and each
+             collective kind's calls and seconds are printed a rank, with
+             whether gloo takes bfloat16 CUDA tensors as they are (the port
+             sends 16-bit floats as uint8 views either way);
 16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -249,6 +272,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000 (a reading that saw fewer kernels than calls lost
              profiler events and is taken again, up to 4 more times);
+             flash_attention and ssd_fused also at rank 0's calls of the tp
+             phase (its per-rank shapes);
 17. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
@@ -260,8 +285,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              whole wrapper call; then core.anomaly.iqr_detect at the main
              path's call over 2,000 calls, split into host prep, upload,
              kernel call, the two device-to-host reads and host ranking;
-18. train  — mamba2-370m trained at full width and depth (48 layers,
-             d_model 1024, vocab 50280) through ``Trainer.run``: float32
+18. train  — mamba2-370m trained at full width, its depth cut to 24 of
+             48 layers for time (TRAIN_DEPTH_CUTS; d_model 1024, vocab
+             50280) through ``Trainer.run``: float32
              master weights drawn on the card from --seed, a bfloat16
              working copy, remat "full", sequences of 4096 (the
              reference's train_4k) from the port's ``make_batch``,
@@ -272,7 +298,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              within 0.05, each matrix gradient's cosine >= 0.98, the
              worst leaf printed) and each kernel on its first-layer
              inputs. The counters are zeroed just before the run and read
-             just after: ssd_fused must launch 48 + 48 (forward and remat
+             just after: ssd_fused must launch 24 + 24 (forward and remat
              recompute) a microbatch, every launch on the tensor-core
              kernel, and iqr_fences at least once an analysis. Losses
              finite, the mean of the last 3 below the first 3's. A second
@@ -281,18 +307,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              goes through ``VariabilityPipeline`` (torch backend), and a
              recorder of 8 hosts, one 3x slower, must be flagged by
              ``StragglerMonitor`` on the card as numpy's fences flag it.
-             Step ms (median, min, max), tokens/s, peak memory, and one
-             more step's device time under torch.profiler, split into
-             the tensor-core forward kernels, the plain recompute in
-             backward (kernels under its ``record_function`` range), the
-             matrix products and the rest;
+             Step ms (median, min, max), tokens/s and peak memory (no
+             profiled step since the tp phase came: ROADMAP lists the
+             device-time split it gave as lost);
 19. train-hymba — hymba-1.5b likewise (32 hybrid layers, 3 global and
              29 with window 1024, 128 meta tokens): sequences of 2048
              (2176 positions, past the window), microbatch 2 x grad_accum
              2, 6 steps, no checkpoint; flash_attention and ssd_fused
              must each launch 32 + 32 a microbatch on their tensor-core
-             kernels; the plain-version check, losses and profile as in
-             train;
+             kernels; the plain-version check and losses as in train;
 20. train-<family> — the eight families without an SSM layer trained
              through ``Trainer.run`` at full width, one on the card at a
              time, micro 1 x grad_accum 2 (granite 2 x 2) of 2,048
@@ -323,11 +346,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              (ssd_fused at mamba2's and hymba's first-layer calls,
              flash_attention at hymba's first window call and each
              family's first-layer call, iqr_fences at the monitor's
-             largest table), and last mamba2's and hymba's profiled steps
-             run (their trained states wait on the host meanwhile). The
-             training phases come after times and host trace, and the
-             profiles last of all: in their wake the profiler lost the
-             device events of short calls;
+             largest table). The training phases come after times and
+             host trace: in their wake the profiler lost the device
+             events of short calls;
 21. reap   — stop the rank pools' forkserver and resource tracker
              (core.pipeline.stop_rank_pool_server) and fail if a process
              this script started, or one started below it, still runs.
@@ -343,7 +364,9 @@ ssd float32 outputs rtol = atol = 1e-4 (the reference's own), bfloat16
 outputs one rounding step (rtol 2^-7); flash_attention float32 outputs
 rtol = atol = 2e-4 (the reference's own), bfloat16 one rounding step;
 serving logits, computed in bfloat16 through every layer of the model
-(24 to 48), max |kernel - plain| <= 0.5 and mean <= 0.05, and each
+(24 to 48), max |kernel - plain| <= 0.5 and mean <= 0.05 (and so |TP -
+P = 1| in the tp phase: each rank's partial is rounded to bfloat16 once
+more before the sum), and each
 request's first token equal unless the plain logits' top-2 gap is below
 0.5; the same logits bound for the decode continuations (hymba, danube);
 for granite-moe and deepseek the plain prefill takes the kernel run's
@@ -460,6 +483,10 @@ FLASH_EDGE_SHAPES = ((2, 37, 4, 4, 8, 8, True, 0),
                      (1, 300, 32, 8, 80, 80, True, 0),
                      (1, 4200, 32, 8, 80, 80, True, 4096),
                      (2, 300, 16, 16, 80, 80, False, 0),
+                     # a rank's heads at T = 4: qwen2-vl's 7 query heads
+                     # and starcoder2's 12 over one KV head, hd 128
+                     (1, 300, 7, 1, 128, 128, True, 0),
+                     (1, 300, 12, 1, 128, 128, True, 0),
                      # MLA's split head dims in the (192, 128)
                      # instantiation: deepseek's qk 192 / v 128 causal,
                      # with a partial last tile, non-causal; 160 / 96
@@ -1595,8 +1622,12 @@ def phase_encode(args, dev, tag="encode-hubert"):
 # init_params; tests/test_torch_train_families.py checks them). A step
 # holds 20 B a parameter (float32 master weights, Adam's m and v, the
 # bfloat16 working copy and gradients, the float32 accumulator), so each
-# cut is the most layers whose state fits one 80 GB card
+# cut is the most layers whose state fits one 80 GB card; mamba2's (24 of
+# 48, 3.9 GiB) is for the time limit instead: at full depth the script
+# took 1201.2 s on one H100 80GB HBM3 at 700 W with a slow host, its train
+# phase 202.5 s of it
 TRAIN_DEPTH_CUTS = {
+    "mamba2-370m": ((24,), 209_913_088),
     "nemotron-4-15b": ((1,), 3_535_816_704),      # 65.9 GiB: the head is
     "starcoder2-15b": ((4,), 2_139_205_632),      # 3.15 B of it; 39.8 GiB
     "qwen2-vl-7b": ((8,), 2_959_048_192),         # 55.1 GiB
@@ -1616,16 +1647,17 @@ DEEPSEEK_MOE_CHECK = ((1, 1), 4_834_391_040)
 # 3e-4 so did stablelm's, danube's, nemotron's, starcoder2's and
 # qwen2-vl's, whose first update moves every weight by the same lr: the
 # wider the model, the lower the rate its loss falls at), the
-# flash_attention instantiation every launch must take, and whether one
-# more step is profiled at the end. mamba2's 6 steps with the checkpoint at
-# step 4 (cut from 12 and 9, then from 8 and 6) leave the time limit room
-# for the eight families' phases and the collective phase
+# flash_attention instantiation every launch must take. mamba2's 6 steps
+# with the checkpoint at step 4 (cut from 12 and 9, then from 8 and 6), its
+# 24 layers and no profiled training step leave the time limit room for the
+# eight families' phases, the collective phase and the tp phase (at 6 steps
+# the means of the first 3 and of the last 3 losses share no step)
 TRAIN_SPECS = {
     "train": dict(arch="mamba2-370m", seq=4096, micro=4, accum=2,
-                  steps=6, ckpt=4, monitor=3, lr=1e-3, profile=True),
+                  steps=6, ckpt=4, monitor=3, lr=1e-3),
     "train-hymba": dict(arch="hymba-1.5b", seq=2048, micro=2, accum=2,
                         steps=6, ckpt=None, monitor=3, lr=1e-4,
-                        flash_instance=(64, 64), profile=True),
+                        flash_instance=(64, 64)),
     "train-stablelm": dict(arch="stablelm-3b", seq=2048, micro=1, accum=2,
                            steps=6, ckpt=None, monitor=3, lr=1e-5,
                            flash_instance=(128, 128)),
@@ -1660,9 +1692,6 @@ TRAIN_COSINE = 0.98           # each matrix gradient, kernels vs plain
 RESUME_RTOL = 1e-3            # resumed losses against the uninterrupted
 STATE_BYTES = 20              # a parameter's training state in a step
 STRAGGLER_HOSTS, STRAGGLER_SLOW = 8, 3.0
-RECOMPUTE_RANGES = ("ssd_fused.plain_recompute",
-                    "flash_attention.plain_recompute")
-GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")
 
 
 def _train_launches(cfg, microbatches):
@@ -1765,64 +1794,6 @@ def _kernels_against_plain(cfg, params, mb, tag):
         float(loss_p), worst, calls
 
 
-def _step_split(prof):
-    """A profiled step's device time in ms: the tensor-core forward
-    kernels (``ssd_wgmma``, ``flash_fwd_wgmma``), the plain recompute in
-    backward (device work launched by an operator inside one of the
-    recompute ranges), the matrix products outside it, and the rest;
-    plus the count of device activities and the ten largest kernels.
-    Read from the profiler's raw events: building its per-event Python
-    objects for a step's ~400,000 kernels takes minutes."""
-    import bisect
-
-    from torch.autograd import DeviceType
-    ranges, ops, device, notes = {}, [], [], set()
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CPU:
-            if e.is_user_annotation():
-                notes.add(e.name())
-                if e.name() in RECOMPUTE_RANGES:
-                    ranges.setdefault(e.start_thread_id(), []).append(
-                        (e.start_ns(), e.end_ns(), e.name()))
-            elif e.linked_correlation_id() == 0:
-                ops.append((e.start_thread_id(), e.start_ns(),
-                            e.correlation_id()))
-        elif e.device_type() == DeviceType.CUDA:
-            device.append((e.linked_correlation_id(), e.name(),
-                           e.duration_ns() / 1e6))
-    starts = {}
-    for th, rs in ranges.items():
-        rs.sort()
-        starts[th] = [r[0] for r in rs]
-    inside = {}
-    for th, t, corr in ops:
-        i = bisect.bisect_right(starts.get(th, ()), t) - 1
-        if i >= 0 and t <= ranges[th][i][1]:
-            inside[corr] = ranges[th][i][2]
-    split = {"ssd_wgmma": 0.0, "flash_fwd_wgmma": 0.0,
-             "ssd_fused.plain_recompute": 0.0,
-             "flash_attention.plain_recompute": 0.0, "matmul": 0.0,
-             "rest": 0.0}
-    names, seen = {}, 0
-    for corr, name, ms in device:
-        if name in notes:              # the device side of an annotation
-            continue
-        seen += 1
-        names[name[:48]] = names.get(name[:48], 0.0) + ms
-        if corr in inside:
-            split[inside[corr]] += ms
-        elif "ssd_wgmma" in name:
-            split["ssd_wgmma"] += ms
-        elif "flash_fwd_wgmma" in name:
-            split["flash_fwd_wgmma"] += ms
-        elif any(g in name.lower() for g in GEMM_NAMES):
-            split["matmul"] += ms
-        else:
-            split["rest"] += ms
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
-    return split, seen, top
-
-
 def _straggler_check(dev, tag):
     """8 hosts, one 3x slower: the monitor on the card flags exactly the
     hosts numpy's fences flag, with the same fence, and reports what the
@@ -1874,8 +1845,7 @@ def phase_train(args, dev, card, tag):
     """``TRAIN_SPECS[tag]`` trained at full width (its depth cut as
     TRAIN_DEPTH_CUTS says) through ``Trainer.run`` on the card; returns
     (launches, |kernel - plain| on the path's own inputs by kernel, the
-    kernels' first calls, the monitor's largest fence table, a function
-    that profiles one more step of the trained state or None)."""
+    kernels' first calls, the monitor's largest fence table)."""
     import numpy as np
     import torch
 
@@ -1886,7 +1856,6 @@ def phase_train(args, dev, card, tag):
     from repro_torch.telemetry import KIND_TRAIN
     from repro_torch.train import (AdamWConfig, RunConfig, TrainConfig,
                                    Trainer)
-    from repro_torch.train.optim import tree_map
     from repro_torch.train.step import batch_to
 
     spec = TRAIN_SPECS[tag]
@@ -2048,18 +2017,7 @@ def phase_train(args, dev, card, tag):
     log(f"{tag}: iqr_fences on the monitor's largest table "
         f"({table[0][0].shape[0]} scores, {table[0][0].dtype}): |kernel - "
         f"plain| {errs['iqr_fences']}")
-    if not spec.get("profile"):
-        return launches, errs, calls, table, None
-    # the trained state waits on the host for the profiles at the end, so
-    # the later phases have the card
-    state = tree_map(lambda t: t.cpu(), res["state"])
-    del res, trainer
-
-    def profile():
-        """One more step's device time under torch.profiler."""
-        _profile_step(cfg, tcfg, dcfg, tree_map(lambda t: t.to(dev), state),
-                      dev, steps, tag, card)
-    return launches, errs, calls, table, profile
+    return launches, errs, calls, table
 
 
 def _resume_check(cfg, tcfg, dcfg, rcfg, args, dev, work, losses, at, tag):
@@ -2088,41 +2046,6 @@ def _resume_check(cfg, tcfg, dcfg, rcfg, args, dev, work, losses, at, tag):
         f"{RESUME_RTOL}), {time.perf_counter() - t0:.2f}s")
     if len(again["losses"]) != len(losses) - at or gaps.max() > RESUME_RTOL:
         raise AssertionError(f"{tag}: the resumed run differs")
-
-
-def _profile_step(cfg, tcfg, dcfg, state, dev, step, tag, card):
-    """One more train step under torch.profiler: device time by kernel
-    name, split into the tensor-core forward kernels, the plain recompute
-    in backward, the matrix products and the rest."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.data import make_batch
-    from repro_torch.train import make_train_step
-    from repro_torch.train.step import batch_to
-    step_fn = make_train_step(cfg, tcfg)
-    batch = batch_to(make_batch(cfg, dcfg, step), dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    split, seen, top = _step_split(prof)
-    total = sum(split.values())
-    if not seen:
-        log(f"{tag} profile: device time not measured (the profiler saw "
-            "no CUDA kernel)")
-        return
-    log(f"{tag} profile: one step, host wall {wall:.1f} ms under the "
-        f"profiler, device kernels {total:.1f} ms ({seen} kernels, busy "
-        f"{total / wall * 100:.1f}% of the wall); split (ms): " + "; ".join(
-            f"{k} {v:.1f} ({v / total * 100:.1f}%)" for k, v in split.items())
-        + f"; read in {time.perf_counter() - t0:.1f}s [{card}]")
-    log(f"{tag} profile: largest kernels (ms): " + "; ".join(
-        f"{n} {ms:.1f}" for n, ms in top))
 
 
 def _logit_gap(a, b):
@@ -3557,14 +3480,49 @@ def collective_rank(args) -> int:
     return 0
 
 
+def _run_ranks(args, root, role, n, limit_s):
+    """Start ``n`` rank processes of ``role`` (``chip_smoke.py
+    --rank-role ROLE --collective-rank R``, the kernels loaded from the
+    parent's build) in a gloo group on a free port, wait for all of them
+    (at most ``limit_s`` seconds, then kill them) and raise if any failed;
+    returns the seconds they took."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+           str(args.seed), "--ranks", str(args.ranks), "--duration",
+           str(args.duration), "--rank-role", role, "--collective-dir",
+           root, "--collective-port", str(port), "--collective-rank"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(n)]
+    failed = []
+    for r, p in enumerate(procs):
+        try:
+            _, err = p.communicate(
+                timeout=max(limit_s - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            _, err = p.communicate()
+            failed.append(f"rank {r} timed out: {err[-2000:]}")
+            continue
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}: {err[-3000:]}")
+    if failed:
+        raise AssertionError(f"{role}: " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
 def phase_collective(args, work, main_res, delta_copy, card):
     """The paper's collaborative merge across ranks: COLLECTIVE_RANKS
     rank processes on cuda:0 in a gloo group run phases 2 and 3 of a copy
     of the main phase's store, then the delta phase's append and a cold
     rerun; the P = 4 result must equal the main phase's P = 1 one and the
     delta its cold rerun bit for bit."""
-    import socket
-
     import numpy as np
 
     root = os.path.join(work, "collective")
@@ -3575,33 +3533,7 @@ def phase_collective(args, work, main_res, delta_copy, card):
     with open(os.path.join(root, "spec.json"), "w") as f:
         json.dump({"main": main_copy, "delta_paths": delta_paths,
                    "delta_store": delta_store}, f)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
-           str(args.seed), "--ranks", str(args.ranks), "--duration",
-           str(args.duration), "--collective-dir", root,
-           "--collective-port", str(port), "--collective-rank"]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(COLLECTIVE_RANKS)]
-    failed = []
-    for r, p in enumerate(procs):
-        try:
-            _, err = p.communicate(
-                timeout=max(600 - (time.perf_counter() - t0), 1))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            _, err = p.communicate()
-            failed.append(f"rank {r} timed out: {err[-2000:]}")
-            continue
-        if p.returncode != 0:
-            failed.append(f"rank {r} exit {p.returncode}: {err[-3000:]}")
-    seconds = time.perf_counter() - t0
-    if failed:
-        raise AssertionError("collective: " + "\n".join(failed))
+    seconds = _run_ranks(args, root, "collective", COLLECTIVE_RANKS, 600)
     recs = []
     for r in range(COLLECTIVE_RANKS):
         with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -3637,6 +3569,288 @@ def phase_collective(args, work, main_res, delta_copy, card):
         f"partial cache) == cold ({cold} shards) bitwise; {seconds:.3f}s "
         f"[{card}]")
     return seconds
+
+
+TP_RANKS = 4
+TP_TIMEOUT_S = 300               # the group's; the phase's is 400 s
+# the tp phase's models, each at full width and depth with 1 request of
+# 2,048 prompt tokens and 8 new tokens; the kernel each must launch in
+# one prefill on every rank, and how many times
+TP_SPECS = {
+    "tp-danube": dict(arch="h2o-danube-1.8b", prompt=2048, new=8,
+                      kernel="flash_attention", launches=24),
+    "tp-mamba2": dict(arch="mamba2-370m", prompt=2048, new=8,
+                      kernel="ssd_fused", launches=48),
+}
+
+
+def _digest(*tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_rank(args) -> int:
+    """One rank of the tp phase, in a process of its own (``chip_smoke.py
+    --rank-role tp --collective-rank R``): every rank draws each model of
+    TP_SPECS whole from --seed, serves it through ``ServeEngine(...,
+    mesh=make_host_mesh(model=TP_RANKS))`` on cuda:0 in a gloo group, and
+    keeps the logits of that one timed ``generate``; rank 0 first decodes
+    greedily at P = 1 on the whole tree. Where the TP tokens fed to
+    decode are P = 1's, those logits are the TP logits teacher-forced on
+    P = 1's tokens; else (and only then) a second, untimed TP pass feeds
+    it P = 1's tokens. Writes its record (and rank 0 its P = 1 gaps and
+    the kernels' per-rank calls) under the phase's directory."""
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import group
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention, model, ssm
+    from repro_torch.models.shardrules import bytes_per_device, _items
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
+
+    root = args.collective_dir
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.load("flashattn")            # built by the parent: loaded only
+    _build.load("ssd")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args.collective_port}",
+        rank=args.collective_rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    rank = dist.get_rank()
+    mesh = make_host_mesh(model=TP_RANKS)
+    counters = _launch_counters()
+    rec = {"rank": rank, "pid": os.getpid()}
+    # whether gloo takes bfloat16 CUDA tensors as they are (the port sends
+    # 16-bit floats as uint8 views whatever the answer)
+    probe = [torch.empty(4, dtype=torch.bfloat16, device=dev)
+             for _ in range(TP_RANKS)]
+    try:
+        dist.all_gather(probe, torch.full((4,), float(rank),
+                                          dtype=torch.bfloat16, device=dev))
+        rec["gloo_bf16"] = "taken"
+    except RuntimeError as e:
+        rec["gloo_bf16"] = f"refused: {e}"[:200]
+    for tag, spec in TP_SPECS.items():
+        cfg = get_config(spec["arch"])
+        n_new = spec["new"]
+        params = model.init_params(cfg, seed=args.seed, device=dev)
+        host = _serve_batch(cfg, args.seed, 1, spec["prompt"])
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        max_len = spec["prompt"] + n_new
+        scfg = ServeConfig(max_len=max_len, max_new_tokens=n_new,
+                           cache_dtype=cfg.dtype)
+        p1 = []
+        tokens_1 = None
+        with torch.inference_mode():
+            if rank == 0:                # greedy at P = 1 on the whole tree
+                lg, caches, index = model.prefill(cfg, params, batch,
+                                                  max_len, cfg.dtype)
+                toks = [lg.argmax(-1)[:, None]]
+                p1.append(lg.float().cpu())
+                for t in range(n_new - 1):
+                    lg, caches = model.decode_step(cfg, params, toks[-1],
+                                                   caches, index + t)
+                    toks.append(lg.argmax(-1)[:, None])
+                    p1.append(lg.float().cpu())
+                tokens_1 = torch.cat(toks, 1).to(torch.int32).cpu().numpy()
+                del caches, lg, toks
+            got = [tokens_1]
+            dist.broadcast_object_list(got, src=0)
+            tokens_1 = got[0]
+        engine = ServeEngine(cfg, params, scfg, device=dev, mesh=mesh)
+        want_bytes = bytes_per_device(params, mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = sum(x.numel() * x.element_size()
+                   for _, x in _items(engine.params))
+        # warm-up at a short prompt (a prefill and one decode step): the
+        # kernels' attributes, the groups
+        with torch.inference_mode():
+            head = {k: torch.as_tensor(v, device=dev)
+                    for k, v in _head(host, 128).items()}
+            lg, caches, index = model.prefill(cfg, engine.params, head,
+                                              max_len, cfg.dtype, engine.ctx)
+            model.decode_step(cfg, engine.params, lg.argmax(-1)[:, None],
+                              caches, index, engine.ctx)
+            del lg, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n_steps = len(engine.telemetry.steps)
+        cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
+                      key=_flash_key)
+        tp_logits = []                   # the logits generate computes
+
+        def keep(fn):
+            def wrapped(*a, **kw):
+                res = fn(*a, **kw)
+                tp_logits.append(res[0])
+                return res
+            return wrapped
+        engine_mod.prefill = keep(model.prefill)
+        engine_mod.decode_step = keep(model.decode_step)
+        try:
+            dist.barrier()
+            _zero(counters)
+            group.collective_times(reset=True)
+            tokens = engine.generate(host)
+            torch.cuda.synchronize()
+            launches = {k: counters[k].launches
+                        for k in ("flash_attention", "ssd_fused")}
+            tc = {k: counters[k].wgmma_launches
+                  for k in ("flash_attention", "ssd_fused")}
+            coll = group.collective_times(reset=True)
+        finally:
+            engine_mod.prefill = model.prefill
+            engine_mod.decode_step = model.decode_step
+            cap.close()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = engine.telemetry.steps[n_steps:]
+        pre_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
+                  if e.kind == KIND_PREFILL]
+        dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
+                  if e.kind == KIND_DECODE]
+        # rank 0 decides, so that every rank takes the same branch
+        fed = [rank != 0 or bool(np.array_equal(tokens[:, :n_new - 1],
+                                                tokens_1[:, :n_new - 1]))]
+        dist.broadcast_object_list(fed, src=0)
+        if not fed[0]:                   # teacher-force a second TP pass
+            with torch.inference_mode():
+                lg, caches, index = model.prefill(cfg, engine.params, batch,
+                                                  max_len, cfg.dtype,
+                                                  engine.ctx)
+                tp_logits = [lg]
+                for t in range(n_new - 1):
+                    tok = torch.as_tensor(tokens_1[:, t:t + 1], device=dev)
+                    lg, caches = model.decode_step(
+                        cfg, engine.params, tok, caches, index + t,
+                        engine.ctx)
+                    tp_logits.append(lg)
+                del caches
+        errs = _captured_errs(cap.calls, f"{tag} rank {rank}")
+        by_kind = {}
+        for name, sec in coll:
+            n, total = by_kind.get(name, (0, 0.0))
+            by_kind[name] = (n + 1, total + sec)
+        rec[tag] = {
+            "launches": launches, "tensor_core": tc, "errs": errs,
+            "bytes": [held, want_bytes], "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "peak_gib": peak / 2**30,
+            "collectives": by_kind, "tokens": tokens.tolist(),
+            "tokens_p1": np.asarray(tokens_1).tolist(),
+            "second_pass": not fed[0],
+            "digest": _digest(*tp_logits),
+            "finite": all(bool(torch.isfinite(x).all()) for x in tp_logits),
+            "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
+                       for k, c in cap.calls.items()}}
+        if rank == 0:
+            rec[tag]["gaps"] = [_logit_gap(a.float().cpu(), b)
+                                for a, b in zip(tp_logits, p1)]
+            torch.save({k: ([a.cpu() if hasattr(a, "cpu") else a
+                             for a in c[0]], c[1])
+                        for k, c in cap.calls.items()},
+                       os.path.join(root, f"{tag}_calls.pt"))
+        del engine, tp_logits, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp(args, work, dev, card):
+    """Tensor-parallel serving: TP_RANKS rank processes on cuda:0 in a
+    gloo group serve each model of TP_SPECS through ``ServeEngine(...,
+    mesh)``, each rank holding its shards and launching its kernel on its
+    heads. Gates: the TP prefill logits and the decode logits (teacher
+    forced on the P = 1 tokens: the timed generate's own where its tokens
+    are P = 1's) within the serving gates of the P = 1 run's, every rank's logits bit-equal, each rank's launches one a
+    layer, each kernel against its plain version on the rank's own
+    inputs, each rank's parameter bytes equal to ``bytes_per_device``.
+    Returns (launches, errs, calls) by ``<kernel>/<tag>``, the calls on
+    ``dev``."""
+    import torch
+
+    root = os.path.join(work, "tp")
+    os.makedirs(root, exist_ok=True)
+    seconds = _run_ranks(args, root, "tp", TP_RANKS, 400)
+    recs = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    log(f"tp: gloo all_gather of bfloat16 CUDA tensors as they are: "
+        f"{recs[0]['gloo_bf16']}")
+    launches, errs, calls = {}, {}, {}
+    for tag, spec in TP_SPECS.items():
+        name, want = spec["kernel"], spec["launches"]
+        for rec in recs:
+            r, t = rec["rank"], rec[tag]
+            kinds = {k: f"{n} calls {sec:.3f}s"
+                     for k, (n, sec) in t["collectives"].items()}
+            log(f"{tag} rank {r} (pid {rec['pid']}): prefill "
+                f"{t['prefill_ms'][0]:.3f} ms, decode median "
+                f"{sorted(t['decode_ms'])[len(t['decode_ms']) // 2]:.3f} "
+                f"ms/token ({len(t['decode_ms'])} steps), peak "
+                f"{t['peak_gib']:.3f} GiB; launches {t['launches']} (tensor"
+                f" core {t['tensor_core']}); collectives {kinds}; parameter"
+                f" bytes {t['bytes'][0]} (bytes_per_device {t['bytes'][1]});"
+                f" kernel calls {t['shapes']}; |kernel - plain| {t['errs']}"
+                f" [{card}]")
+            if t["launches"][name] != want or t["tensor_core"][name] != want:
+                raise AssertionError(f"{tag} rank {r}: {name} launched "
+                                     f"{t['launches'][name]} times "
+                                     f"({t['tensor_core'][name]} on the "
+                                     f"tensor cores), expected {want}")
+            if t["bytes"][0] != t["bytes"][1]:
+                raise AssertionError(f"{tag} rank {r} holds {t['bytes'][0]}"
+                                     f" parameter bytes, bytes_per_device "
+                                     f"says {t['bytes'][1]}")
+            if not t["finite"]:
+                raise AssertionError(f"{tag} rank {r}: non-finite logits")
+            if t["digest"] != recs[0][tag]["digest"] or \
+                    t["tokens"] != recs[0][tag]["tokens"]:
+                raise AssertionError(f"{tag}: rank {r}'s logits or tokens "
+                                     "differ from rank 0's")
+        gaps = recs[0][tag]["gaps"]
+        agree = sum(a == b for a, b in zip(recs[0][tag]["tokens"][0],
+                                           recs[0][tag]["tokens_p1"][0]))
+        forced = ("a second TP pass" if recs[0][tag]["second_pass"] else
+                  "generate's own, its tokens P = 1's")
+        log(f"{tag}: {TP_RANKS} ranks == P = 1: prefill logits |TP - P1| "
+            f"max {gaps[0][0]:.6f}, mean {gaps[0][1]:.6f}; decode "
+            f"(teacher-forced: {forced}) max "
+            f"{max(g[0] for g in gaps[1:]):.6f}, mean"
+            f" {max(g[1] for g in gaps[1:]):.6f} (gates {LOGIT_MAX_TOL} / "
+            f"{LOGIT_MEAN_TOL}); every rank's logits bit-equal; free-"
+            f"running tokens agree on {agree}/{spec['new']} [{card}]")
+        if any(m > LOGIT_MAX_TOL or a > LOGIT_MEAN_TOL for m, a in gaps):
+            raise AssertionError(f"{tag}: TP and P = 1 logits disagree")
+        launches[f"{name}/{tag}"] = recs[0][tag]["launches"][name]
+        errs[name] = max(max(rec[tag]["errs"].get(name, 0.0)
+                             for rec in recs), errs.get(name, 0.0))
+        saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
+        key = next(k for k in saved if k.startswith(name))
+        c_args, c_kw = saved[key]
+        calls[f"{name}/{tag}"] = ([a.to(dev) if hasattr(a, "to") else a
+                                   for a in c_args], c_kw)
+    log(f"tp: {TP_RANKS} ranks on cuda:0 over gloo, {seconds:.3f}s "
+        f"[{card}]")
+    return launches, errs, calls
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -3834,10 +4048,12 @@ def phase_times(shapes):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
-    _ssd_rows(rows, shapes, ("ssd_fused", "ssd_fused/hymba"))
+    _ssd_rows(rows, shapes, ("ssd_fused", "ssd_fused/hymba",
+                             "ssd_fused/tp-mamba2"))
     _flash_rows(rows, shapes, ("flash_attention/window",
                                "flash_attention/global") + tuple(
-        f"flash_attention/{tag}" for tag in FAMILY_PHASES))
+        f"flash_attention/{tag}" for tag in FAMILY_PHASES) + (
+        "flash_attention/tp-danube",))
     rows["flash_attention"] = rows["flash_attention/window"]
     return rows
 
@@ -3901,8 +4117,8 @@ def _flash_rows(rows, shapes, names):
 
 
 def phase_train_times(shapes):
-    """The training paths' rows, timed after the training phases and
-    before their profiles: ssd_fused at mamba2's and hymba's first-layer
+    """The training paths' rows, timed after the training phases:
+    ssd_fused at mamba2's and hymba's first-layer
     training calls, flash_attention at hymba's first window call and at
     each other family's first-layer call, iqr_fences at the monitor's
     largest fence table."""
@@ -3974,9 +4190,10 @@ ALSO = {"binstats": ("binstats/table1",),
         "iqr_fences": ("iqr_fences/f32", "iqr_fences/micro",
                        "iqr_fences/120k", "iqr_fences/monitor"),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
-                      "ssd_fused/train-hymba"),
+                      "ssd_fused/train-hymba", "ssd_fused/tp-mamba2"),
         "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
-        + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES),
+        + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES)
+        + ("flash_attention/tp-danube",),
         "rolling_stats": ("rolling_stats/stall",)}
 
 
@@ -4011,9 +4228,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--duration", type=float, default=120.0)
-    # one rank of the collective phase (started by that phase)
+    # one rank of the collective or the tp phase (started by that phase)
     for flag, kind in (("--collective-rank", int), ("--collective-port", int),
-                       ("--collective-dir", str)):
+                       ("--collective-dir", str), ("--rank-role", str)):
         ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -4032,7 +4249,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     if args.collective_rank is not None:
-        return collective_rank(args)
+        return (tp_rank if args.rank_role == "tp" else collective_rank)(args)
     from repro_torch.kernels import _build
 
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4143,18 +4360,31 @@ def main() -> int:
         del f_calls, call
         _free(dev)
         lap(tag)
+    tp_work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        tp_launches, tp_errs, tp_calls = phase_tp(args, tp_work, dev, card)
+    finally:
+        shutil.rmtree(tp_work, ignore_errors=True)
+    launches.update(tp_launches)
+    shapes.update(tp_calls)
+    # a rank's input shapes, listed beside the tp rows of the kernels line
+    tp_shapes = {k: [list(a.shape) for a in c_args if hasattr(a, "shape")]
+                 for k, (c_args, _) in tp_calls.items()}
+    for name, e in tp_errs.items():
+        errs[name] = max(errs[name], e)
+    del tp_calls
+    _free(dev)
+    lap("tp")
     times = phase_times(shapes)
     lap("times")
     phase_host_trace(shapes)
     lap("host trace")
     # the training phases come after the times phase: in their wake the
     # profiler lost the device events of short calls
-    tables, profiles = [], []
+    tables = []
     for tag in TRAIN_SPECS:
-        t_launches, t_errs, t_calls, table, profile = phase_train(
-            args, dev, card, tag)
-        if profile is not None:
-            profiles.append((tag, profile))
+        t_launches, t_errs, t_calls, table = phase_train(args, dev, card,
+                                                         tag)
         if "ssd_fused" in t_calls:
             shapes[f"ssd_fused/{tag}"] = t_calls["ssd_fused"]
             launches[f"ssd_fused/{tag}"] = t_launches["ssd_fused"]
@@ -4171,7 +4401,7 @@ def main() -> int:
         tables.append(table)
         for name, e in t_errs.items():
             errs[name] = max(errs[name], e)
-        del t_calls, profile
+        del t_calls
         _free(dev)
         lap(tag)
     shapes["iqr_fences/monitor"] = max(tables,
@@ -4179,11 +4409,6 @@ def main() -> int:
     del tables
     times.update(phase_train_times(shapes))
     lap("train times")
-    for tag, profile in profiles:       # last: the profiles are the largest
-        profile()
-        _free(dev)
-        lap(f"{tag} profile")
-    del profiles
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -4196,7 +4421,9 @@ def main() -> int:
         if name in ALSO:
             row["also"] = {also: {
                 "launches": launches.get(also, launches[name]),
-                **{k: times[also][k] for k in keys}} for also in ALSO[name]}
+                **{k: times[also][k] for k in keys},
+                **({"shapes": tp_shapes[also]} if also in tp_shapes else {})}
+                for also in ALSO[name]}
         kernels.append(row)
     for name, t in times.items():
         if name == "flash_attention":

@@ -46,12 +46,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--workdir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--production-mesh", action="store_true",
-                    help="tensor parallelism over a mesh (not ported yet)")
+                    help="sharded training over a mesh (not ported yet)")
     args = ap.parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: tensor parallelism is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+            "--production-mesh: sharded training is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(

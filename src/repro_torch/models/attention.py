@@ -22,7 +22,11 @@ the ``qk_nope_dim`` part, so prefill attends with split head dims: q and k
 Its cache holds the normed latent (B, C, kv_lora_rank) and the rotated
 rope key (B, C, qk_rope_dim), shared by the heads, and decode runs in the
 weight-absorbed latent form, in plain PyTorch, as the reference's does.
-Mesh and sharding anchors are not part of the port (one card).
+With a tensor-parallel context (:mod:`.shardrules`, :mod:`.tp`) the
+parameters are the rank's: its H/T query heads and Hkv/T KV heads.
+Prefill and decode attend over the rank's heads, by the same code as at
+one rank, and add the ranks' ``wo`` partials with one ordered sum
+(:func:`repro_torch.models.tp.ordered_sum`). MLA raises at T > 1.
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flashattn import flash_attention
+from . import tp
 from .layers import apply_mrope, apply_rope, dense_init, rmsnorm
+from .shardrules import ParallelCtx
 
 NEG_INF = -1e30
 
@@ -125,13 +131,16 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor,
+                 ctx: Optional[ParallelCtx] = None):
+    """q, k and v of the heads ``params`` hold (a rank's, under a
+    tensor-parallel ``ctx``: the whole biases are cut to them)."""
     dt = x.dtype
     q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
     if "bq" in params:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + tp.local_block(params["bq"], q.shape[2], ctx).to(dt)
+        k = k + tp.local_block(params["bk"], k.shape[2], ctx).to(dt)
+        v = v + tp.local_block(params["bv"], v.shape[2], ctx).to(dt)
     if cfg.rope in ("rope", "partial"):
         frac = cfg.rotary_fraction if cfg.rope == "partial" else 1.0
         q = apply_rope(q, positions, cfg.rope_theta, frac)
@@ -143,7 +152,8 @@ def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
 
 
 def _out(params, o: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D)."""
+    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D) (a rank's partial under
+    tensor parallelism)."""
     wo = params["wo"]
     return o.flatten(2) @ wo.to(o.dtype).flatten(0, 1)
 
@@ -152,37 +162,43 @@ def _out(params, o: torch.Tensor) -> torch.Tensor:
 
 def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
                  positions: Optional[torch.Tensor] = None,
-                 cache: bool = True,
+                 cache: bool = True, ctx: Optional[ParallelCtx] = None,
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Training / prefill forward. Returns (out, cache entries): the
     full-sequence k and v (B, S, Hkv, hd) in the model dtype (MLA: its
     latent and rope key), or None when ``cache`` is False (training keeps
-    no decode cache)."""
+    no decode cache). At T > 1 the rank's heads: its query heads' share
+    of the output, summed over the ranks, and its KV heads' k and v."""
     if cfg.is_mla:
-        return mla_forward(params, x, cfg, positions, cache)
+        return mla_forward(params, x, cfg, positions, cache, ctx)
+    tp.check_attn(cfg, ctx)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, ctx)
     out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
-    return _out(params, out), ({"k": k, "v": v} if cache else None)
+    return tp.ordered_sum(_out(params, out), ctx), (
+        {"k": k, "v": v} if cache else None)
 
 
 def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
-                cache_index: int) -> Tuple[torch.Tensor, Dict]:
+                cache_index: int, ctx: Optional[ParallelCtx] = None,
+                ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode against a (possibly ring) KV cache.
 
     x: (B, 1, D); cache {"k", "v"}: (B, C, Hkv, hd) where C = window for
-    SWA or max_len otherwise; ``cache_index`` is the number of positions
-    already absorbed (the absolute position of the new token). The cache
-    is updated in place and returned."""
+    SWA or max_len otherwise (at T > 1 the rank's Hkv/T heads, its
+    queries' H/T); ``cache_index`` is the number of positions already
+    absorbed (the absolute position of the new token). The cache is
+    updated in place and returned."""
     if cfg.is_mla:
-        return mla_decode(params, x, cache, cfg, cache_index)
+        return mla_decode(params, x, cache, cfg, cache_index, ctx)
+    tp.check_attn(cfg, ctx)
     b = x.shape[0]
     # a decoded token is text: M-RoPE's three ids advance together
     shape = (b, 3, 1) if cfg.rope == "mrope" else (b, 1)
     pos = torch.full(shape, cache_index, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, pos)
+    q, k, v = _project_qkv(params, x, cfg, pos, ctx)
 
     c = cache["k"].shape[1]
     if cfg.window > 0:
@@ -198,8 +214,8 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     valid = idx <= slot
     if cfg.window > 0 and cache_index >= c:
         valid = torch.ones_like(valid)
-    kv_h, hd = k.shape[2], k.shape[3]
-    g = cfg.n_heads // kv_h
+    h, kv_h, hd = q.shape[2], k.shape[2], k.shape[3]
+    g = h // kv_h
     ct = torch.promote_types(q.dtype, cache["k"].dtype)
     qg = q.reshape(b, 1, kv_h, g, hd).to(ct)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg,
@@ -210,8 +226,8 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     vt = torch.promote_types(v.dtype, cache["v"].dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).to(vt),
                      cache["v"].to(vt))
-    o = o.reshape(b, 1, cfg.n_heads, hd).to(x.dtype)
-    return _out(params, o), cache
+    o = o.reshape(b, 1, h, hd).to(x.dtype)
+    return tp.ordered_sum(_out(params, o), ctx), cache
 
 
 def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -252,10 +268,12 @@ def _mla_latent(params, x: torch.Tensor, cfg: AttnConfig,
 
 def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
                 positions: Optional[torch.Tensor] = None,
-                cache: bool = True) -> Tuple[torch.Tensor, Optional[Dict]]:
+                cache: bool = True, ctx: Optional[ParallelCtx] = None,
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA train / prefill: the latent expanded to per-head keys and
     values, attended with the rope key broadcast over the heads. Returns
-    (out, {"latent", "k_rope"} or None)."""
+    (out, {"latent", "k_rope"} or None). Raises at T > 1."""
+    tp.check_attn(cfg, ctx)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -272,12 +290,15 @@ def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
 
 
 def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
-               cache_index: int) -> Tuple[torch.Tensor, Dict]:
+               cache_index: int, ctx: Optional[ParallelCtx] = None,
+               ) -> Tuple[torch.Tensor, Dict]:
     """Weight-absorbed MLA decode: scores and the weighted sum run in the
     latent space, and W_UV lifts the sum to the heads.
 
     x: (B, 1, D); cache {"latent": (B, C, kl), "k_rope": (B, C, rope)},
-    updated in place at slot ``min(cache_index, C - 1)`` and returned."""
+    updated in place at slot ``min(cache_index, C - 1)`` and returned.
+    Raises at T > 1."""
+    tp.check_attn(cfg, ctx)
     b, dt = x.shape[0], x.dtype
     dn = cfg.qk_nope_dim
     pos = torch.full((b, 1), cache_index, dtype=torch.int64, device=x.device)

@@ -14,10 +14,13 @@ brings precomputed frame or patch embeddings):
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import tp
+from .shardrules import ParallelCtx
 
 
 def sinusoid_positions(s: int, d: int) -> np.ndarray:
@@ -31,10 +34,21 @@ def sinusoid_positions(s: int, d: int) -> np.ndarray:
     return out
 
 
-def embed_tokens(params, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+def embed_tokens(params, tokens: torch.Tensor, dtype: torch.dtype,
+                 ctx: Optional[ParallelCtx], vocab: int) -> torch.Tensor:
+    """The tokens' rows of the embedding table in ``dtype``. Where the
+    table is a rank's block of the ``vocab`` rows (vocab-parallel), the
+    rank looks up the tokens it owns, zeros the others, and the ordered
+    sum over the ranks adds one owner's row to exact zeros."""
     table = params["embed"]["tokens"]
-    return table[tokens.to(device=table.device, dtype=torch.long)].to(dtype)
+    tok = tokens.to(device=table.device, dtype=torch.long)
+    n = table.shape[0]
+    if n >= vocab:
+        return table[tok].to(dtype)
+    local = tok - ctx.tensor_rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    return tp.ordered_sum(rows * mine[..., None].to(dtype), ctx)
 
 
 def _project(params, feats, dtype: torch.dtype) -> torch.Tensor:
@@ -43,7 +57,7 @@ def _project(params, feats, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(feats, device=w.device).to(dtype) @ w.to(dtype)
 
 
-def assemble(cfg, params, batch: Dict,
+def assemble(cfg, params, batch: Dict, ctx: Optional[ParallelCtx] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Returns (x (B, S_total, D), positions, prefix_len).
 
@@ -60,12 +74,12 @@ def assemble(cfg, params, batch: Dict,
         prefix = 0
     elif cfg.frontend == "vlm":
         vis = _project(params, batch["patches"], dtype)
-        txt = embed_tokens(params, batch["tokens"], dtype)
+        txt = embed_tokens(params, batch["tokens"], dtype, ctx, cfg.vocab)
         x = torch.cat([vis, txt], dim=1)
         positions = torch.as_tensor(batch["positions3"], device=x.device)
         prefix = vis.shape[1]
     elif cfg.frontend == "none":
-        x = embed_tokens(params, batch["tokens"], dtype)
+        x = embed_tokens(params, batch["tokens"], dtype, ctx, cfg.vocab)
         prefix = 0
     else:
         raise ValueError(f"unknown frontend {cfg.frontend!r}")

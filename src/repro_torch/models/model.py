@@ -17,6 +17,13 @@ router in float32, as its use site reads it (``cast_params``); training
 keeps float32 master weights and differentiates their ``cast_params``
 copy (``repro_torch.train.step``). The dense projections and the head
 are ``torch.matmul``, as the reference leaves them to XLA.
+
+Serving entry points take a tensor-parallel context ``ctx``
+(:mod:`.shardrules`, None: one rank) with the rank's parameters
+(``shard_params``): the embedding and the head are vocab-parallel where
+the rules split the vocabulary (the logits gathered along V, so every
+rank holds the same (B, V)), the layers run :mod:`.tp`'s blocks, and the
+caches hold the rank's KV heads, SSM heads and ``conv_x`` channels.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from . import tp
 from .frontends import assemble, embed_tokens
 from .layers import (dense_init, embed_init, layernorm, layernorm_init,
                      rmsnorm, rmsnorm_init)
+from .shardrules import ParallelCtx
 from .transformer import (LayerSpec, layer_init_cache, segment_forward,
                           segment_init)
 
@@ -128,17 +137,18 @@ def _final_norm(cfg: ModelConfig, params, x):
 
 def forward_hidden(cfg: ModelConfig, params, batch: Dict,
                    mode: str = "train", caches: Optional[List] = None,
+                   ctx: Optional[ParallelCtx] = None,
                    ) -> Tuple[torch.Tensor, Optional[List], Dict, int]:
     """Trunk forward. Returns (h, new_caches, metrics, prefix_len); the
     metrics of the segments add up, as in the reference."""
-    x, positions, prefix = assemble(cfg, params, batch)
+    x, positions, prefix = assemble(cfg, params, batch, ctx)
     new_caches: List[Any] = []
     metrics: Dict[str, torch.Tensor] = {}
     for i, (spec, _) in enumerate(cfg.plan):
         x, c, m = segment_forward(params["segments"][i], x, spec, positions,
                                   mode,
                                   caches[i] if caches is not None else None,
-                                  remat=cfg.remat)
+                                  remat=cfg.remat, ctx=ctx)
         new_caches.append(c)
         for k, v in m.items():
             metrics[k] = metrics[k] + v if k in metrics else v
@@ -225,10 +235,13 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
 
 
 def logits_for(cfg: ModelConfig, params, h_last: torch.Tensor,
-               ) -> torch.Tensor:
-    """(B, D) -> (B, V) float32 logits (decode head)."""
+               ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """(B, D) -> (B, V) float32 logits (decode head); a rank's block of
+    the vocabulary's logits, gathered along V, where the head is
+    vocab-parallel."""
     w = _head_weight(cfg, params)
-    return ((h_last * _head_scale(cfg)) @ w.to(h_last.dtype).T).float()
+    out = ((h_last * _head_scale(cfg)) @ w.to(h_last.dtype).T).float()
+    return out if w.shape[0] == cfg.vocab else tp.gather_cat(out, -1, ctx)
 
 
 # --- decode ---------------------------------------------------------------------
@@ -286,6 +299,7 @@ def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
 
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
             cache_dtype: torch.dtype = torch.bfloat16,
+            ctx: Optional[ParallelCtx] = None,
             ) -> Tuple[torch.Tensor, List, int]:
     """Ingest the prompt (``batch`` as :func:`loss_fn` takes it, without
     labels). Returns (last-token logits, caches, next_index).
@@ -294,21 +308,23 @@ def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
     generated positions); the attention caches take ``cache_dtype``, the
     SSM caches keep the reference's types (conv tails in the model dtype,
     states in float32)."""
-    h, pre, _, _ = forward_hidden(cfg, params, batch, "prefill")
+    h, pre, _, _ = forward_hidden(cfg, params, batch, "prefill", ctx=ctx)
     caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype)
                for c in seg] for (spec, _), seg in zip(cfg.plan, pre)]
-    logits = logits_for(cfg, params, h[:, -1])
+    logits = logits_for(cfg, params, h[:, -1], ctx)
     return logits, caches, h.shape[1]     # meta/prefix included
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
-                caches: List, index: int) -> Tuple[torch.Tensor, List]:
+                caches: List, index: int, ctx: Optional[ParallelCtx] = None,
+                ) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int at absolute position ``index`` (meta tokens
     counted). Returns ((B, V) logits, caches); the caches are updated in
     place."""
-    h = embed_tokens(params, token, cfg.dtype)
+    h = embed_tokens(params, token, cfg.dtype, ctx, cfg.vocab)
     for i, (spec, _) in enumerate(cfg.plan):
         h, caches[i], _ = segment_forward(params["segments"][i], h, spec,
-                                          None, "decode", caches[i], index)
+                                          None, "decode", caches[i], index,
+                                          ctx=ctx)
     h = _final_norm(cfg, params, h)
-    return logits_for(cfg, params, h[:, -1]), caches
+    return logits_for(cfg, params, h[:, -1], ctx), caches

@@ -10,7 +10,15 @@ the causal depthwise conv.
 Precision follows the reference: dt, A, x̄ and the state are float32; y
 and the projections are in the model dtype. Public layouts are the
 reference's: ``(B, S, H, P)``, ``(B, S, G, N)``, state ``(B, H, P, N)``.
-Mesh and sharding anchors are not part of the port (one card).
+With a tensor-parallel context (:mod:`.shardrules`, :mod:`.tp`) the
+parameters are the rank's: ``in_z``, ``in_x``, ``in_dt``, ``A_log``,
+``D``, ``dt_bias``, the norm's scale and ``out_proj``'s rows hold its
+H/T heads, every conv its block of channels, and ``in_b`` / ``in_c`` are
+whole. A rank convolves its channels of B and C and gathers the rest,
+scans its heads, normalises over the whole ``d_inner`` (one float32
+ordered sum of squares) and adds ``out_proj``'s partials with one
+ordered sum. Its decode cache holds its heads' state and ``conv_x``
+channels, and the whole ``conv_b`` / ``conv_c`` tails.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ssd_fused
+from . import tp
 from .layers import dense_init
+from .shardrules import ParallelCtx, tp_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,24 +112,49 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b.to(x.dtype).float()).to(x.dtype)
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          ctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """:func:`_causal_conv` of the channels ``w`` holds: where ``x`` is
+    whole and ``w`` a rank's block, the rank's block of channels, then
+    the ranks' blocks gathered (exact: each channel is its own conv)."""
+    if w.shape[1] == x.shape[2]:
+        return _causal_conv(x, w, b)
+    x = tp.local_block(x, w.shape[1], ctx, dim=2)
+    return tp.gather_cat(_causal_conv(x, w, b), -1, ctx)
+
+
 def _conv_step(state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
+               b: torch.Tensor, ctx: Optional[ParallelCtx] = None,
+               ) -> torch.Tensor:
     """Decode: state (B, width-1, C), x_new (B, 1, C) -> out (B, 1, C).
-    The window in ``state`` moves on by one token in place."""
+    The window in ``state`` moves on by one token in place. Where the
+    state is whole and ``w`` a rank's block of channels, as :func:`_conv`.
+    """
     window = torch.cat([state, x_new.to(state.dtype)], dim=1)
+    state.copy_(window[:, 1:])
+    whole = w.shape[1] == window.shape[2]
+    window = tp.local_block(window, w.shape[1], ctx, dim=2)
     dt_ = x_new.dtype
     out = (window.to(dt_).float() * w.to(dt_).float()).sum(1)
-    out = out + b.to(dt_).float()
-    state.copy_(window[:, 1:])
-    return F.silu(out).to(dt_)[:, None, :]
+    out = F.silu(out + b.to(dt_).float()).to(dt_)[:, None, :]
+    return out if whole else tp.gather_cat(out, -1, ctx)
 
 
 # --- block forward / decode -------------------------------------------------------
 
 def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
+                eps: float = 1e-6, ctx: Optional[ParallelCtx] = None,
+                ) -> torch.Tensor:
+    """RMS norm of ``y * silu(z)`` over the whole ``d_inner``: at T > 1
+    ``y`` and ``z`` hold a rank's channels, and the sum of squares is a
+    float32 ordered sum over the ranks."""
     gf = (y * F.silu(z)).float()
-    var = (gf * gf).mean(-1, keepdim=True)
+    t = tp_size(ctx)
+    if t == 1:
+        var = (gf * gf).mean(-1, keepdim=True)
+    else:
+        var = tp.ordered_sum((gf * gf).sum(-1, keepdim=True), ctx) / (
+            gf.shape[-1] * t)
     return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
@@ -129,25 +164,27 @@ def _projections(params, x: torch.Tensor):
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
+                ctx: Optional[ParallelCtx] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Training / prefill forward. x: (B, S, D). Returns (out, decode
     cache entries), the entries None when ``cache`` is False (training
-    keeps no decode cache)."""
+    keeps no decode cache). At T > 1 the scan runs on the rank's heads."""
+    tp.check_ssm(cfg, ctx)
     bsz, s, _ = x.shape
     z, xr, Br, Cr, dt_raw = _projections(params, x)
-    xc = _causal_conv(xr, params["conv_x"]["w"], params["conv_x"]["b"])
-    Bc = _causal_conv(Br, params["conv_b"]["w"], params["conv_b"]["b"])
-    Cc = _causal_conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"])
+    xc = _conv(xr, params["conv_x"]["w"], params["conv_x"]["b"], ctx)
+    Bc = _conv(Br, params["conv_b"]["w"], params["conv_b"]["b"], ctx)
+    Cc = _conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"], ctx)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B, S, H)
-    xs = xc.reshape(bsz, s, cfg.n_heads, cfg.head_dim)
+    xs = xc.reshape(bsz, s, dt.shape[-1], cfg.head_dim)
     B3 = Bc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
     C3 = Cc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
     y, h_fin = ssd_fused(xs, dt, params["A_log"], B3, C3, params["D"],
                          chunk=cfg.chunk)
-    y = _gated_norm(params["ssm_norm"]["scale"],
-                    y.reshape(bsz, s, cfg.d_inner), z)
-    out = y @ params["out_proj"]
+    y = _gated_norm(params["ssm_norm"]["scale"], y.reshape(bsz, s, -1), z,
+                    ctx=ctx)
+    out = tp.ordered_sum(y @ params["out_proj"], ctx)
     if not cache:
         return out, None
 
@@ -165,23 +202,26 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
 
 
 def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
+               ctx: Optional[ParallelCtx] = None,
                ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode. x: (B, 1, D); cache from ssm_forward/init.
+    """One-token decode. x: (B, 1, D); cache from ssm_forward/init (at
+    T > 1 the rank's: its heads' state and ``conv_x`` channels).
 
     The cache is updated in place and returned (the reference's serving
     loop donates it to the jitted step for the same effect)."""
+    tp.check_ssm(cfg, ctx)
     bsz = x.shape[0]
     z, xr, Br, Cr, dt_raw = _projections(params, x)
     xc = _conv_step(cache["conv_x"], xr, params["conv_x"]["w"],
-                    params["conv_x"]["b"])
+                    params["conv_x"]["b"], ctx)
     Bc = _conv_step(cache["conv_b"], Br, params["conv_b"]["w"],
-                    params["conv_b"]["b"])
+                    params["conv_b"]["b"], ctx)
     Cc = _conv_step(cache["conv_c"], Cr, params["conv_c"]["w"],
-                    params["conv_c"]["b"])
+                    params["conv_c"]["b"], ctx)
 
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])    # (B, H)
     a = torch.exp(dt * -torch.exp(params["A_log"].float()))      # (B, H)
-    H, Pd, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    H, Pd, G, N = dt.shape[-1], cfg.head_dim, cfg.n_groups, cfg.d_state
     hg = H // G
     x1 = xc[:, 0].float().reshape(bsz, H, Pd)
     Bh = Bc[:, 0].float().reshape(bsz, G, N).repeat_interleave(hg, dim=1)
@@ -190,9 +230,9 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
     state.mul_(a[..., None, None]).add_(
         (dt[..., None] * x1)[..., None] * Bh[:, :, None, :])
     y = (state * Ch[:, :, None, :]).sum(-1) + params["D"][None, :, None] * x1
-    y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(params["ssm_norm"]["scale"], y, z)
-    return y @ params["out_proj"], cache
+    y = y.reshape(bsz, 1, H * Pd).to(x.dtype)
+    y = _gated_norm(params["ssm_norm"]["scale"], y, z, ctx=ctx)
+    return tp.ordered_sum(y @ params["out_proj"], ctx), cache
 
 
 def ssm_init_cache(cfg: SSMConfig, batch: int, dtype: torch.dtype,

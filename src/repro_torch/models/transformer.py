@@ -15,6 +15,11 @@ Block kinds:
 A layer returns its metrics beside its output (an MoE layer's aux_loss
 and dropped share; none for the others), and a segment reduces them over
 its layers as the reference's ``_agg_metrics`` does.
+
+A tensor-parallel context (:mod:`.shardrules`) reaches every mixer and
+FFN, whose parameters are then the rank's (:mod:`.tp`); at T > 1 a layer
+the layout does not cover raises (``tp.check_layer``), and so does
+training (sharded training, ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from .attention import (AttnConfig, attn_decode, attn_forward, attn_init,
                         attn_init_cache)
 from .layers import (ffn_apply, ffn_init, layernorm, layernorm_init, rmsnorm,
                      rmsnorm_init)
+from . import tp
 from .moe import MoEConfig, moe_forward, moe_init
+from .shardrules import ParallelCtx, tp_size
 from .ssm import SSMConfig, ssm_decode, ssm_forward, ssm_init, ssm_init_cache
 
 MODES = ("train", "prefill", "decode")
@@ -105,7 +112,8 @@ def layer_init(spec: LayerSpec, d_model: int, *,
 
 
 def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
-           cache, cache_index) -> Tuple[torch.Tensor, Optional[Dict]]:
+           cache, cache_index, ctx: Optional[ParallelCtx] = None,
+           ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The sequence mixer part of a layer. Returns (y, new cache): the
     prefill cache entries, the (in place) updated decode cache, or None
     in train."""
@@ -115,17 +123,18 @@ def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
     if _has_attn(spec):
         if mode == "decode":
             ya, new_cache["attn"] = attn_decode(
-                params["attn"], x_n, cache["attn"], spec.attn, cache_index)
+                params["attn"], x_n, cache["attn"], spec.attn, cache_index,
+                ctx)
         else:
-            ya, new_cache["attn"] = attn_forward(params["attn"], x_n,
-                                                 spec.attn, positions, keep)
+            ya, new_cache["attn"] = attn_forward(
+                params["attn"], x_n, spec.attn, positions, keep, ctx)
     if _has_ssm(spec):
         if mode == "decode":
             ys, new_cache["ssm"] = ssm_decode(params["ssm"], x_n,
-                                              cache["ssm"], spec.ssm)
+                                              cache["ssm"], spec.ssm, ctx)
         else:
             ys, new_cache["ssm"] = ssm_forward(params["ssm"], x_n, spec.ssm,
-                                               keep)
+                                               keep, ctx)
     out = new_cache if keep else None
     if spec.kind != "hybrid":
         return (ya if ys is None else ys), out
@@ -139,22 +148,28 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
                   positions: Optional[torch.Tensor] = None,
                   mode: str = "train", cache: Optional[Dict] = None,
                   cache_index: Optional[int] = None,
+                  ctx: Optional[ParallelCtx] = None,
                   ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Pre-norm residual layer (mixer, then the MoE or dense FFN if any).
     Returns (x, new_cache, metrics)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+    tp.check_layer(spec, ctx)
     metrics: Dict[str, torch.Tensor] = {}
     y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,
-                          positions, mode, cache, cache_index)
+                          positions, mode, cache, cache_index, ctx)
     x = x + y
     if "moe" in params:
         h, metrics = moe_forward(params["moe"],
                                  _norm(spec, params["norm2"], x), spec.moe)
         x = x + h
     elif "ffn" in params:
-        x = x + ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),
-                          spec.activation)
+        y = ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),
+                      spec.activation)
+        # a rank's hidden columns give a partial (the rules keep a d_ff
+        # that T does not divide whole, and every rank runs it whole)
+        split = params["ffn"]["w_down"].shape[0] < spec.d_ff
+        x = x + (tp.ordered_sum(y, ctx) if split else y)
     return x, new_cache, metrics
 
 
@@ -201,6 +216,7 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
                     positions: Optional[torch.Tensor] = None,
                     mode: str = "train", caches: Optional[List] = None,
                     cache_index: Optional[int] = None, remat: str = "full",
+                    ctx: Optional[ParallelCtx] = None,
                     ) -> Tuple[torch.Tensor, Optional[List], Dict]:
     """Run a segment's layers in order. Returns (x, per-layer caches,
     metrics reduced over the layers), the caches None in train.
@@ -212,6 +228,10 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
     activation."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if mode == "train" and tp_size(ctx) > 1:
+        raise NotImplementedError(
+            f"training at T = {tp_size(ctx)}: the collectives here carry no "
+            f"gradient; sharded training waits ({tp.SHARDED_TRAINING})")
     if mode == "train":
         if remat == "dots":
             raise NotImplementedError(
@@ -230,7 +250,7 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
     for i, layer_p in enumerate(params):
         x, c, m = layer_forward(layer_p, x, spec, positions, mode,
                                 caches[i] if caches is not None else None,
-                                cache_index)
+                                cache_index, ctx)
         new_caches.append(c)
         ms.append(m)
     return x, new_caches, _agg_metrics(ms)

@@ -4,18 +4,33 @@ Prefill and decode run eagerly on the engine's device: no compilation
 and no CUDA graph (a graph for the decode step is later work). Each step
 is timed on the host clock around work that ends in a device
 synchronisation and recorded in the paper's trace format.
+
+With a ``mesh`` (``repro_torch.launch.mesh.make_host_mesh(model=T)``),
+every rank of the default process group builds the engine on the same
+full parameters and calls ``generate`` on the same batch (SPMD, one
+process a rank). The engine keeps only the rank's shards
+(``shard_params``), and each layer runs tensor-parallel over the
+``model`` axis (``repro_torch.models.tp``). Every rank returns the same
+tokens. A layout the port does not cover raises in the constructor on
+every rank, and a batch that differs between ranks raises in
+``generate`` on every rank before the first collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from ..core.group import agree
 from ..device import resolve_device
+from ..core.mesh import Mesh
+from ..models import tp
 from ..models.model import ModelConfig, decode_step, prefill
+from ..models.shardrules import make_ctx, shard_params
 from ..telemetry import KIND_DECODE, KIND_PREFILL, TelemetryRecorder
 
 
@@ -26,15 +41,30 @@ class ServeConfig:
     cache_dtype: torch.dtype = torch.bfloat16
 
 
+def _batch_digest(inputs: Dict[str, torch.Tensor]):
+    """(key, shape, dtype, sha256 of the bytes) of each input."""
+    out = []
+    for k in sorted(inputs):
+        t = inputs[k].detach().cpu().contiguous()
+        out.append((k, tuple(t.shape), str(t.dtype), hashlib.sha256(
+            t.view(torch.uint8).numpy().tobytes()).hexdigest()))
+    return out
+
+
 class ServeEngine:
-    """Batched greedy decoding over a fixed-shape request batch."""
+    """Batched greedy decoding over a fixed-shape request batch; on a
+    ``mesh``, tensor-parallel across its ranks."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  device: Union[str, torch.device] = "cuda",
-                 telemetry: Optional[TelemetryRecorder] = None):
+                 telemetry: Optional[TelemetryRecorder] = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
-        self.cfg, self.params = cfg, params
-        self.scfg = serve_cfg
+        self.cfg, self.scfg, self.mesh = cfg, serve_cfg, mesh
+        self.ctx = make_ctx(mesh)
+        for spec, _ in cfg.plan:
+            tp.check_layer(spec, self.ctx)
+        self.params = shard_params(params, self.ctx)
         self.telemetry = telemetry or TelemetryRecorder(device=self.device)
 
     def _sync(self) -> None:
@@ -49,6 +79,9 @@ class ServeEngine:
         ``positions3`` (B, 3, P + S)."""
         inputs = {k: torch.as_tensor(batch[k], device=self.device)
                   for k in ("tokens", "patches", "positions3") if k in batch}
+        if self.ctx is not None:        # before any rank can raise alone
+            agree("serving batches", _batch_digest(inputs) + [
+                self.scfg.max_len, self.scfg.max_new_tokens])
         prefix = self.cfg.meta_tokens
         if "patches" in inputs:
             prefix += inputs["patches"].shape[1]
@@ -63,7 +96,7 @@ class ServeEngine:
         with self.telemetry.timed(0, KIND_PREFILL, 0):
             logits, caches, index = prefill(
                 self.cfg, self.params, inputs, self.scfg.max_len,
-                cache_dtype=self.scfg.cache_dtype)
+                cache_dtype=self.scfg.cache_dtype, ctx=self.ctx)
             self._sync()
         tok = logits.argmax(-1)[:, None]
         out = [tok]
@@ -72,7 +105,7 @@ class ServeEngine:
             # to its jitted decode step for the same effect)
             with self.telemetry.timed(0, KIND_DECODE, t):
                 logits, caches = decode_step(self.cfg, self.params, tok,
-                                             caches, index + t)
+                                             caches, index + t, self.ctx)
                 self._sync()
             tok = logits.argmax(-1)[:, None]
             out.append(tok)

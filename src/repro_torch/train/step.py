@@ -8,8 +8,8 @@ float32 (``compress_grads=False`` keeps float32 end to end). On one card
 nothing is all-reduced; the option keeps the reference's numbers.
 
 The reference's ``state_specs``, ``batch_specs`` and ``jit_train_step``
-lay the state over a mesh; they come with tensor parallelism (ROADMAP
-Queue 1 item 6).
+lay the state over a mesh; they come with sharded training (ROADMAP
+Queue 1 item 2).
 """
 
 from __future__ import annotations

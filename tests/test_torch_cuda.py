@@ -1015,3 +1015,79 @@ def test_collaborative_reduce_two_ranks_on_the_card_bitwise(cuda):
     for p in procs:
         out, err = p.communicate(timeout=180)
         assert p.returncode == 0 and "OK" in out, err[-3000:]
+
+
+# the rank processes of the tensor-parallel test below: two ranks on the
+# one card over gloo, each holding its shards of one dense layer at
+# danube's widths (bfloat16)
+_TP_RANK = """
+import datetime, sys
+import torch, torch.distributed as dist
+from repro_torch.kernels.flashattn import flash_attention
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import attention, tp, transformer
+from repro_torch.models.shardrules import make_ctx, shard_params
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+torch.cuda.set_device(0)
+dev, bf = torch.device('cuda', 0), torch.bfloat16
+ctx = make_ctx(make_host_mesh(model=2))
+gen = torch.Generator(device=dev).manual_seed(0)
+cfg = attention.AttnConfig(d_model=2560, n_heads=32, n_kv_heads=8,
+                           head_dim=80, window=256)
+spec = transformer.LayerSpec(kind='attn', attn=cfg, d_ff=6912)
+p = transformer.layer_init(spec, 2560, generator=gen, device=dev, dtype=bf)
+x = torch.randn(1, 512, 2560, generator=gen, device=dev).to(bf)
+mine = shard_params(p, ctx)
+assert mine['attn']['wq'].shape == (2560, 16, 80)
+assert mine['attn']['wk'].shape == (2560, 4, 80)
+assert mine['ffn']['w_down'].shape == (3456, 2560)
+with torch.inference_mode():
+    y1, c1 = attention.attn_forward(p['attn'], x, cfg)
+    before = flash_attention.wgmma_launches
+    y2, c2 = attention.attn_forward(mine['attn'], x, cfg, ctx=ctx)
+    assert flash_attention.wgmma_launches == before + 1
+    assert torch.equal(c2['k'], c1['k'][:, :, 4 * rank:4 * rank + 4])
+    l1, _, _ = transformer.layer_forward(p, x, spec, mode='prefill')
+    l2, _, _ = transformer.layer_forward(mine, x, spec, mode='prefill',
+                                         ctx=ctx)
+    parts = [torch.randn(3, 1001, generator=torch.Generator(
+        device=dev).manual_seed(9 + r), device=dev).to(bf) for r in range(2)]
+    got = tp.ordered_sum(parts[rank], ctx)
+torch.cuda.synchronize()
+for a, b in ((y1, y2), (l1, l2)):
+    err = (a.float() - b.float()).norm() / a.float().norm()
+    assert float(err) <= 2 ** -7, float(err)
+assert torch.equal(got, (parts[0].float() + parts[1].float()).to(bf))
+dist.destroy_process_group()
+print('OK')
+"""
+
+
+def test_tp_blocks_two_ranks_on_the_card(cuda):
+    """``attn_forward`` (the flash kernel on each rank's 16 query and 4 KV
+    heads) and ``layer_forward`` (attention and the gated FFN on each
+    rank's hidden columns) at T = 2 on cuda:0 over gloo equal the one-rank
+    block (bfloat16: each rank's partial is rounded once more before the
+    sum, so within 2^-7 relative), the prefill cache is the rank's KV
+    heads bit for bit, and the ordered sum equals plain float32 adds in
+    rank order bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_RANK, str(r),
+                               str(port)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=180)
+        assert p.returncode == 0 and "OK" in out, err[-3000:]
