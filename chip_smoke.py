@@ -234,25 +234,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              plain prefill;
 15b. tp    — tensor-parallel serving: 4 rank processes (chip_smoke.py
              --rank-role tp --collective-rank R, started by the phase), all
-             on cuda:0 in a gloo group, each draw h2o-danube-1.8b and then
-             mamba2-370m whole at full width and depth from --seed, and serve
-             1 request of 2,048 prompt tokens + 8 new through
-             ``ServeEngine(..., mesh=make_host_mesh(model=4))``: each rank
-             keeps its shards (its parameter bytes must equal
-             ``bytes_per_device``), runs flash_attention on its 8 query and
-             2 KV heads (24 launches a prefill, all tensor-core) or
-             ssd_fused on its 8 SSM heads (48), and adds the partials with
-             ordered sums over gloo. Rank 0 first decodes the whole tree
-             greedily at P = 1; the TP prefill logits, and 7 decode steps
-             teacher-forced on P = 1's tokens (the timed generate's own
-             where its tokens are P = 1's, else a second TP pass), must
-             agree with P = 1's within the serving gates, every rank's
-             logits and tokens must be equal bit for bit,
+             on cuda:0 in a gloo group, each draw h2o-danube-1.8b,
+             mamba2-370m, granite-moe-1b-a400m and deepseek-v2-236b (its
+             dense layer and 1 MoE layer, TP_DEPTH_CUTS) whole at full
+             width from --seed, and serve 1 request of 2,048 prompt tokens
+             + 8 new through ``ServeEngine(...,
+             mesh=make_host_mesh(model=4))``: each rank keeps its shards
+             (its parameter bytes must equal ``bytes_per_device``; the
+             MoE's expert tables by expert), runs flash_attention on its
+             query and KV heads (24 launches a prefill for danube and
+             granite, 2 for deepseek's MLA in the (192, 128)
+             instantiation, all tensor-core) or ssd_fused on its 8 SSM
+             heads (48), the MoE's ep path in prefill (two all_to_alls a
+             layer) and its replicated path in decode, and adds the
+             partials with ordered sums over gloo. Rank 0 then runs the
+             same function at P = 1 on the whole tree, drawn again: decode
+             teacher-forced on the TP tokens, and for an MoE model each
+             prefill MoE call on the 4 sequence blocks as separate calls
+             (the ep path's capacity) under the TP run's expert choices;
+             the TP prefill and decode logits must agree with P = 1's
+             within the serving gates, every rank's logits, tokens and
+             dropped share must be equal bit for bit,
              and each rank's kernel calls are held against the plain
              versions; prefill ms, decode ms a token, peak GiB and each
-             collective kind's calls and seconds are printed a rank, with
-             whether gloo takes bfloat16 CUDA tensors as they are (the port
-             sends 16-bit floats as uint8 views either way);
+             collective kind's calls and seconds (tp_all_to_all on a line
+             of its own) are printed a rank, the dropped shares at TP, at
+             P = 1 and free-running, the free-running gap and the tokens
+             whose own top-k differs from the TP choice, with whether gloo
+             takes bfloat16 CUDA tensors as they are (the port sends
+             16-bit floats as uint8 views either way);
 16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -3573,15 +3583,29 @@ def phase_collective(args, work, main_res, delta_copy, card):
 
 TP_RANKS = 4
 TP_TIMEOUT_S = 300               # the group's; the phase's is 400 s
-# the tp phase's models, each at full width and depth with 1 request of
-# 2,048 prompt tokens and 8 new tokens; the kernel each must launch in
-# one prefill on every rank, and how many times
+# the tp phase's models, each at full width (and depth, but as
+# TP_DEPTH_CUTS says) with 1 request of 2,048 prompt tokens and 8 new
+# tokens; the kernel each must launch in one prefill on every rank, how
+# many times, and in which flash_attention instantiation where it says
 TP_SPECS = {
     "tp-danube": dict(arch="h2o-danube-1.8b", prompt=2048, new=8,
                       kernel="flash_attention", launches=24),
     "tp-mamba2": dict(arch="mamba2-370m", prompt=2048, new=8,
                       kernel="ssd_fused", launches=48),
+    "tp-granite": dict(arch="granite-moe-1b-a400m", prompt=2048, new=8,
+                       kernel="flash_attention", launches=24),
+    "tp-deepseek": dict(arch="deepseek-v2-236b", prompt=2048, new=8,
+                        kernel="flash_attention", launches=2,
+                        flash_instance=(192, 128)),
 }
+# the tp phase's flash_attention rows, one a model
+TP_FLASH_ROWS = tuple(f"flash_attention/{tag}" for tag, spec in
+                      TP_SPECS.items() if spec["kernel"] == "flash_attention")
+# deepseek-v2-236b's dense layer and 1 of its 59 MoE layers: every rank
+# draws the whole tree before it keeps its shards, ~4.8 B parameters (9.7
+# GB in bfloat16) here, so the four trees take ~39 GB at once (DEPTH_CUTS'
+# 4 MoE layers would take 134 GB)
+TP_DEPTH_CUTS = {"deepseek-v2-236b": (1, 1)}
 
 
 def _digest(*tensors):
@@ -3592,17 +3616,123 @@ def _digest(*tensors):
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def _moe_dropped(into):
+    """Keep each ``moe_forward`` call's dropped share in ``into`` (the
+    layer loop looks the function up in ``transformer``)."""
+    from repro_torch.models import transformer
+    real = transformer.moe_forward
+
+    def tapped(*a, **kw):
+        out = real(*a, **kw)
+        into.append(out[1]["dropped"])
+        return out
+    transformer.moe_forward = tapped
+    try:
+        yield into
+    finally:
+        transformer.moe_forward = real
+
+
+@contextlib.contextmanager
+def _blocked_moe(t):
+    """P = 1 under the ``ep`` path's capacity: each MoE call's routed part
+    runs as ``t`` calls, one a sequence block (a batch of 1 request: rows
+    ``[r S/t, (r+1) S/t)``), in block order; the aux loss and the dropped
+    share are the blocks' mean, added in block order."""
+    import torch
+
+    from repro_torch.models import moe
+    real = moe._moe_local
+
+    def blocked(params, tokens, cfg):
+        n = tokens.shape[0] // t
+        parts = [real(params, tokens[r * n:(r + 1) * n], cfg)
+                 for r in range(t)]
+        means = []
+        for i in (1, 2):
+            acc = parts[0][i].float()
+            for p in parts[1:]:
+                acc = acc + p[i].float()
+            means.append(acc / t)
+        return torch.cat([p[0] for p in parts]), *means
+    moe._moe_local = blocked
+    try:
+        yield
+    finally:
+        moe._moe_local = real
+
+
+def _mean(xs):
+    import torch
+    return float(torch.stack([x.float() for x in xs]).mean()) if xs else None
+
+
+def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len):
+    """Rank 0's P = 1 run of the function the TP run computed: the whole
+    tree drawn again from ``seed``, decode teacher-forced on the TP run's
+    tokens. For an MoE model each prefill MoE call's routed part runs on
+    the TP_RANKS sequence blocks as separate calls (``_blocked_moe``: the
+    ``ep`` path's per-block capacity), and every routing takes the TP
+    run's expert choices (``_Routing``: prefill layer l's block r is rank
+    r's call l, decode rank 0's calls). Returns the gaps a step, P = 1's
+    argmax a step, and for an MoE model the dropped shares, the
+    free-running gap (P = 1's own routing, capacity over the whole call)
+    and the tokens whose own top-k differs from the replayed choice."""
+    import torch
+
+    from repro_torch.models import model
+
+    params = model.init_params(cfg, seed=seed, device=dev)
+    n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
+    routing, drops = _Routing(), []
+    routing.chosen = [chosen[r][i].to(dev) for i in range(n_moe)
+                      for r in range(TP_RANKS)] + [
+        c.to(dev) for c in chosen[0][n_moe:]]
+    replay = routing.replay() if n_moe else contextlib.nullcontext()
+    blocked = _blocked_moe(TP_RANKS) if n_moe else contextlib.nullcontext()
+    with torch.inference_mode(), replay, _moe_dropped(drops):
+        with blocked:
+            lg, caches, index = model.prefill(cfg, params, batch, max_len,
+                                              cfg.dtype)
+        p1 = [lg]
+        for t in range(tokens.shape[1] - 1):
+            tok = torch.as_tensor(tokens[:, t:t + 1], device=dev)
+            lg, caches = model.decode_step(cfg, params, tok, caches,
+                                           index + t)
+            p1.append(lg)
+        del caches
+    out = {"gaps": [_logit_gap(a.float(), b.float())
+                    for a, b in zip(tp_logits, p1)],
+           "argmax_p1": [int(x) for x in torch.stack(
+               [p.argmax(-1)[0] for p in p1]).cpu()]}
+    if n_moe:
+        free = []
+        with torch.inference_mode(), _moe_dropped(free):
+            lg_free, _, _ = model.prefill(cfg, params, batch, max_len,
+                                          cfg.dtype)
+        pre = routing.flips[:n_moe * TP_RANKS]
+        out.update({
+            "dropped_p1": _mean(drops[:n_moe]),
+            "dropped_free": _mean(free),
+            "free_gap": _logit_gap(tp_logits[0].float(), lg_free.float()),
+            "flips_prefill": [sum(pre[i * TP_RANKS:(i + 1) * TP_RANKS])
+                              for i in range(n_moe)],
+            "flips_decode": sum(routing.flips[n_moe * TP_RANKS:])})
+    del params
+    return out
+
+
 def tp_rank(args) -> int:
     """One rank of the tp phase, in a process of its own (``chip_smoke.py
     --rank-role tp --collective-rank R``): every rank draws each model of
-    TP_SPECS whole from --seed, serves it through ``ServeEngine(...,
+    TP_SPECS whole from --seed (its depth cut as TP_DEPTH_CUTS says),
+    serves it through ``ServeEngine(...,
     mesh=make_host_mesh(model=TP_RANKS))`` on cuda:0 in a gloo group, and
-    keeps the logits of that one timed ``generate``; rank 0 first decodes
-    greedily at P = 1 on the whole tree. Where the TP tokens fed to
-    decode are P = 1's, those logits are the TP logits teacher-forced on
-    P = 1's tokens; else (and only then) a second, untimed TP pass feeds
-    it P = 1's tokens. Writes its record (and rank 0 its P = 1 gaps and
-    the kernels' per-rank calls) under the phase's directory."""
+    keeps the logits of that one timed ``generate``, the MoE layers'
+    expert choices and dropped shares; rank 0 then runs the same function
+    at P = 1 (``_tp_yardstick``). Writes its record (and rank 0 the
+    kernels' per-rank calls) under the phase's directory."""
     import datetime
     import gc
 
@@ -3645,7 +3775,8 @@ def tp_rank(args) -> int:
     except RuntimeError as e:
         rec["gloo_bf16"] = f"refused: {e}"[:200]
     for tag, spec in TP_SPECS.items():
-        cfg = get_config(spec["arch"])
+        cfg = cut_depth(get_config(spec["arch"]),
+                        TP_DEPTH_CUTS.get(spec["arch"]))
         n_new = spec["new"]
         params = model.init_params(cfg, seed=args.seed, device=dev)
         host = _serve_batch(cfg, args.seed, 1, spec["prompt"])
@@ -3653,24 +3784,6 @@ def tp_rank(args) -> int:
         max_len = spec["prompt"] + n_new
         scfg = ServeConfig(max_len=max_len, max_new_tokens=n_new,
                            cache_dtype=cfg.dtype)
-        p1 = []
-        tokens_1 = None
-        with torch.inference_mode():
-            if rank == 0:                # greedy at P = 1 on the whole tree
-                lg, caches, index = model.prefill(cfg, params, batch,
-                                                  max_len, cfg.dtype)
-                toks = [lg.argmax(-1)[:, None]]
-                p1.append(lg.float().cpu())
-                for t in range(n_new - 1):
-                    lg, caches = model.decode_step(cfg, params, toks[-1],
-                                                   caches, index + t)
-                    toks.append(lg.argmax(-1)[:, None])
-                    p1.append(lg.float().cpu())
-                tokens_1 = torch.cat(toks, 1).to(torch.int32).cpu().numpy()
-                del caches, lg, toks
-            got = [tokens_1]
-            dist.broadcast_object_list(got, src=0)
-            tokens_1 = got[0]
         engine = ServeEngine(cfg, params, scfg, device=dev, mesh=mesh)
         want_bytes = bytes_per_device(params, mesh)
         del params
@@ -3694,6 +3807,7 @@ def tp_rank(args) -> int:
         cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
                       key=_flash_key)
         tp_logits = []                   # the logits generate computes
+        routing, drops = _Routing(), []
 
         def keep(fn):
             def wrapped(*a, **kw):
@@ -3707,12 +3821,15 @@ def tp_rank(args) -> int:
             dist.barrier()
             _zero(counters)
             group.collective_times(reset=True)
-            tokens = engine.generate(host)
+            with routing.record(), _moe_dropped(drops):
+                tokens = engine.generate(host)
             torch.cuda.synchronize()
             launches = {k: counters[k].launches
                         for k in ("flash_attention", "ssd_fused")}
             tc = {k: counters[k].wgmma_launches
                   for k in ("flash_attention", "ssd_fused")}
+            insts = {f"{hd}x{hdv}": n for (hd, hdv), n in
+                     counters["flash_attention"].instances.items()}
             coll = group.collective_times(reset=True)
         finally:
             engine_mod.prefill = model.prefill
@@ -3724,47 +3841,38 @@ def tp_rank(args) -> int:
                   if e.kind == KIND_PREFILL]
         dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps
                   if e.kind == KIND_DECODE]
-        # rank 0 decides, so that every rank takes the same branch
-        fed = [rank != 0 or bool(np.array_equal(tokens[:, :n_new - 1],
-                                                tokens_1[:, :n_new - 1]))]
-        dist.broadcast_object_list(fed, src=0)
-        if not fed[0]:                   # teacher-force a second TP pass
-            with torch.inference_mode():
-                lg, caches, index = model.prefill(cfg, engine.params, batch,
-                                                  max_len, cfg.dtype,
-                                                  engine.ctx)
-                tp_logits = [lg]
-                for t in range(n_new - 1):
-                    tok = torch.as_tensor(tokens_1[:, t:t + 1], device=dev)
-                    lg, caches = model.decode_step(
-                        cfg, engine.params, tok, caches, index + t,
-                        engine.ctx)
-                    tp_logits.append(lg)
-                del caches
+        n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
         errs = _captured_errs(cap.calls, f"{tag} rank {rank}")
         by_kind = {}
         for name, sec in coll:
             n, total = by_kind.get(name, (0, 0.0))
             by_kind[name] = (n + 1, total + sec)
         rec[tag] = {
-            "launches": launches, "tensor_core": tc, "errs": errs,
-            "bytes": [held, want_bytes], "prefill_ms": pre_ms,
+            "launches": launches, "tensor_core": tc, "instances": insts,
+            "errs": errs, "bytes": [held, want_bytes], "prefill_ms": pre_ms,
             "decode_ms": dec_ms, "peak_gib": peak / 2**30,
             "collectives": by_kind, "tokens": tokens.tolist(),
-            "tokens_p1": np.asarray(tokens_1).tolist(),
-            "second_pass": not fed[0],
+            "dropped": _mean(drops[:n_moe]),
             "digest": _digest(*tp_logits),
             "finite": all(bool(torch.isfinite(x).all()) for x in tp_logits),
             "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
                        for k, c in cap.calls.items()}}
+        # every rank's expert choices to rank 0, for its P = 1 yardstick
+        chosen = [c.cpu() for c in routing.chosen]
+        every = [None] * TP_RANKS if rank == 0 else None
+        dist.gather_object(chosen, every, dst=0)
+        del engine, routing, chosen
+        gc.collect()
+        torch.cuda.empty_cache()
         if rank == 0:
-            rec[tag]["gaps"] = [_logit_gap(a.float().cpu(), b)
-                                for a, b in zip(tp_logits, p1)]
+            rec[tag].update(_tp_yardstick(cfg, args.seed, dev, batch,
+                                          np.asarray(tokens), tp_logits,
+                                          every, max_len))
             torch.save({k: ([a.cpu() if hasattr(a, "cpu") else a
                              for a in c[0]], c[1])
                         for k, c in cap.calls.items()},
                        os.path.join(root, f"{tag}_calls.pt"))
-        del engine, tp_logits, cap
+        del tp_logits, cap, every
         gc.collect()
         torch.cuda.empty_cache()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -3777,10 +3885,13 @@ def phase_tp(args, work, dev, card):
     """Tensor-parallel serving: TP_RANKS rank processes on cuda:0 in a
     gloo group serve each model of TP_SPECS through ``ServeEngine(...,
     mesh)``, each rank holding its shards and launching its kernel on its
-    heads. Gates: the TP prefill logits and the decode logits (teacher
-    forced on the P = 1 tokens: the timed generate's own where its tokens
-    are P = 1's) within the serving gates of the P = 1 run's, every rank's logits bit-equal, each rank's launches one a
-    layer, each kernel against its plain version on the rank's own
+    heads (the MoE on its experts). Gates: the TP prefill logits and the
+    decode logits of the timed generate within the serving gates of rank
+    0's P = 1 run of the same function (decode teacher-forced on the TP
+    tokens; for an MoE model per-block capacity and the TP run's expert
+    choices, ``_tp_yardstick``), every rank's logits bit-equal, each
+    rank's launches one a layer (in the spec's instantiation where it
+    names one), each kernel against its plain version on the rank's own
     inputs, each rank's parameter bytes equal to ``bytes_per_device``.
     Returns (launches, errs, calls) by ``<kernel>/<tag>``, the calls on
     ``dev``."""
@@ -3802,20 +3913,31 @@ def phase_tp(args, work, dev, card):
             r, t = rec["rank"], rec[tag]
             kinds = {k: f"{n} calls {sec:.3f}s"
                      for k, (n, sec) in t["collectives"].items()}
+            a2a = kinds.pop("tp_all_to_all", None)
             log(f"{tag} rank {r} (pid {rec['pid']}): prefill "
                 f"{t['prefill_ms'][0]:.3f} ms, decode median "
                 f"{sorted(t['decode_ms'])[len(t['decode_ms']) // 2]:.3f} "
                 f"ms/token ({len(t['decode_ms'])} steps), peak "
                 f"{t['peak_gib']:.3f} GiB; launches {t['launches']} (tensor"
-                f" core {t['tensor_core']}); collectives {kinds}; parameter"
-                f" bytes {t['bytes'][0]} (bytes_per_device {t['bytes'][1]});"
-                f" kernel calls {t['shapes']}; |kernel - plain| {t['errs']}"
-                f" [{card}]")
+                f" core {t['tensor_core']}; flash_attention by "
+                f"instantiation {t['instances']}); collectives {kinds}; "
+                f"parameter bytes {t['bytes'][0]} (bytes_per_device "
+                f"{t['bytes'][1]}); kernel calls {t['shapes']}; |kernel - "
+                f"plain| {t['errs']} [{card}]")
+            if a2a is not None:
+                log(f"{tag} rank {r}: tp_all_to_all {a2a} in the generate"
+                    f" [{card}]")
             if t["launches"][name] != want or t["tensor_core"][name] != want:
                 raise AssertionError(f"{tag} rank {r}: {name} launched "
                                      f"{t['launches'][name]} times "
                                      f"({t['tensor_core'][name]} on the "
                                      f"tensor cores), expected {want}")
+            if "flash_instance" in spec:
+                inst = "x".join(map(str, spec["flash_instance"]))
+                if t["instances"] != {inst: want}:
+                    raise AssertionError(f"{tag} rank {r}: flash_attention"
+                                         f" ran in {t['instances']}, "
+                                         f"expected {inst}")
             if t["bytes"][0] != t["bytes"][1]:
                 raise AssertionError(f"{tag} rank {r} holds {t['bytes'][0]}"
                                      f" parameter bytes, bytes_per_device "
@@ -3823,24 +3945,36 @@ def phase_tp(args, work, dev, card):
             if not t["finite"]:
                 raise AssertionError(f"{tag} rank {r}: non-finite logits")
             if t["digest"] != recs[0][tag]["digest"] or \
-                    t["tokens"] != recs[0][tag]["tokens"]:
-                raise AssertionError(f"{tag}: rank {r}'s logits or tokens "
-                                     "differ from rank 0's")
-        gaps = recs[0][tag]["gaps"]
-        agree = sum(a == b for a, b in zip(recs[0][tag]["tokens"][0],
-                                           recs[0][tag]["tokens_p1"][0]))
-        forced = ("a second TP pass" if recs[0][tag]["second_pass"] else
-                  "generate's own, its tokens P = 1's")
+                    t["tokens"] != recs[0][tag]["tokens"] or \
+                    t["dropped"] != recs[0][tag]["dropped"]:
+                raise AssertionError(f"{tag}: rank {r}'s logits, tokens or "
+                                     "dropped share differ from rank 0's")
+        t0 = recs[0][tag]
+        gaps = t0["gaps"]
+        agree = sum(a == b for a, b in zip(t0["tokens"][0], t0["argmax_p1"]))
         log(f"{tag}: {TP_RANKS} ranks == P = 1: prefill logits |TP - P1| "
             f"max {gaps[0][0]:.6f}, mean {gaps[0][1]:.6f}; decode "
-            f"(teacher-forced: {forced}) max "
+            f"(P = 1 teacher-forced on the TP tokens) max "
             f"{max(g[0] for g in gaps[1:]):.6f}, mean"
             f" {max(g[1] for g in gaps[1:]):.6f} (gates {LOGIT_MAX_TOL} / "
-            f"{LOGIT_MEAN_TOL}); every rank's logits bit-equal; free-"
-            f"running tokens agree on {agree}/{spec['new']} [{card}]")
+            f"{LOGIT_MEAN_TOL}); every rank's logits bit-equal; P = 1's "
+            f"argmax is the TP token at {agree}/{spec['new']} steps "
+            f"[{card}]")
+        if "free_gap" in t0:
+            log(f"{tag}: the MoE at P = 1 under the ep path's per-block "
+                f"capacity and the TP run's expert choices; prefill dropped "
+                f"share (mean over the MoE layers) TP {t0['dropped']:.6f}, "
+                f"P = 1 {t0['dropped_p1']:.6f}, P = 1 free-running "
+                f"(capacity over the whole call, its own choices) "
+                f"{t0['dropped_free']:.6f}; free-running prefill logits "
+                f"|TP - P1| max {t0['free_gap'][0]:.6f}, mean "
+                f"{t0['free_gap'][1]:.6f}; tokens (of {spec['prompt']}) "
+                f"whose own top-k at P = 1 differs from the TP choice, by "
+                f"layer: {t0['flips_prefill']}; in decode "
+                f"{t0['flips_decode']} [{card}]")
         if any(m > LOGIT_MAX_TOL or a > LOGIT_MEAN_TOL for m, a in gaps):
             raise AssertionError(f"{tag}: TP and P = 1 logits disagree")
-        launches[f"{name}/{tag}"] = recs[0][tag]["launches"][name]
+        launches[f"{name}/{tag}"] = t0["launches"][name]
         errs[name] = max(max(rec[tag]["errs"].get(name, 0.0)
                              for rec in recs), errs.get(name, 0.0))
         saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
@@ -4052,8 +4186,7 @@ def phase_times(shapes):
                              "ssd_fused/tp-mamba2"))
     _flash_rows(rows, shapes, ("flash_attention/window",
                                "flash_attention/global") + tuple(
-        f"flash_attention/{tag}" for tag in FAMILY_PHASES) + (
-        "flash_attention/tp-danube",))
+        f"flash_attention/{tag}" for tag in FAMILY_PHASES) + TP_FLASH_ROWS)
     rows["flash_attention"] = rows["flash_attention/window"]
     return rows
 
@@ -4193,7 +4326,7 @@ ALSO = {"binstats": ("binstats/table1",),
                       "ssd_fused/train-hymba", "ssd_fused/tp-mamba2"),
         "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
         + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES)
-        + ("flash_attention/tp-danube",),
+        + TP_FLASH_ROWS,
         "rolling_stats": ("rolling_stats/stall",)}
 
 

@@ -26,7 +26,10 @@ With a tensor-parallel context (:mod:`.shardrules`, :mod:`.tp`) the
 parameters are the rank's: its H/T query heads and Hkv/T KV heads.
 Prefill and decode attend over the rank's heads, by the same code as at
 one rank, and add the ranks' ``wo`` partials with one ordered sum
-(:func:`repro_torch.models.tp.ordered_sum`). MLA raises at T > 1.
+(:func:`repro_torch.models.tp.ordered_sum`). MLA too: a rank computes
+the latent and the rope key whole, its H/T heads' queries, keys and
+values from them, and keeps the latent cache whole (it has no head
+dim).
 """
 
 from __future__ import annotations
@@ -266,13 +269,24 @@ def _mla_latent(params, x: torch.Tensor, cfg: AttnConfig,
     return latent, k_rope
 
 
+def _mla_out(params, o: torch.Tensor, cfg: AttnConfig,
+             ctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """``wo`` on the heads ``params`` hold, the ranks' partials summed
+    where the rules split the heads (where T does not divide them, every
+    rank runs them all and no sum is needed)."""
+    out = _out(params, o)
+    return tp.ordered_sum(out, ctx) if params["wo"].shape[0] < cfg.n_heads \
+        else out
+
+
 def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
                 positions: Optional[torch.Tensor] = None,
                 cache: bool = True, ctx: Optional[ParallelCtx] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA train / prefill: the latent expanded to per-head keys and
     values, attended with the rope key broadcast over the heads. Returns
-    (out, {"latent", "k_rope"} or None). Raises at T > 1."""
+    (out, {"latent", "k_rope"} or None); at T > 1 over the rank's heads,
+    with the whole latent and rope key."""
     tp.check_attn(cfg, ctx)
     b, s, _ = x.shape
     if positions is None:
@@ -282,11 +296,11 @@ def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
     k_nope = _heads(latent, params["wk_b"])
     v = _heads(latent, params["wv_b"])
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, cfg.n_heads, cfg.qk_rope_dim)], dim=-1)
+        b, s, k_nope.shape[2], cfg.qk_rope_dim)], dim=-1)
     out = flash_attention(q, k, v, causal=cfg.causal, scale=1.0 / math.sqrt(
         cfg.qk_nope_dim + cfg.qk_rope_dim))
-    return _out(params, out), ({"latent": latent, "k_rope": k_rope}
-                               if cache else None)
+    return _mla_out(params, out, cfg, ctx), (
+        {"latent": latent, "k_rope": k_rope} if cache else None)
 
 
 def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
@@ -296,8 +310,8 @@ def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     latent space, and W_UV lifts the sum to the heads.
 
     x: (B, 1, D); cache {"latent": (B, C, kl), "k_rope": (B, C, rope)},
-    updated in place at slot ``min(cache_index, C - 1)`` and returned.
-    Raises at T > 1."""
+    updated in place at slot ``min(cache_index, C - 1)`` and returned;
+    at T > 1 the whole cache on every rank, read by the rank's heads."""
     tp.check_attn(cfg, ctx)
     b, dt = x.shape[0], x.dtype
     dn = cfg.qk_nope_dim
@@ -318,6 +332,6 @@ def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     scores = scores.float() / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     valid = torch.arange(c, device=x.device) <= slot
     p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
-    ctx = torch.einsum("bshc,bcl->bshl", p.to(dt), latent)
-    out = torch.einsum("bshl,lhv->bshv", ctx, params["wv_b"].to(dt))
-    return _out(params, out), cache
+    mixed = torch.einsum("bshc,bcl->bshl", p.to(dt), latent)
+    out = torch.einsum("bshl,lhv->bshv", mixed, params["wv_b"].to(dt))
+    return _mla_out(params, out, cfg, ctx), cache

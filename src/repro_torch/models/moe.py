@@ -21,22 +21,43 @@ slots (dropped assignments go to one dump row that is cut off), and the
 combine sums each token's k contributions in assignment order instead of
 adding them into the output by atomics.
 
-Only the reference's ``local`` path is ported: its ``ep``, stationary
-and replicated paths need tensor parallelism (ROADMAP Queue 1), and on
-one card ``moe_forward`` takes the branch the reference takes with no
-mesh.
+With a tensor-parallel context (:mod:`.shardrules`) rank r holds
+experts ``[r E/T, (r+1) E/T)`` of the tables (``shard_params``), and
+``moe_forward`` takes the reference's branches under the same
+conditions:
+
+  * ``ep`` (E and S divisible by T, S >= T: prefill): rank r routes and
+    dispatches its sequence block of B * S/T tokens with their own
+    capacity, one ``all_to_all`` hands each rank its experts' rows of
+    every rank's buffer, a second returns the outputs, the rank combines
+    its own tokens, and a gather along S rebuilds the output; the aux
+    loss and the dropped share are the ranks' mean (``_moe_ep``);
+  * ``replicated`` (E divisible by T, else: decode, and an S that T does
+    not divide): every rank routes all the tokens alike, runs only its
+    experts' slice of the buffer, and one ordered sum adds the ranks'
+    combined partials (``_moe_replicated``);
+  * E not divisible by T: every rank holds the whole tables and runs
+    ``local``.
+
+The reference's weights-stationary path differs from ``replicated`` only
+where a data axis cuts the tables' hidden dim; it comes with the data
+axis (ROADMAP Queue 1 item 2b). The shared experts (deepseek) are cut
+on their hidden dim by the dense FFN's rules and run column x row
+parallel with one ordered sum.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import tp
 from .layers import dense_init
+from .shardrules import ParallelCtx, tp_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,20 +173,75 @@ def _moe_local(params, tokens: torch.Tensor, cfg: MoEConfig):
     return out, aux, dropped
 
 
-def moe_forward(params, x: torch.Tensor, cfg: MoEConfig,
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, D) -> (out (B, S, D), {aux_loss, dropped}).
+def _moe_ep(params, x: torch.Tensor, cfg: MoEConfig, ctx: ParallelCtx):
+    """x (B, S, D), whole on every rank -> (out (B, S, D), aux, dropped):
+    the reference's ``_moe_ep_body`` on rank r's sequence block."""
+    b, s, d = x.shape
+    t, r = ctx.tensor_size, ctx.tensor_rank
+    e_loc, n = cfg.n_experts // t, s // t
+    tokens = x[:, r * n:(r + 1) * n].reshape(b * n, d)
+    top_w, top_i, aux = _route(params["router"], tokens, cfg)
+    cap = _capacity(b * n, cfg)
+    buf, slot, order, keep = _dispatch(tokens, top_i, cfg, cap)
+    # (E, C, D): rows of experts [j E/T, (j+1) E/T) to rank j; received
+    # (T, E/T, C, D) in source-rank order -> (E/T, T * C, D)
+    mine = tp.all_to_all(buf, ctx).view(t, e_loc, cap, d).transpose(0, 1)
+    out_loc = _expert_ffn(params["experts"], mine.reshape(e_loc, t * cap, d))
+    # and back: source rank i's C rows to rank i -> (E, C, D)
+    out_buf = tp.all_to_all(out_loc.view(e_loc, t, cap, d).transpose(0, 1),
+                            ctx).view(cfg.n_experts, cap, d)
+    out = _combine(out_buf, slot, order, keep, top_w, b * n, d, cfg.top_k)
+    aux, dropped = tp.ordered_mean(torch.stack(
+        [aux, 1.0 - keep.float().mean()]), ctx)
+    return tp.gather_cat(out.view(b, n, d), 1, ctx), aux, dropped
 
-    Capacity is over the call's own B * S tokens. Shared experts
+
+def _moe_replicated(params, tokens: torch.Tensor, cfg: MoEConfig,
+                    ctx: ParallelCtx):
+    """tokens (N, D), the same on every rank: the reference's
+    ``_moe_replicated_body``."""
+    t, d = tokens.shape
+    e_loc = cfg.n_experts // ctx.tensor_size
+    lo = ctx.tensor_rank * e_loc
+    top_w, top_i, aux = _route(params["router"], tokens, cfg)
+    cap = _capacity(t, cfg)
+    buf, slot, order, keep = _dispatch(tokens, top_i, cfg, cap)
+    out_buf = torch.zeros_like(buf)
+    out_buf[lo:lo + e_loc] = _expert_ffn(params["experts"],
+                                         buf[lo:lo + e_loc])
+    out = _combine(out_buf, slot, order, keep, top_w, t, d, cfg.top_k)
+    dropped = 1.0 - keep.float().mean()
+    return tp.ordered_sum(out, ctx), aux, dropped
+
+
+def moe_forward(params, x: torch.Tensor, cfg: MoEConfig,
+                ctx: Optional[ParallelCtx] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, D) -> (out (B, S, D), {aux_loss, dropped}), the same on
+    every rank.
+
+    Capacity is over the tokens one rank routes: the call's B * S, or
+    its sequence block's B * S/T on the ``ep`` path. Shared experts
     (deepseek) run as a dense gated FFN added to the routed output; they
     never enter the dispatch."""
     b, s, d = x.shape
-    out, aux, dropped = _moe_local(params, x.reshape(b * s, d), cfg)
+    t = tp_size(ctx)
+    if t == 1 or cfg.n_experts % t:
+        out, aux, dropped = _moe_local(params, x.reshape(b * s, d), cfg)
+    elif s % t == 0 and s >= t:
+        out, aux, dropped = _moe_ep(params, x, cfg, ctx)
+    else:
+        out, aux, dropped = _moe_replicated(params, x.reshape(b * s, d),
+                                            cfg, ctx)
     out = out.reshape(b, s, d)
     metrics = {"aux_loss": aux * cfg.router_aux_weight, "dropped": dropped}
     if "shared" in params:
         sh = params["shared"]
         dt = x.dtype
         h = F.silu(x @ sh["w_gate"].to(dt)) * (x @ sh["w_up"].to(dt))
-        out = out + h @ sh["w_down"].to(dt)
+        h = h @ sh["w_down"].to(dt)
+        # a rank's hidden columns give a partial (whole where T does not
+        # divide the shared hidden dim)
+        split = sh["w_down"].shape[0] < cfg.n_shared * cfg.d_ff
+        out = out + (tp.ordered_sum(h, ctx) if split else h)
     return out, metrics

@@ -21,8 +21,9 @@ leaf gets the reference's spec.
 
 The port runs the layout of a ``(1, T)`` mesh: T ranks on the tensor
 axis, the data axis of one rank (:func:`make_ctx` raises for more, which
-waits for sharded training, ROADMAP Queue 1 item 2). Each rank holds
-exactly its slices (:func:`shard_params`), and the model's layers carry
+waits for sharded training, ROADMAP Queue 1 item 2b). Each rank holds
+exactly its slices (:func:`shard_params`; the MoE's expert tables by
+expert, see there), and the model's layers carry
 the layout out with explicit collectives (:mod:`.tp`): where the
 reference leaves the collectives to GSPMD's partitioner, every sum here
 is an ordered gather-and-add.
@@ -105,9 +106,12 @@ def _fit_axes(dim: int, axes: Tuple[str, ...], mesh: Mesh,
 
 def spec_for(path: str, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
     """The spec of one parameter: one entry per dim. Unmatched paths stay
-    whole (``()``, as the reference's ``P()``). The reference's
-    ``inference`` rules (the expert tables' decode layout) come with the
-    MoE's mesh paths (ROADMAP Queue 1 item 2)."""
+    whole (``()``, as the reference's ``P()``). First match wins, so the
+    dense FFN's ``w_(up|gate)$`` / ``w_down$`` shadow the expert tables'
+    own rules here as in the reference: ``experts/w_up`` gets its F dim
+    cut. :func:`shard_params` holds the tables by expert all the same.
+    The reference's ``inference`` rules (the weights-stationary decode
+    layout) come with the data axis (ROADMAP Queue 1 item 2b)."""
     for pat, logicals in PARAM_RULES:
         if re.search(pat, path):
             nd, nl = len(shape), len(logicals)
@@ -210,7 +214,7 @@ def make_ctx(mesh: Optional[Mesh]) -> Optional[ParallelCtx]:
     """The context of ``mesh`` for this rank; None without a mesh. A
     mesh whose batch axes hold more than one rank raises: data
     parallelism and FSDP come with sharded training (ROADMAP Queue 1
-    item 2)."""
+    item 2b)."""
     if mesh is None:
         return None
     batch, tensor = batch_axes(mesh), tensor_axis(mesh)
@@ -219,7 +223,7 @@ def make_ctx(mesh: Optional[Mesh]) -> Optional[ParallelCtx]:
         raise NotImplementedError(
             f"mesh {mesh.shape}: the port runs tensor parallelism on a "
             "data axis of one rank; data parallelism and FSDP come with "
-            "sharded training (ROADMAP Queue 1 item 2)")
+            "sharded training (ROADMAP Queue 1 item 2b)")
     if tensor is None:
         return ctx
     return dataclasses.replace(ctx, tensor_rank=mesh.coord(tensor),
@@ -283,13 +287,37 @@ def _block(x: torch.Tensor, spec: Spec, ctx: ParallelCtx) -> torch.Tensor:
     return x if x is whole else x.clone()
 
 
+EXPERT_TABLE = r"experts/w_(up|gate|down)$"
+
+
+def expert_spec(shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+    """The layout :func:`shard_params` gives an MoE expert table (E, D,
+    F) or (E, F, D): experts ``[r E/T, (r+1) E/T)`` on tensor rank r,
+    the whole table where T does not divide E (the reference's
+    ``inference`` rules at data = 1)."""
+    return (_fit_axes(shape[0], _mesh_axes_for("expert", mesh), mesh),
+            None, None)
+
+
 def shard_params(params, ctx: Optional[ParallelCtx]):
     """This rank's parameters: the block :func:`spec_for` gives it of
     every sharded leaf, as a tensor of its own (the full tree can be
     freed), and every replicated leaf whole. The counterpart of
     ``device_put(params, tree_shardings(params, mesh))``; without a
-    context, ``params`` as they are."""
+    context, ``params`` as they are.
+
+    One departure of layout, not of math: the MoE's expert tables are
+    held by expert (:func:`expert_spec`), the layout the reference's
+    ``ep`` and ``replicated`` bodies take in (its GSPMD reshards the
+    F-cut tables :func:`spec_for` gives into it at every call). Where E
+    and F both divide by T a rank holds the same bytes either way, so
+    ``bytes_per_device`` still counts them."""
     if ctx is None:
         return params
-    return _map(lambda path, x: (
-        _block(x, spec_for(path, tuple(x.shape), ctx.mesh), ctx)), params)
+
+    def block(path, x):
+        spec = (expert_spec(tuple(x.shape), ctx.mesh)
+                if re.search(EXPERT_TABLE, path)
+                else spec_for(path, tuple(x.shape), ctx.mesh))
+        return _block(x, spec, ctx)
+    return _map(block, params)

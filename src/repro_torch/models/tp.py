@@ -16,15 +16,20 @@ output with one of these collectives over the tensor axis's group:
     float32 and casts once, so every rank holds the same bits whatever
     order the backend's ring would have used;
   * :func:`gather_cat` — a gather that only concatenates (vocab logits,
-    conv channels), exact.
+    conv channels), exact;
+  * :func:`all_to_all` — the MoE's expert-parallel exchange: block j of
+    a tensor's leading dim to rank j, the blocks received stacked in
+    rank order (16-bit floats on the same ``uint8`` wire, exact);
+  * :func:`ordered_mean` — the mean of float32 values over the ranks,
+    added in rank order and divided by T (the reference's ``pmean``).
 
 The FFN is column x row parallel with one sum after ``w_down``;
-attention runs rank r's query heads ``[r H/T, (r+1) H/T)`` and the KV
-heads they read, with one sum after ``wo``, whatever its rotary kind.
-Both collectives are the identity at T = 1. :func:`check_layer`
-refuses, on every
-rank alike, the layers this layout does not cover, rather than
-replicate them quietly.
+attention (MLA too) runs rank r's query heads ``[r H/T, (r+1) H/T)``
+and the KV heads they read, with one sum after ``wo``, whatever its
+rotary kind. The MoE's paths are in :mod:`.moe`. Every collective is
+the identity at T = 1. :func:`check_layer` refuses, on every rank
+alike, the layers this layout does not cover, rather than replicate
+them quietly.
 """
 
 from __future__ import annotations
@@ -38,18 +43,23 @@ from ..core.group import _timed
 from .shardrules import ParallelCtx, tp_size
 
 # the queue items that name what waits (ROADMAP.md, Queue 1)
-SHARDED_TRAINING = "ROADMAP Queue 1 item 2"
+SHARDED_TRAINING = "ROADMAP Queue 1 item 2b"
 LENGTH_SHARDED = "ROADMAP Queue 1 item 8"
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it travels: a 16-bit float as a ``uint8`` view of the
+    same bytes, which is exact (gloo builds differ in the 16-bit types
+    they take; the CPU's here refuses ``int16``). The view doubles the
+    last dim only, so a split along the leading dim stays whole rows."""
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.element_size() == 2 else x
 
 
 def _gather(x: torch.Tensor, ctx: ParallelCtx, name: str
             ) -> List[torch.Tensor]:
-    """The T ranks' ``x`` in rank order (one list-form ``all_gather``).
-    A 16-bit float travels as a ``uint8`` view of the same bytes, which
-    is exact: gloo builds differ in the 16-bit types they take (the
-    CPU's here refuses ``int16``)."""
-    x = x.contiguous()
-    wire = x.view(torch.uint8) if x.element_size() == 2 else x
+    """The T ranks' ``x`` in rank order (one list-form ``all_gather``)."""
+    wire = _wire(x)
     parts = [torch.empty_like(wire) for _ in range(ctx.tensor_size)]
     _timed(name, lambda: dist.all_gather(parts, wire, group=ctx.group))
     return [p.view(x.dtype) for p in parts]
@@ -77,6 +87,30 @@ def gather_cat(x: torch.Tensor, dim: int, ctx: Optional[ParallelCtx]
     return torch.cat(_gather(x, ctx, "tp_gather"), dim=dim)
 
 
+def ordered_mean(x: torch.Tensor, ctx: Optional[ParallelCtx]
+                 ) -> torch.Tensor:
+    """The mean over the tensor axis of every rank's float32 ``x``: the T
+    values added in ascending rank order, then divided by T, so every
+    rank holds the same bits."""
+    if tp_size(ctx) == 1:
+        return x
+    return ordered_sum(x, ctx) / ctx.tensor_size
+
+
+def all_to_all(x: torch.Tensor, ctx: Optional[ParallelCtx]
+               ) -> torch.Tensor:
+    """Block j of ``x``'s T equal blocks along dim 0 goes to rank j;
+    returns the T blocks this rank receives, stacked along dim 0 in rank
+    order (the shape of ``x``). One ``all_to_all_single``."""
+    if tp_size(ctx) == 1:
+        return x
+    wire = _wire(x)
+    out = torch.empty_like(wire)
+    _timed("tp_all_to_all", lambda: dist.all_to_all_single(
+        out, wire, group=ctx.group))
+    return out.view(x.dtype)
+
+
 def local_block(t: torch.Tensor, n: int, ctx: Optional[ParallelCtx],
                 dim: int = 0) -> torch.Tensor:
     """This rank's block of ``n`` entries along ``dim`` of a tensor the
@@ -100,10 +134,6 @@ def check_layer(spec, ctx: Optional[ParallelCtx]) -> None:
             f"hybrid layers at T = {t}: hymba's attention and SSM heads "
             f"wait for tensor-parallel decode over a length-sharded cache "
             f"({LENGTH_SHARDED})")
-    if spec.moe is not None:
-        raise NotImplementedError(
-            f"MoE layers at T = {t}: the MoE's mesh paths come with "
-            f"sharded training ({SHARDED_TRAINING})")
     if spec.attn is not None:
         check_attn(spec.attn, ctx)
     if spec.ssm is not None:
@@ -111,14 +141,12 @@ def check_layer(spec, ctx: Optional[ParallelCtx]) -> None:
 
 
 def check_attn(cfg, ctx: Optional[ParallelCtx]) -> None:
-    """Raise at T > 1 for MLA and for heads the rules do not split."""
+    """Raise at T > 1 for KV heads the rules do not split. MLA caches no
+    KV heads: its latent and rope key stay whole on every rank, and its
+    query heads run whole on every rank where T does not split them."""
     t = tp_size(ctx)
-    if t == 1:
+    if t == 1 or cfg.is_mla:
         return
-    if cfg.is_mla:
-        raise NotImplementedError(
-            f"MLA at T = {t}: deepseek-v2's MoE layers need the MoE's "
-            f"mesh paths first ({SHARDED_TRAINING})")
     if cfg.n_heads % t or cfg.n_kv_heads % t:
         raise NotImplementedError(
             f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads at T = "

@@ -19,7 +19,7 @@ its layers as the reference's ``_agg_metrics`` does.
 A tensor-parallel context (:mod:`.shardrules`) reaches every mixer and
 FFN, whose parameters are then the rank's (:mod:`.tp`); at T > 1 a layer
 the layout does not cover raises (``tp.check_layer``), and so does
-training (sharded training, ROADMAP Queue 1 item 2).
+training (sharded training, ROADMAP Queue 1 item 2b).
 """
 
 from __future__ import annotations
@@ -161,7 +161,8 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
     x = x + y
     if "moe" in params:
         h, metrics = moe_forward(params["moe"],
-                                 _norm(spec, params["norm2"], x), spec.moe)
+                                 _norm(spec, params["norm2"], x), spec.moe,
+                                 ctx)
         x = x + h
     elif "ffn" in params:
         y = ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),

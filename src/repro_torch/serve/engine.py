@@ -10,8 +10,10 @@ every rank of the default process group builds the engine on the same
 full parameters and calls ``generate`` on the same batch (SPMD, one
 process a rank). The engine keeps only the rank's shards
 (``shard_params``), and each layer runs tensor-parallel over the
-``model`` axis (``repro_torch.models.tp``). Every rank returns the same
-tokens. A layout the port does not cover raises in the constructor on
+``model`` axis (``repro_torch.models.tp``): attention and MLA on the
+rank's heads, the FFN on its hidden columns, the SSM on its heads, the
+MoE on its experts (``ep`` in prefill, ``replicated`` in decode,
+``repro_torch.models.moe``). Every rank returns the same tokens. A layout the port does not cover raises in the constructor on
 every rank, and a batch that differs between ranks raises in
 ``generate`` on every rank before the first collective.
 """

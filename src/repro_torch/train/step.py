@@ -9,7 +9,7 @@ nothing is all-reduced; the option keeps the reference's numbers.
 
 The reference's ``state_specs``, ``batch_specs`` and ``jit_train_step``
 lay the state over a mesh; they come with sharded training (ROADMAP
-Queue 1 item 2).
+Queue 1 item 2b).
 """
 
 from __future__ import annotations

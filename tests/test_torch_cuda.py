@@ -1019,13 +1019,13 @@ def test_collaborative_reduce_two_ranks_on_the_card_bitwise(cuda):
 
 # the rank processes of the tensor-parallel test below: two ranks on the
 # one card over gloo, each holding its shards of one dense layer at
-# danube's widths (bfloat16)
+# danube's widths and of one MoE at granite's (bfloat16)
 _TP_RANK = """
 import datetime, sys
 import torch, torch.distributed as dist
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import attention, tp, transformer
+from repro_torch.models import attention, moe, tp, transformer
 from repro_torch.models.shardrules import make_ctx, shard_params
 rank, port = int(sys.argv[1]), int(sys.argv[2])
 dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
@@ -1056,8 +1056,21 @@ with torch.inference_mode():
     parts = [torch.randn(3, 1001, generator=torch.Generator(
         device=dev).manual_seed(9 + r), device=dev).to(bf) for r in range(2)]
     got = tp.ordered_sum(parts[rank], ctx)
+    # granite's MoE with room for every assignment: the ep path (two
+    # all_to_alls of bfloat16 rows) and replicated (decode) equal one rank
+    mcfg = moe.MoEConfig(d_model=1024, d_ff=512, n_experts=32, top_k=8,
+                         capacity_factor=4.0)
+    mp = moe.moe_init(mcfg, generator=gen, device=dev, dtype=bf)
+    mine_moe = shard_params({'moe': mp}, ctx)['moe']
+    assert mine_moe['experts']['w_up'].shape == (16, 1024, 512)
+    xm = torch.randn(1, 256, 1024, generator=gen, device=dev).to(bf)
+    m1, _ = moe.moe_forward(mp, xm, mcfg)
+    m2, met = moe.moe_forward(mine_moe, xm, mcfg, ctx)
+    d1, _ = moe.moe_forward(mp, xm[:, :1], mcfg)
+    d2, _ = moe.moe_forward(mine_moe, xm[:, :1], mcfg, ctx)
+    assert float(met['dropped']) == 0.0
 torch.cuda.synchronize()
-for a, b in ((y1, y2), (l1, l2)):
+for a, b in ((y1, y2), (l1, l2), (m1, m2), (d1, d2)):
     err = (a.float() - b.float()).norm() / a.float().norm()
     assert float(err) <= 2 ** -7, float(err)
 assert torch.equal(got, (parts[0].float() + parts[1].float()).to(bf))
@@ -1068,12 +1081,14 @@ print('OK')
 
 def test_tp_blocks_two_ranks_on_the_card(cuda):
     """``attn_forward`` (the flash kernel on each rank's 16 query and 4 KV
-    heads) and ``layer_forward`` (attention and the gated FFN on each
-    rank's hidden columns) at T = 2 on cuda:0 over gloo equal the one-rank
-    block (bfloat16: each rank's partial is rounded once more before the
-    sum, so within 2^-7 relative), the prefill cache is the rank's KV
-    heads bit for bit, and the ordered sum equals plain float32 adds in
-    rank order bit for bit."""
+    heads), ``layer_forward`` (attention and the gated FFN on each
+    rank's hidden columns) and ``moe_forward`` (each rank's 16 of 32
+    experts, the ``ep`` and ``replicated`` paths, no assignment dropped)
+    at T = 2 on cuda:0 over gloo equal the one-rank block (bfloat16: each
+    rank's partial is rounded once more before the sum, so within 2^-7
+    relative), the prefill cache is the rank's KV heads bit for bit, and
+    the ordered sum equals plain float32 adds in rank order bit for
+    bit."""
     import os
     import socket
     import subprocess
