@@ -88,8 +88,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              version. The float32 drift of the reference oracle's formula
              (one float32 prefix over the whole series) is printed beside;
 7. delta   — a store grown by an append: the delta aggregation on the card
-             must equal a cold one bit for bit (a cache-free copy of the
-             store before the append is kept for the collective phase);
+             must equal a cold one bit for bit (two cache-free copies of
+             the store before the append are kept for the collective
+             phase);
 8. diff    — ``VariabilityPipeline.diff`` of the main phase's store (A)
              against store B, the same Table-1 inventory with the kernel
              names respecialized (name variant 1) and the layer_norm family
@@ -115,7 +116,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              service's on a copy of the store (counts and fence flags
              exactly, min/max in float32, means within RTOL); tick latency
              percentiles from ``/v1/stats`` and request wall times are
-             printed;
+             printed. The answers are kept for the collective phase;
 10. stream — the Table-1 trace's rank DBs cut at 90 s and their store;
              ``VariabilityPipeline.stream`` tails them (poll 25 ms) while
              the remaining 30 s arrive in three 10 s batches; a
@@ -169,8 +170,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the P = 4 result must equal the main phase's P = 1 one
              (counts, min, max, sketch counts, flags and top windows
              exactly, sums within RTOL), and the delta its cold rerun bit
-             for bit. Each rank's seconds and the seconds of each
-             collective call are printed;
+             for bit. Then, on the same ranks, serving and streaming
+             across ranks: every rank calls ``VariabilityPipeline.serve``
+             on another cache-free copy of the main store
+             (``pipeline_depth=4``; rank 0 holds the HTTP port, admits and
+             broadcasts each tick, every rank executes it) while 16 client
+             threads on rank 0 send the service phase's 8 queries, each
+             twice: every response 200, a tick fusing two or more
+             requests, an in-flight or summary hit, each answer equal to
+             the service phase's P = 1 one (its tolerances), every rank's
+             digests of the tick descriptors and answers equal; then every
+             rank calls ``VariabilityPipeline.stream`` on the second copy
+             of the delta phase's store, tailing its grown DBs (the tailer
+             on rank 0): a fence event read over HTTP, no ingest error,
+             and the fence state and the fence query's moments and sketch
+             equal to a cold P = 4 run over a cache-free copy of the
+             resulting shards bit for bit. The counters are zeroed just
+             before each and read just after: every rank must launch
+             binstats_flat, histbin_flat and iqr_fences, each held against
+             its plain version on the rank's own inputs. Each rank's
+             seconds and the seconds of each collective call are printed
+             (for the service and the stream: calls, total and largest
+             seconds by collective), with request wall times, fused
+             widths, tick p50/p95/p99 and event-to-fence p50/p99;
 13. serve  — mamba2-370m at full width and depth (48 layers, d_model
              1024, vocab 50280) in bfloat16, random weights drawn on the
              card from --seed, through ``ServeEngine.generate``: 8
@@ -2714,9 +2736,11 @@ def phase_delta(args, work):
     pipe.run(paths, store)
     # the collective phase appends the same grown DBs (the manifest keys
     # its watermarks by path) to a copy of the store before the append,
-    # without its caches
+    # without its caches, and streams them into a second copy
     copy = os.path.join(work, "collective", "delta_store")
     _bare_copy(store, copy)
+    stream_copy = os.path.join(work, "collective", "stream_store")
+    _bare_copy(store, stream_copy)
     for tr, p in zip(ds.traces, paths):
         append_rank_db(p, trace_remainder(tr, cutoff))
     delta = pipe.append(paths, store)
@@ -2739,7 +2763,7 @@ def phase_delta(args, work):
     log(f"delta: {len(a.recomputed_shards)} shards recomputed, "
         f"{a.partial_hits} from the partial cache; delta == cold bitwise "
         f"({len(b.recomputed_shards)} shards cold)")
-    return paths, copy
+    return paths, copy, stream_copy
 
 
 # the layer_norm family of the synthetic name table (ids congruent mod 21),
@@ -3017,6 +3041,10 @@ def phase_service(args, work, card):
         raise AssertionError("service: no tick fused two requests")
     if hits < 1:
         raise AssertionError("service: no in-flight or summary hit")
+    # the collective phase holds its P = 4 service to these answers
+    os.makedirs(os.path.join(work, "collective"), exist_ok=True)
+    with open(os.path.join(work, "collective", "service_p1.json"), "w") as f:
+        json.dump([b["results"][0] for b in bodies[:len(specs)]], f)
     exact = QueryService(exact_dir, ServiceConfig(
         backend="serial", device="cuda", tick_ms=1.0,
         summary_budget_bytes=None))
@@ -3483,11 +3511,229 @@ def collective_rank(args) -> int:
                                   cold.reduced["quantile"].counts)
     rec["delta_shards"] = [len(agg.recomputed_shards), agg.partial_hits,
                            len(cold.recomputed_shards)]
+    del delta, agg, cold
+    # serving and streaming across the same ranks; rank 0 raises on a
+    # wrong answer only after both, so no rank waits on the others
+    faults = _rank_service(spec, pipe, rank, counters, rec)
+    faults += _rank_stream(spec, pipe, rank, counters, rec, dist)
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     pipeline.stop_rank_pool_server()
     dist.destroy_process_group()
+    if faults:
+        raise AssertionError("; ".join(faults))
     return 0
+
+
+def _held_against_plain(counters, cap):
+    """Each captured kernel call against its plain version on the same
+    inputs (launches made here are not the path's)."""
+    errs = {}
+    for name, err in (("binstats_flat", moments_err),
+                      ("histbin_flat", hist_err), ("iqr_fences", iqr_err)):
+        if name not in cap.calls:
+            errs[name] = None          # never launched: the parent fails
+            continue
+        c_args, kw = cap.calls[name]
+        errs[name] = err(counters[name](*c_args, **kw),
+                         _plain(name)(*c_args, **kw))
+    return errs
+
+
+def _calls_by_name(calls):
+    """``(name, s)`` collective calls -> {name: [count, total s, max s]}."""
+    out = {}
+    for name, sec in calls:
+        n, tot, mx = out.get(name, (0, 0.0, 0.0))
+        out[name] = [n + 1, round(tot + sec, 4), round(max(mx, sec), 4)]
+    return out
+
+
+def _rank_service(spec, pipe, rank, counters, rec):
+    """Every rank serves a cache-free copy of the main store at P =
+    COLLECTIVE_RANKS (``pipe.serve`` on every rank; rank 0 holds the port)
+    while SERVICE_CLIENTS threads on rank 0 send the service phase's
+    queries, each twice. Returns rank 0's faults (every response 200, a
+    fused tick, a hit, each answer == the service phase's P = 1 one)."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import TraceStore, anomaly, distributed
+    from repro_torch.serve import QueryClient
+
+    store = spec["service_store"]
+    specs = _service_queries(TraceStore(store).read_manifest())
+    with open(spec["service_p1"]) as f:
+        want = json.load(f)
+    n = SERVICE_CLIENTS
+    bodies, walls, errors = [None] * (2 * n), [0.0] * (2 * n), []
+    cap = Capture(((distributed, "binstats_flat"),
+                   (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
+    try:
+        _zero(counters)
+        distributed.collective_times(reset=True)
+        t0 = time.perf_counter()
+        svc = pipe.serve(store, port=0, tick_ms=50.0, pipeline_depth=4)
+        try:
+            if rank == 0:
+                client = QueryClient(port=svc.cfg.port, timeout_s=600.0)
+                if not client.wait_healthy(timeout_s=30.0):
+                    errors.append("service: not healthy")
+                start = threading.Barrier(n)
+
+                def ask(i):
+                    try:
+                        start.wait(60)
+                        for k in (0, 1):
+                            t = time.perf_counter()
+                            bodies[2 * i + k] = client.query_raw(
+                                [specs[i % len(specs)]])
+                            walls[2 * i + k] = time.perf_counter() - t
+                    except BaseException as e:   # noqa: BLE001 — below
+                        errors.append(f"client {i}: {type(e).__name__}: "
+                                      f"{e}")
+
+                threads = [threading.Thread(target=ask, args=(i,))
+                           for i in range(n)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                rec["service_stats"] = {
+                    k: v for k, v in client.stats().items()
+                    if k in ("ticks", "max_fused_width", "inflight_hits",
+                             "tick_p50_ms", "tick_p95_ms", "tick_p99_ms",
+                             "world_size")}
+        finally:
+            svc.stop()
+        torch.cuda.synchronize()
+        rec["service_s"] = time.perf_counter() - t0
+        rec["service_launches"] = _path_launches(counters)
+        rec["service_collectives"] = _calls_by_name(
+            distributed.collective_times(reset=True))
+        rec["service_group"] = svc.stats()["group"]
+    finally:
+        cap.close()
+    rec["service_errs"] = _held_against_plain(counters, cap)
+    if rank != 0:
+        return []
+    rec["service_walls"] = sorted(round(w, 3) for w in walls)
+    rec["service_queries"] = len(specs)
+    faults = list(errors)
+    if not errors:
+        widths = [b["tick"]["fused_width"] for b in bodies]
+        rec["service_widths"] = widths
+        rec["service_hits"] = sum(
+            bool(b["results"][0].get("inflight_hit")
+                 or b["results"][0]["cache_hit"]) for b in bodies)
+        if max(widths) < 2:
+            faults.append("P = 4 service: no tick fused two requests")
+        if rec["service_hits"] < 1:
+            faults.append("P = 4 service: no in-flight or summary hit")
+        for j, b in enumerate(bodies):
+            try:
+                _same_answer(b["results"][0], want[(j // 2) % len(specs)])
+            except AssertionError as e:
+                faults.append(f"P = 4 service != P = 1: {e}")
+    return faults
+
+
+def _rank_stream(spec, pipe, rank, counters, rec, dist):
+    """Every rank streams a cache-free copy of the delta phase's store
+    from before its append, tailing the delta's grown DBs (the tailer on
+    rank 0): one ingest tick or more brings the append in, its fence push
+    read over HTTP on rank 0. Then every rank runs the fence query cold at
+    P = COLLECTIVE_RANKS over a cache-free copy of the resulting shards;
+    the streamed fence state and the fence query's moments and sketch
+    must equal it bit for bit. Returns rank 0's faults."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import anomaly, distributed
+    from repro_torch.serve import (DEFAULT_FENCE_QUERY, IngestConfig,
+                                   QueryClient)
+
+    store = spec["stream_store"]
+    faults, events = [], []
+    cap = Capture(((distributed, "binstats_flat"),
+                   (distributed, "histbin_flat"), (anomaly, "iqr_fences")))
+    try:
+        _zero(counters)
+        distributed.collective_times(reset=True)
+        t0 = time.perf_counter()
+        svc = pipe.stream(store, spec["delta_paths"],
+                          ingest=IngestConfig(poll_ms=25.0))
+        try:
+            if rank == 0:
+                client = QueryClient(port=svc.cfg.port, timeout_s=600.0)
+                body = client.fences(since=0, timeout_s=120.0)
+                if not svc.ingestor.quiesce(timeout_s=300.0):
+                    faults.append("P = 4 stream: the plane did not catch "
+                                  "up")
+                events, since = list(body["events"]), body["next_since"]
+                while True:
+                    more = client.fences(since=since, timeout_s=0.2)
+                    if not more["events"]:
+                        break
+                    events += more["events"]
+                    since = more["next_since"]
+                st = client.stats()["ingest"]
+                rec["stream_ingest"] = {
+                    k: st[k] for k in ("ingest_ticks", "rows_ingested",
+                                       "fence_transitions", "errors",
+                                       "event_to_fence_p50_ms",
+                                       "event_to_fence_p99_ms")}
+                streamed = svc.ingestor.fence_state().get(
+                    DEFAULT_FENCE_QUERY.cache_key(), ())
+        finally:
+            svc.stop()
+        torch.cuda.synchronize()
+        rec["stream_s"] = time.perf_counter() - t0
+        rec["stream_launches"] = _path_launches(counters)
+        rec["stream_collectives"] = _calls_by_name(
+            distributed.collective_times(reset=True))
+        rec["stream_group"] = svc.stats()["group"]
+    finally:
+        cap.close()
+    rec["stream_errs"] = _held_against_plain(counters, cap)
+    cold_dir = os.path.join(os.path.dirname(store), "stream_cold")
+    if rank == 0:
+        _bare_copy(store, cold_dir)
+    dist.barrier()
+    t0 = time.perf_counter()
+    cold = pipe.query(cold_dir, [DEFAULT_FENCE_QUERY])[0]
+    torch.cuda.synchronize()
+    rec["stream_cold_s"] = time.perf_counter() - t0
+    mine = pipe.query(store, [DEFAULT_FENCE_QUERY])[0]
+    flags = tuple(int(i) for i in np.flatnonzero(cold.anomalies.flags))
+    rec["stream_flags"] = len(flags)
+    try:
+        if not mine.cache_hit or cold.cache_hit:
+            raise AssertionError("the stream left no P = 4 summary, or "
+                                 "the cold copy had one")
+        for f in COLLECTIVE_FIELDS:
+            np.testing.assert_array_equal(getattr(mine.result.stats, f),
+                                          getattr(cold.result.stats, f))
+        np.testing.assert_array_equal(
+            mine.result.reduced["quantile"].counts,
+            cold.result.reduced["quantile"].counts)
+        np.testing.assert_array_equal(mine.anomalies.flags,
+                                      cold.anomalies.flags)
+    except AssertionError as e:
+        faults.append(f"P = 4 stream != cold P = 4: {e}")
+    if rank != 0:
+        return faults
+    rec["stream_events"] = len(events)
+    if not events:
+        faults.append("P = 4 stream: no fence event over HTTP")
+    if rec["stream_ingest"]["errors"] or not rec["stream_ingest"][
+            "rows_ingested"]:
+        faults.append(f"P = 4 stream: ingest {rec['stream_ingest']}")
+    if tuple(streamed) != flags:
+        faults.append(f"P = 4 stream: fence state {streamed} != cold "
+                      f"{flags}")
+    return faults
 
 
 def _run_ranks(args, root, role, n, limit_s):
@@ -3537,21 +3783,31 @@ def phase_collective(args, work, main_res, delta_copy, card):
 
     root = os.path.join(work, "collective")
     os.makedirs(root, exist_ok=True)
-    main_copy = os.path.join(root, "main")
-    _bare_copy(os.path.join(work, "store"), main_copy)
-    delta_paths, delta_store = delta_copy
+    main_copy, service_copy = (os.path.join(root, d)
+                               for d in ("main", "service"))
+    for d in (main_copy, service_copy):
+        _bare_copy(os.path.join(work, "store"), d)
+    delta_paths, delta_store, stream_store = delta_copy
     with open(os.path.join(root, "spec.json"), "w") as f:
         json.dump({"main": main_copy, "delta_paths": delta_paths,
-                   "delta_store": delta_store}, f)
+                   "delta_store": delta_store,
+                   "service_store": service_copy,
+                   "service_p1": os.path.join(root, "service_p1.json"),
+                   "stream_store": stream_store}, f)
     seconds = _run_ranks(args, root, "collective", COLLECTIVE_RANKS, 600)
     recs = []
     for r in range(COLLECTIVE_RANKS):
         with open(os.path.join(root, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     for rec in recs:
-        for key in ("main_launches", "delta_launches"):
+        for key in ("main_launches", "delta_launches", "service_launches",
+                    "stream_launches"):
             _need_launches(f"collective rank {rec['rank']} ({key})",
                            rec[key])
+        for key in ("service_errs", "stream_errs"):
+            if any(e is None for e in rec[key].values()):
+                raise AssertionError(f"collective rank {rec['rank']}: no "
+                                     f"call captured for {key}")
         calls = {}
         for name, s in rec["main_collectives"]:
             calls.setdefault(name, []).append(round(s, 4))
@@ -3570,6 +3826,43 @@ def phase_collective(args, work, main_res, delta_copy, card):
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
     for f in ("sum", "sumsq"):
         np.testing.assert_allclose(got[f], want[f], rtol=RTOL, err_msg=f)
+    for what in ("service", "stream"):
+        for rec in recs:
+            log(f"collective rank {rec['rank']} {what}: "
+                f"{rec[what + '_s']:.3f}s, launches "
+                f"{rec[what + '_launches']}; |kernel - plain| on its "
+                f"inputs {rec[what + '_errs']}; ticks and digests "
+                f"{rec[what + '_group']}; collectives (calls, s, max s) "
+                f"{rec[what + '_collectives']} [{card}]")
+        digests = {json.dumps({k: v for k, v in rec[what + "_group"].items()
+                               if k != "rank"}, sort_keys=True)
+                   for rec in recs}
+        if len(digests) != 1:
+            raise AssertionError(f"collective {what}: the ranks executed "
+                                 "different ticks")
+    lead = recs[0]
+    st = lead["service_stats"]
+    log(f"collective service: P = {st['world_size']}, {SERVICE_CLIENTS} "
+        f"clients x 2 asks of {lead['service_queries']} distinct queries; "
+        f"request wall s {lead['service_walls']}; fused widths "
+        f"{lead['service_widths']}; in-flight or summary hits "
+        f"{lead['service_hits']}; ticks {st['ticks']}, tick p50/p95/p99 "
+        f"{st['tick_p50_ms']:.1f} / {st['tick_p95_ms']:.1f} / "
+        f"{st['tick_p99_ms']:.1f} ms; every answer == the service phase's "
+        f"P = 1 (counts, flags exact; min/max in float32; means rtol "
+        f"{RTOL}); every rank's tick digests equal [{card}]")
+    si = lead["stream_ingest"]
+    log(f"collective stream: {lead['stream_events']} fence events over "
+        f"HTTP; ingest ticks {si['ingest_ticks']}, rows "
+        f"{si['rows_ingested']}, fence transitions "
+        f"{si['fence_transitions']}; event_to_fence p50/p99 "
+        f"{si['event_to_fence_p50_ms']:.1f} / "
+        f"{si['event_to_fence_p99_ms']:.1f} ms; fence state "
+        f"({lead['stream_flags']} flagged bins), moments and sketch == a "
+        f"cold P = {COLLECTIVE_RANKS} run bit for bit (cold "
+        f"{lead['stream_cold_s']:.3f}s); service + stream + cold "
+        f"{max(r['service_s'] + r['stream_s'] + r['stream_cold_s'] for r in recs):.3f}s"
+        f" on the slowest rank [{card}]")
     recomputed, hits, cold = recs[0]["delta_shards"]
     log(f"collective: {COLLECTIVE_RANKS} ranks on cuda:0 over gloo; P = "
         f"{COLLECTIVE_RANKS} == the main phase's P = 1 (counts, min, max, "

@@ -5,7 +5,9 @@ step over one store.
 Every rank calls the same entry point inside the default
 ``torch.distributed`` group its caller set up; without a group, or in a
 group of one, every function here is the single-process behaviour.
-:func:`on_rank0` runs a step (a store write, phase 1) on rank 0 alone and
+:func:`broadcast` hands every rank rank 0's object (a serving tick's
+descriptor); :func:`gather` hands every rank every rank's (a tick's
+outcome). :func:`on_rank0` runs a step (a store write, phase 1) on rank 0 alone and
 makes every rank wait for it, so the next read on any rank sees what rank
 0 wrote; :func:`agree` makes every rank raise when the ranks' plans
 differ, before a collective that only some of them would enter;
@@ -61,17 +63,37 @@ def _timed(name: str, fn: Callable[[], Any]) -> Any:
     return out
 
 
+def broadcast(obj: Any = None) -> Any:
+    """Rank 0's ``obj`` on every rank (picklable; one
+    ``broadcast_object_list``); the other ranks' arguments are ignored.
+    Without a group of more than one rank, just ``obj``."""
+    if _world_size() == 1:
+        return obj
+    box = [obj if _rank() == 0 else None]
+    _timed("broadcast", lambda: dist.broadcast_object_list(box, src=0))
+    return box[0]
+
+
+def gather(obj: Any, name: str = "gather") -> List[Any]:
+    """Every rank's ``obj`` (picklable), in rank order, on every rank
+    (one all-gather, timed under ``name``). Without a group of more than
+    one rank, ``[obj]``."""
+    world = _world_size()
+    if world == 1:
+        return [obj]
+    got: List[Any] = [None] * world
+    _timed(name, lambda: dist.all_gather_object(got, obj))
+    return got
+
+
 def agree(what: str, fields: Sequence[Any]) -> None:
     """Every rank must pass equal ``fields`` (picklable; one all-gather):
     if any rank's differ, every rank raises ``RuntimeError`` here, before
     a collective that only some of them would enter. A no-op without a
     group of more than one rank."""
-    world = _world_size()
-    if world == 1:
+    if _world_size() == 1:
         return
-    mine = list(fields)
-    got: List[Any] = [None] * world
-    _timed("agree", lambda: dist.all_gather_object(got, mine))
+    got = gather(list(fields), "agree")
     if any(g != got[0] for g in got):
         raise RuntimeError(
             f"the ranks' {what} differ: "
@@ -96,13 +118,12 @@ def on_rank0(fn: Callable[[], Any], what: str) -> Any:
     every rank until it has finished (one all-gather, a barrier), so that
     the next read on any rank sees what rank 0 wrote (a rank's
     ``TraceStore`` memos are checked against the files' stats at every
-    read, and the engine opens the store afresh on every call, so none
-    serves what it held before the barrier). Returns ``fn``'s
+    read, so none serves what it held before the barrier, not even a
+    query service's store, held across its ticks). Returns ``fn``'s
     result on every rank (it must pickle). If ``fn`` raised, rank 0
     re-raises it and every other rank raises ``RuntimeError``. Without a
     group of more than one rank, just ``fn()``."""
-    world = _world_size()
-    if world == 1:
+    if _world_size() == 1:
         return fn()
     err, res, exc = None, None, None
     if _rank() == 0:
@@ -110,8 +131,7 @@ def on_rank0(fn: Callable[[], Any], what: str) -> Any:
             res = fn()
         except Exception as e:       # noqa: BLE001 - re-raised below
             exc, err = e, f"{type(e).__name__}: {e}"
-    got: List[Any] = [None] * world
-    _timed("on_rank0", lambda: dist.all_gather_object(got, (err, res)))
+    got = gather((err, res), "on_rank0")
     if exc is not None:
         raise exc
     if got[0][0] is not None:

@@ -647,8 +647,15 @@ class VariabilityPipeline:
         ``svc.stop()``). Extra keyword arguments land on
         :class:`~repro_torch.serve.ServiceConfig`; ``ingest`` is an
         optional :class:`~repro_torch.serve.IngestConfig` for the
-        streaming plane."""
+        streaming plane.
+
+        In a group of P > 1 ranks (torch backend only) every rank calls
+        this with the same arguments: rank 0 gets the service (the HTTP
+        server, admission, commit), every other rank a follower that
+        executes each of rank 0's ticks with it; a follower's ``stop()``
+        (or ``join()``) returns once rank 0's ``stop()`` has ended it."""
         from ..serve.query_service import QueryService, ServiceConfig
+        self._check_group("serving")
         cfg = ServiceConfig(backend=self.cfg.backend, device=self.cfg.device,
                             host=host, port=port, ingest=ingest, **cfg_kw)
         return QueryService(str(store_dir), cfg).start(
@@ -664,12 +671,16 @@ class VariabilityPipeline:
         fence queries on the pipeline's backend and device), and fence
         transitions stream from ``GET /v1/stream/fences``. Subscribe
         with :class:`~repro_torch.serve.QueryClient`
-        (``client.fences(since)``)."""
+        (``client.fences(since)``). In a group of P > 1 ranks, as
+        :meth:`serve`: the tailer runs on rank 0, and every rank
+        executes each ingest tick's fence lanes after rank 0's append."""
         from ..serve.query_service import QueryService, ServiceConfig
+        self._check_group("streaming")
         cfg = ServiceConfig(backend=self.cfg.backend, device=self.cfg.device,
                             host=host, port=port, ingest=ingest, **cfg_kw)
         svc = QueryService(str(store_dir), cfg)
-        svc.ensure_ingestor().attach(list(db_paths))
+        if svc.rank == 0:
+            svc.ensure_ingestor().attach(list(db_paths))
         return svc.start(serve_http=serve_http)
 
     def _analyze(self, gen: Union[GenerationReport, AppendReport],

@@ -97,6 +97,33 @@ Backend and device
     one raises when it is built. A kernel that fails inside a tick fails
     that tick (HTTP 500); nothing retries on a plain version.
 
+Across ranks (a ``torch.distributed`` group of P > 1 ranks)
+    Every rank constructs the service on the same store and config
+    (``VariabilityPipeline.serve`` / ``.stream`` on every rank, torch
+    backend only: ``serial`` and ``process`` raise in a group). Rank 0
+    holds all of the above — HTTP server, admission, in-flight slots,
+    LRUs, the ingest plane — and, for each tick it has admitted,
+    broadcasts a small descriptor (seq, kind, the owned queries' specs,
+    an ingest tick's DB paths); every other rank runs a follower loop
+    that receives descriptors and executes them until rank 0's
+    :meth:`QueryService.stop` sends the end. Every rank compiles the
+    same :class:`~repro_torch.core.query.QueryPlan` and executes it
+    (``execute_plan`` reduces each rank's section of the dirty rows,
+    merges across ranks, and rank 0 alone writes packs and summaries);
+    an ingest tick's ``run_append`` runs on rank 0 while the others wait
+    (``on_rank0``). Every rank renders its owned answers, and the ranks
+    exchange their outcome after compiling and after executing: an
+    error on any rank, or answers that differ, fail the tick on every
+    rank (HTTP 500 on rank 0), and the next tick runs. Gloo collectives
+    must be entered in one order on every rank, so in a group ticks
+    execute one at a time in seq order, under a lock that LRU evictions
+    take too: no eviction falls inside a tick's execution, between two
+    ranks' summary probes or pack reads (and rank 0 pins the tick's
+    keys before the ranks compare their compiled plans, so none
+    probes before the pin). Admission, in-flight borrowing and commit
+    still overlap with execution. Rank 0 alone renders for its callers
+    and commits.
+
 Run it (on the card; ``--device cpu`` keeps every step on the host):
 
   PYTHONPATH=src python -m repro_torch.serve.query_service --store DIR \\
@@ -150,7 +177,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import queue
@@ -166,7 +195,8 @@ import numpy as np
 from repro_torch.core.aggregation import ScanPool
 from repro_torch.device import resolve_device
 from repro_torch.core.anomaly import report_for_query
-from repro_torch.core.group import _world_size
+from repro_torch.core.group import (_rank, _world_size, broadcast, gather,
+                                    on_rank0, refuse_in_group)
 from repro_torch.core.generation import run_append
 from repro_torch.core.query import Query, QueryPlan
 from repro_torch.core.reducers import N_BUCKETS, QuantileSketch, bucket_of
@@ -247,7 +277,7 @@ class _Slot:
     ``event`` instead of recomputing."""
 
     __slots__ = ("key", "owner_seq", "event", "qr", "summary_key",
-                 "error")
+                 "error", "rendered")
 
     def __init__(self, key, owner_seq: int) -> None:
         self.key = key
@@ -256,6 +286,8 @@ class _Slot:
         self.qr = None                       # owner's QueryResult
         self.summary_key: Optional[str] = None
         self.error: Optional[Tuple[int, str, str]] = None
+        # the owner's rendered answer, or the error its render raised
+        self.rendered = None
 
 
 @dataclasses.dataclass
@@ -276,6 +308,34 @@ class _Tick:
     tick_info: Optional[Dict] = None     # filled at commit
 
 
+@dataclasses.dataclass
+class _Outcome:
+    """What one tick's execution produced on a rank (``_run_tick``)."""
+
+    ingest: Optional[Dict] = None        # the append's provenance
+    ingest_error: Optional[str] = None
+    results: Optional[List] = None       # QueryResult per owned query
+    lanes: Optional[List] = None         # the plan's lanes, same order
+    rendered: Optional[List] = None      # answer dict or error triple
+    error: Optional[str] = None          # the tick failed (every rank)
+
+
+def _first_error(errors: Sequence[Optional[str]]) -> Optional[str]:
+    """The first rank's error of a gathered list, named by its rank when
+    that is not rank 0 (None when every rank succeeded)."""
+    for r, e in enumerate(errors):
+        if e is not None:
+            return e if r == 0 else f"rank {r}: {e}"
+    return None
+
+
+def _answers_digest(rendered: Sequence) -> str:
+    """One tick's rendered answers as a digest the ranks compare."""
+    return hashlib.sha256(json.dumps(
+        [list(r) if isinstance(r, tuple) else r for r in rendered],
+        sort_keys=True).encode()).hexdigest()
+
+
 class _ByteBudgetLRU:
     """Shared skeleton of the two byte-budgeted caches: per-key recency
     plus an in-flight registry — keys registered by ANY in-flight tick
@@ -287,6 +347,9 @@ class _ByteBudgetLRU:
         self._inflight: Dict[int, set] = {}
         self._reg_lock = threading.Lock()
         self.evictions = 0
+        # held while deleting: in a group, the service's tick lock, so
+        # no eviction falls between two ranks' probes of one tick
+        self.guard = contextlib.nullcontext()
 
     def register(self, tick_seq: int, keys) -> None:
         """Pin ``keys`` against eviction while tick ``tick_seq`` is in
@@ -356,21 +419,24 @@ class SummaryCacheLRU(_ByteBudgetLRU):
                 pass
         self._sync_order(sizes)
         total = sum(sizes.values())
+        if total <= self.budget:
+            return 0
         immune = self.immune()
         evicted = 0
-        for k in list(self._order):
-            if total <= self.budget:
-                break
-            if k in immune:
-                continue                 # in-flight tick reads this key
-            try:
-                os.remove(os.path.join(self.store.root,
-                                       summary_filename(k)))
-            except FileNotFoundError:
-                pass
-            total -= sizes[k]
-            self._order.pop(k)
-            evicted += 1
+        with self.guard:
+            for k in list(self._order):
+                if total <= self.budget:
+                    break
+                if k in immune:
+                    continue             # in-flight tick reads this key
+                try:
+                    os.remove(os.path.join(self.store.root,
+                                           summary_filename(k)))
+                except FileNotFoundError:
+                    pass
+                total -= sizes[k]
+                self._order.pop(k)
+                evicted += 1
         self.evictions += evicted
         return evicted
 
@@ -406,27 +472,28 @@ class PackCacheLRU(_ByteBudgetLRU):
             return 0
         immune = self.immune()
         evicted = 0
-        for idx in list(self._order):
-            if total <= self.budget:
-                break
-            if idx in immune:
-                continue             # referenced by an in-flight tick
-            if self.store.compact_pack(idx):
-                self.compactions += 1
-                try:
-                    new_size = os.path.getsize(os.path.join(
-                        self.store.root, pack_filename(idx)))
-                except OSError:
-                    new_size = 0
-                total -= sizes[idx] - new_size
-                sizes[idx] = new_size
+        with self.guard:
+            for idx in list(self._order):
                 if total <= self.budget:
                     break
-            if sizes[idx]:
-                self.store.clear_partials(idx)
-                total -= sizes[idx]
-            self._order.pop(idx)
-            evicted += 1
+                if idx in immune:
+                    continue         # referenced by an in-flight tick
+                if self.store.compact_pack(idx):
+                    self.compactions += 1
+                    try:
+                        new_size = os.path.getsize(os.path.join(
+                            self.store.root, pack_filename(idx)))
+                    except OSError:
+                        new_size = 0
+                    total -= sizes[idx] - new_size
+                    sizes[idx] = new_size
+                    if total <= self.budget:
+                        break
+                if sizes[idx]:
+                    self.store.clear_partials(idx)
+                    total -= sizes[idx]
+                self._order.pop(idx)
+                evicted += 1
         self.evictions += evicted
         return evicted
 
@@ -441,16 +508,21 @@ class QueryService:
     tick inline (admit -> execute -> commit) for deterministic tests;
     ``start`` spawns the pipeline threads (or the sequential loop at
     ``pipeline_depth=1``). Don't mix ``start()`` with direct
-    ``drain_once`` calls — admission is single-consumer."""
+    ``drain_once`` calls — admission is single-consumer.
+
+    In a group of P > 1 ranks (module docstring) every rank constructs
+    the service; on rank 0 it is the whole of the above, on the others
+    ``start`` runs the follower loop on a thread of its own (the rank
+    must enter no other collective until it ends), and ``stop`` /
+    ``join`` wait for rank 0's ``stop``."""
 
     def __init__(self, store_dir: str,
                  cfg: Optional[ServiceConfig] = None) -> None:
-        world = _world_size()
-        if world > 1:
-            raise RuntimeError(
-                f"a query service in a group of {world} ranks: serving and "
-                "streaming across ranks are not ported yet (ROADMAP.md)")
         self.cfg = cfg or ServiceConfig()
+        self.world, self.rank = _world_size(), _rank()
+        if self.cfg.backend != "torch":
+            refuse_in_group(f"a query service on the {self.cfg.backend!r} "
+                            "backend")
         self.store = TraceStore(store_dir)
         self.man = self.store.read_manifest()
         self.cache = SummaryCacheLRU(self.store,
@@ -486,6 +558,18 @@ class QueryService:
         # is keeping the executor busy
         self._live_ticks = 0
         self._live_lock = threading.Lock()
+        # across ranks: ticks execute one at a time in seq order under
+        # this condition's lock, which LRU evictions take too
+        self._turn = threading.Condition()
+        self._next_seq = 1
+        self._group_stopped = False
+        self._follower: Optional[threading.Thread] = None
+        self._follow_error: Optional[str] = None
+        self.group_ticks = 0
+        self._digests = {"descriptors": hashlib.sha256(),
+                         "answers": hashlib.sha256()}
+        if self.world > 1:
+            self.cache.guard = self.packs.guard = self._turn
 
     # -- admission ---------------------------------------------------------
     def estimate_cells(self, queries: Sequence[Query]) -> int:
@@ -659,49 +743,30 @@ class QueryService:
         """Compile + execute the tick's OWNED queries as one fused plan
         (scans fanned over the ScanPool), fill the slots, wait for any
         borrowed slots' owners, render every response body. Runs on the
-        executor — up to ``pipeline_depth`` ticks concurrently.
+        executor — up to ``pipeline_depth`` ticks concurrently, or, in a
+        group, one at a time in seq order (the owned part; the borrowed
+        waits and rendering still overlap).
 
         An ingest tick prepends its append: the staged-commit
         ``run_append`` publishes the extended shards (atomic renames —
         concurrently executing query ticks stay torn-free), THEN the
         fence lanes compile against the refreshed manifest and execute
         like any fused plan, touching only dirty/new shards."""
-        if tick.kind == "ingest":
-            self._exec_ingest_append(tick)
-            if tick.ingest_error is not None:
-                err = (500, "ingest_failed", tick.ingest_error)
-                for _, slot in tick.owned:
-                    slot.error = err
-                    slot.event.set()
-        try:
-            if tick.owned and tick.ingest_error is None:
-                qplan = QueryPlan.compile(self.store,
-                                          [q for q, _ in tick.owned],
-                                          backend=self.cfg.backend,
-                                          device=self.cfg.device)
-                # pin this tick's summary keys and pack shard set
-                # against eviction BEFORE any probe or scan starts
-                self.cache.register(
-                    tick.seq, [ln.summary_key for ln in qplan.lanes
-                               if ln.summary_key])
-                for ln in qplan.lanes:
-                    tick.shards |= (set(int(s) for s in ln.pruned)
-                                    if ln.pruned is not None
-                                    else set(range(qplan.n_shard_files)))
-                self.packs.register(tick.seq, tick.shards)
-                results = qplan.execute(use_cache=True,
-                                        pool=self.scan_pool)
-                for (q, slot), qr, lane in zip(tick.owned, results,
-                                               qplan.lanes):
-                    slot.qr = qr
-                    slot.summary_key = lane.summary_key
-                    slot.event.set()
-        except Exception as e:          # noqa: BLE001 — fail the tick,
-            err = (500, "internal",                   # not the service
-                   f"{type(e).__name__}: {e}")
-            for _, slot in tick.owned:
-                slot.error = err
-                slot.event.set()
+        if self.world > 1:
+            with self._turn:
+                self._turn.wait_for(lambda: self._next_seq >= tick.seq
+                                    or self._stop.is_set())
+                try:
+                    if self._group_stopped:
+                        self._fail_owned(tick, (503, "tick_timeout",
+                                                "service stopping"))
+                    else:
+                        self._exec_owned(tick)
+                finally:
+                    self._next_seq = max(self._next_seq, tick.seq + 1)
+                    self._turn.notify_all()
+        else:
+            self._exec_owned(tick)
         # borrowed slots: wait on their owners (always admitted
         # earlier, so always running or done — never a cycle); a dead
         # owner surfaces as tick_timeout instead of a hung handler
@@ -725,14 +790,17 @@ class QueryService:
                 else:
                     qr = slot.qr
                     hit = slot.owner_seq != tick.seq
-                    if qr.query is not q:
-                        qr = dataclasses.replace(qr, query=q)
-                    try:
-                        rendered = _render_result(qr, self.cfg.device)
-                    except Exception as e:  # noqa: BLE001
+                    if qr.query is q and slot.rendered is not None:
+                        rendered = slot.rendered     # the owner's render
+                    else:
+                        if qr.query is not q:
+                            qr = dataclasses.replace(qr, query=q)
+                        rendered = _render(qr, self.cfg.device)
+                    if isinstance(rendered, tuple):
                         # a fence that fails (a kernel) fails the request
-                        err = (500, "internal", f"{type(e).__name__}: {e}")
+                        err = rendered
                         continue
+                    rendered = dict(rendered)
                     if hit:
                         rendered["inflight_hit"] = True
                     body.append(rendered)
@@ -742,32 +810,149 @@ class QueryService:
             else:
                 p.results = body
 
-    def _exec_ingest_append(self, tick: _Tick) -> None:
-        """The append half of an ingest tick: staged-commit
-        ``run_append`` over the pending's DB paths (rowid-bounded reads
-        — live-writer safe; an interrupted previous tick rolls forward
+    @staticmethod
+    def _fail_owned(tick: _Tick, err: Tuple[int, str, str]) -> None:
+        for _, slot in tick.owned:
+            slot.error = err
+            slot.event.set()
+
+    def _exec_owned(self, tick: _Tick) -> None:
+        """The tick's own work on rank 0: in a group, the descriptor
+        goes to every rank first; then :meth:`_run_tick` (the same on
+        every rank), whose outcome fills the owned slots. A query tick
+        that owns nothing (every query borrowed) has no work to send."""
+        if tick.kind == "query" and not tick.owned:
+            return
+        desc = {"seq": tick.seq, "kind": tick.kind,
+                "queries": [q.to_spec() for q, _ in tick.owned]}
+        if tick.kind == "ingest":
+            pending = tick.batch[0]
+            desc["ingest_paths"] = list(pending.ingest_paths)
+            desc["max_new_shards"] = int(pending.max_new_shards)
+        broadcast(desc)
+
+        def pin(qplan: QueryPlan) -> None:
+            # pin this tick's summary keys and pack shard set against
+            # eviction BEFORE any probe or scan starts
+            self.cache.register(
+                tick.seq, [ln.summary_key for ln in qplan.lanes
+                           if ln.summary_key])
+            for ln in qplan.lanes:
+                tick.shards |= (set(int(s) for s in ln.pruned)
+                                if ln.pruned is not None
+                                else set(range(qplan.n_shard_files)))
+            self.packs.register(tick.seq, tick.shards)
+
+        out = self._run_tick(desc, [q for q, _ in tick.owned], pin)
+        if tick.kind == "ingest":
+            tick.ingest, tick.ingest_error = out.ingest, out.ingest_error
+            if out.ingest_error is not None:
+                self._fail_owned(tick, (500, "ingest_failed",
+                                        out.ingest_error))
+                return
+        if out.error is not None:
+            self._fail_owned(tick, (500, "internal", out.error))
+            return
+        if not tick.owned:
+            return
+        for (q, slot), qr, lane, rendered in zip(
+                tick.owned, out.results, out.lanes, out.rendered):
+            slot.qr = qr
+            slot.summary_key = lane.summary_key
+            slot.rendered = rendered
+            slot.event.set()
+
+    def _run_tick(self, desc: Dict, queries: List[Query],
+                  pin=None) -> "_Outcome":
+        """One tick's work on every rank (rank 0 from
+        :meth:`_exec_owned`, the others from the follower loop): an
+        ingest tick's append on rank 0 alone, then ``queries`` as one
+        fused plan, every answer rendered. In a group the ranks
+        exchange their outcome after compiling and after executing, so
+        that an error on any one rank, or answers that differ, fail the
+        tick on all of them and none waits in a collective the others
+        skipped. ``pin(qplan)`` runs between compile and execute."""
+        out, digest = _Outcome(), None
+        if desc["kind"] == "ingest":
+            try:
+                out.ingest = on_rank0(
+                    lambda: self._append(desc["ingest_paths"],
+                                         desc["max_new_shards"]),
+                    "the ingest tick's append")
+            except Exception as e:      # noqa: BLE001 — fails the tick
+                out.ingest_error = f"{type(e).__name__}: {e}"
+        if queries and out.ingest_error is None:
+            err, qplan = None, None
+            try:
+                qplan = QueryPlan.compile(self.store, queries,
+                                          backend=self.cfg.backend,
+                                          device=self.cfg.device)
+                if pin is not None:
+                    pin(qplan)
+            except Exception as e:      # noqa: BLE001 — fails the tick
+                err = f"{type(e).__name__}: {e}"
+            err = _first_error(gather(err)) if self.world > 1 else err
+            if err is None:
+                try:
+                    out.results = qplan.execute(use_cache=True,
+                                                pool=self.scan_pool)
+                    out.lanes = qplan.lanes
+                    out.rendered = [_render(qr, self.cfg.device)
+                                    for qr in out.results]
+                    if self.world > 1:
+                        digest = _answers_digest(out.rendered)
+                except Exception as e:  # noqa: BLE001 — fails the tick,
+                    err = f"{type(e).__name__}: {e}"     # not the service
+                if self.world > 1:
+                    got = gather((err, digest))
+                    err = _first_error([e for e, _ in got])
+                    if err is None and len({d for _, d in got}) > 1:
+                        err = ("RuntimeError: the ranks' answers differ: "
+                               + ", ".join(str(d)[:12] for _, d in got))
+            out.error = err
+        if self.world > 1:
+            self.group_ticks += 1
+            self._digests["descriptors"].update(
+                json.dumps(desc, sort_keys=True).encode())
+            self._digests["answers"].update(
+                (out.error or out.ingest_error or digest or "").encode())
+        return out
+
+    def _append(self, paths: Sequence[str], max_new_shards: int) -> Dict:
+        """The append half of an ingest tick (rank 0): staged-commit
+        ``run_append`` over the DB paths (rowid-bounded reads —
+        live-writer safe; an interrupted previous tick rolls forward
         from its intent journal), then refresh the admission
-        estimator's manifest. Failures land in ``tick.ingest_error``
-        and fail the tick, never the service."""
-        pending = tick.batch[0]
+        estimator's manifest; returns the tick's ingest provenance."""
+        rep = run_append(paths, self.store.root,
+                         max_new_shards=max_new_shards)
+        man = self.store.read_manifest()
+        self.man = man                  # estimate_cells sees the growth
+        return {
+            "rows_ingested": int(rep.appended_rows),
+            "dirty_shards": [int(s) for s in rep.dirty_shards],
+            "n_new_shards": int(rep.n_new_shards),
+            "n_shards": int(rep.n_shards),
+            "recovered": bool(rep.recovered),
+            "append_seconds": round(float(rep.seconds), 6),
+            "watermarks": {
+                os.path.abspath(k): [int(x) for x in v]
+                for k, v in man.extra.get("db_rowid_hi", {}).items()},
+        }
+
+    def _follow(self) -> None:
+        """The follower loop (ranks above 0): execute rank 0's tick
+        descriptors until it sends the end (``None``)."""
         try:
-            rep = run_append(pending.ingest_paths, self.store.root,
-                             max_new_shards=pending.max_new_shards)
-            man = self.store.read_manifest()
-            self.man = man              # estimate_cells sees the growth
-            tick.ingest = {
-                "rows_ingested": int(rep.appended_rows),
-                "dirty_shards": [int(s) for s in rep.dirty_shards],
-                "n_new_shards": int(rep.n_new_shards),
-                "n_shards": int(rep.n_shards),
-                "recovered": bool(rep.recovered),
-                "append_seconds": round(float(rep.seconds), 6),
-                "watermarks": {
-                    os.path.abspath(k): [int(x) for x in v]
-                    for k, v in man.extra.get("db_rowid_hi", {}).items()},
-            }
-        except Exception as e:          # noqa: BLE001
-            tick.ingest_error = f"{type(e).__name__}: {e}"
+            while True:
+                desc = broadcast(None)
+                if desc is None:
+                    return
+                self._run_tick(desc, [Query.from_spec(spec)
+                                      for spec in desc["queries"]])
+        except Exception as e:          # noqa: BLE001 — a collective
+            # failed (the group's timeout): the group is gone
+            self._follow_error = f"{type(e).__name__}: {e}"
 
     # -- stage 3: commit (single writer) -----------------------------------
     def _commit(self, tick: _Tick) -> None:
@@ -878,6 +1063,14 @@ class QueryService:
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, serve_http: bool = True) -> "QueryService":
+        if self.rank > 0:
+            # a follower: no server, admission or ingest plane of its own
+            self._follower = threading.Thread(
+                target=self._follow, daemon=True,
+                name="query-service-follower")
+            self._follower.start()
+            self._started = True
+            return self
         if self._depth <= 1:
             self._threads = [threading.Thread(
                 target=self._serial_loop, daemon=True,
@@ -907,7 +1100,29 @@ class QueryService:
             self.ingestor.start()
         return self
 
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """On a rank above 0: wait until rank 0's ``stop`` ends the
+        follower loop (True when it has). On rank 0: whether the
+        followers have been sent the end."""
+        if self.rank == 0:
+            return self._group_stopped or self.world == 1
+        if self._follower is not None:
+            self._follower.join(timeout)
+            if self._follower.is_alive():
+                return False
+        return True
+
     def stop(self) -> None:
+        if self.rank > 0:
+            # a follower ends when rank 0 stops: wait for that
+            self.join()
+            self._follower = None
+            self._started = False
+            self.scan_pool.close()
+            if self._follow_error is not None:
+                raise RuntimeError(f"the follower loop failed: "
+                                   f"{self._follow_error}")
+            return
         # tailer first: no new ingest ticks enter a draining pipeline
         if self.ingestor is not None:
             self.ingestor.stop()
@@ -929,6 +1144,14 @@ class QueryService:
                 t.join(timeout=5.0)
         self._threads = []
         self.scan_pool.close()
+        if self.world > 1:
+            # every tick has executed: the followers' end, under the
+            # tick lock (a straggling tick then fails with 503)
+            with self._turn:
+                if not self._group_stopped:
+                    self._group_stopped = True
+                    broadcast(None)
+                self._turn.notify_all()
 
     def stats(self) -> Dict:
         widths = list(self.widths)
@@ -951,7 +1174,23 @@ class QueryService:
             "ingest_requests": self.ingest_requests,
             "ingest": (self.ingestor.stats()
                        if self.ingestor is not None else None),
+            "world_size": self.world,
+            # across ranks: the ticks this rank executed and digests of
+            # their descriptors and answers, equal on every rank
+            "group": ({"rank": self.rank, "ticks": self.group_ticks,
+                       **{k: d.hexdigest()
+                          for k, d in self._digests.items()}}
+                      if self.world > 1 else None),
         }
+
+
+def _render(qr, device: str):
+    """:func:`_render_result`, or the error triple of the request when
+    it raises (a fence that fails — a kernel — fails the request)."""
+    try:
+        return _render_result(qr, device)
+    except Exception as e:              # noqa: BLE001
+        return (500, "internal", f"{type(e).__name__}: {e}")
 
 
 def _render_result(qr, device: str = "cuda") -> Dict:
