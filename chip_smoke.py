@@ -258,13 +258,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              --rank-role tp --collective-rank R, started by the phase), all
              on cuda:0 in a gloo group, each draw h2o-danube-1.8b,
              mamba2-370m, granite-moe-1b-a400m and deepseek-v2-236b (its
-             dense layer and 1 MoE layer, TP_DEPTH_CUTS) whole at full
+             dense layer and 1 MoE layer; TP_DEPTH_CUTS) whole at full
              width from --seed, and serve 1 request of 2,048 prompt tokens
              + 8 new through ``ServeEngine(...,
              mesh=make_host_mesh(model=4))``: each rank keeps its shards
              (its parameter bytes must equal ``bytes_per_device``; the
              MoE's expert tables by expert), runs flash_attention on its
-             query and KV heads (24 launches a prefill for danube and
+             query and KV heads (24 launches a prefill for danube, 24 for
              granite, 2 for deepseek's MLA in the (192, 128)
              instantiation, all tensor-core) or ssd_fused on its 8 SSM
              heads (48), the MoE's ep path in prefill (two all_to_alls a
@@ -284,7 +284,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              P = 1 and free-running, the free-running gap and the tokens
              whose own top-k differs from the TP choice, with whether gloo
              takes bfloat16 CUDA tensors as they are (the port sends
-             16-bit floats as uint8 views either way);
+             16-bit floats as uint8 views either way). Then the step
+             dp-granite (DP_SPEC): the same 4 ranks draw
+             granite-moe-1b-a400m whole at full width and depth and serve
+             2 requests of 2,048 prompt tokens + 8 new through
+             ``ServeEngine(..., mesh=make_host_mesh(model=2))``, a (2, 2)
+             mesh: each rank holds its FSDP and tensor shards (the fsdp
+             dims cut over data, gathered a layer at use; bytes ==
+             bytes_per_device) and serves its data rank's request, the
+             MoE on ep in prefill (24 a prefill) and replicated in decode;
+             then 8 decode steps under ``make_ctx(mesh, inference=True)``
+             over the inference layout (``shard_params``: the expert
+             tables' F cut over data, bytes == bytes_per_device),
+             teacher-forced on the served tokens over the served caches,
+             on the weights-stationary branch (24 a step) under the
+             replicated steps' expert choices (gathered from the data
+             ranks), against the replicated steps' logits (the 8th one
+             decoded after the engine's 7) within the serving gates. 24
+             flash_attention launches a prefill on every rank, all
+             tensor-core, each rank's call held against the plain
+             version; the ranks of a data row bit-equal, every rank's
+             tokens and dropped share equal; rank 0's P = 1 run as
+             above, its prefill MoE calls on the 4 (request, sequence
+             block) blocks and its decode under both data ranks' expert
+             choices. Printed a rank: prefill ms, decode ms a token on
+             both decode paths, peak GiB, each collective kind's calls
+             and seconds in the generate and in the stationary steps
+             (tp_* the model axis, dp_* the data axis, mesh_* the whole
+             mesh), the P = 1 and replicated-decode gaps;
 16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -397,8 +424,8 @@ outputs one rounding step (rtol 2^-7); flash_attention float32 outputs
 rtol = atol = 2e-4 (the reference's own), bfloat16 one rounding step;
 serving logits, computed in bfloat16 through every layer of the model
 (24 to 48), max |kernel - plain| <= 0.5 and mean <= 0.05 (and so |TP -
-P = 1| in the tp phase: each rank's partial is rounded to bfloat16 once
-more before the sum), and each
+P = 1| in the tp phase, whose sums add float32 partials in rank order,
+and |stationary - replicated| in its dp-granite step), and each
 request's first token equal unless the plain logits' top-2 gap is below
 0.5; the same logits bound for the decode continuations (hymba, danube);
 for granite-moe and deepseek the plain prefill takes the kernel run's
@@ -425,6 +452,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -3894,6 +3922,14 @@ TP_SPECS = {
 # the tp phase's flash_attention rows, one a model
 TP_FLASH_ROWS = tuple(f"flash_attention/{tag}" for tag, spec in
                       TP_SPECS.items() if spec["kernel"] == "flash_attention")
+# the tp phase's step on a (2, 2) mesh: granite-moe at full width and
+# depth, 2 requests of 2,048 prompt tokens and 8 new served on data x model
+# = 2 x 2, then `steps` decode steps on the weights-stationary branch;
+# flash_attention launches a prefill on every rank
+DP_TAG = "dp-granite"
+DP_SPEC = dict(arch="granite-moe-1b-a400m", model=2, batch=2, prompt=2048,
+               new=8, steps=8, launches=24)
+TP_FLASH_ROWS += (f"flash_attention/{DP_TAG}",)
 # deepseek-v2-236b's dense layer and 1 of its 59 MoE layers: every rank
 # draws the whole tree before it keeps its shards, ~4.8 B parameters (9.7
 # GB in bfloat16) here, so the four trees take ~39 GB at once (DEPTH_CUTS'
@@ -3961,17 +3997,21 @@ def _mean(xs):
     return float(torch.stack([x.float() for x in xs]).mean()) if xs else None
 
 
-def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len):
+def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
+                  data=1):
     """Rank 0's P = 1 run of the function the TP run computed: the whole
     tree drawn again from ``seed``, decode teacher-forced on the TP run's
     tokens. For an MoE model each prefill MoE call's routed part runs on
-    the TP_RANKS sequence blocks as separate calls (``_blocked_moe``: the
-    ``ep`` path's per-block capacity), and every routing takes the TP
-    run's expert choices (``_Routing``: prefill layer l's block r is rank
-    r's call l, decode rank 0's calls). Returns the gaps a step, P = 1's
-    argmax a step, and for an MoE model the dropped shares, the
-    free-running gap (P = 1's own routing, capacity over the whole call)
-    and the tokens whose own top-k differs from the replayed choice."""
+    the TP_RANKS blocks as separate calls (``_blocked_moe``: the ``ep``
+    path's per-block capacity; on a mesh of ``data`` data ranks rank r's
+    block is its request's sequence block, the blocks in rank order), and
+    every routing takes the TP run's expert choices (``_Routing``:
+    prefill layer l's block r is rank r's call l; decode call k is the
+    data ranks' calls k, their rows stacked in data order). Returns the
+    gaps a step, P = 1's argmax a step (of the first request, and of
+    each), and for an MoE model the dropped shares, the free-running gap
+    (P = 1's own routing, capacity over the whole call) and the tokens
+    whose own top-k differs from the replayed choice."""
     import torch
 
     from repro_torch.models import model
@@ -3979,9 +4019,11 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len):
     params = model.init_params(cfg, seed=seed, device=dev)
     n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
     routing, drops = _Routing(), []
+    t = TP_RANKS // data
     routing.chosen = [chosen[r][i].to(dev) for i in range(n_moe)
                       for r in range(TP_RANKS)] + [
-        c.to(dev) for c in chosen[0][n_moe:]]
+        torch.cat([chosen[d * t][k] for d in range(data)]).to(dev)
+        for k in range(n_moe, len(chosen[0]))]
     replay = routing.replay() if n_moe else contextlib.nullcontext()
     blocked = _blocked_moe(TP_RANKS) if n_moe else contextlib.nullcontext()
     with torch.inference_mode(), replay, _moe_dropped(drops):
@@ -3995,10 +4037,10 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len):
                                            index + t)
             p1.append(lg)
         del caches
+    argmax = torch.stack([p.argmax(-1) for p in p1], dim=1).cpu()
     out = {"gaps": [_logit_gap(a.float(), b.float())
                     for a, b in zip(tp_logits, p1)],
-           "argmax_p1": [int(x) for x in torch.stack(
-               [p.argmax(-1)[0] for p in p1]).cpu()]}
+           "argmax_p1": argmax[0].tolist(), "argmax_rows": argmax.tolist()}
     if n_moe:
         free = []
         with torch.inference_mode(), _moe_dropped(free):
@@ -4014,6 +4056,203 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len):
             "flips_decode": sum(routing.flips[n_moe * TP_RANKS:])})
     del params
     return out
+
+
+@contextlib.contextmanager
+def _branches(into):
+    """Count each ``moe_forward`` branch call in ``into`` (by branch
+    name) within the block."""
+    from repro_torch.models import moe
+    names = {"_moe_ep": "ep", "_moe_stationary": "stationary",
+             "_moe_replicated": "replicated", "_moe_local": "local"}
+    real = {name: getattr(moe, name) for name in names}
+
+    def counted(name):
+        def wrapped(*a):
+            into[names[name]] = into.get(names[name], 0) + 1
+            return real[name](*a)
+        return wrapped
+    for name in names:
+        setattr(moe, name, counted(name))
+    try:
+        yield into
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+def _by_kind(calls):
+    """{collective name: (calls, seconds)} of ``collective_times``."""
+    out = {}
+    for name, sec in calls:
+        n, total = out.get(name, (0, 0.0))
+        out[name] = (n + 1, total + sec)
+    return out
+
+
+def dp_serve(cfg, seed, dev, host, spec, counters=None):
+    """The dp-granite step on this rank of a group of TP_RANKS ranks (on
+    the CPU too, at any config): ``cfg`` served from ``seed`` through
+    ``ServeEngine(..., mesh=make_host_mesh(model=spec["model"]))`` on
+    ``host`` (numpy inputs), then ``spec["steps"]`` decode steps under
+    ``make_ctx(mesh, inference=True)`` over the inference layout,
+    teacher-forced on the served tokens over the served caches, under the
+    expert choices of the replicated decode at the same step (the
+    engine's, and one more replicated step after them), gathered from
+    the data ranks. Rank 0 then runs ``_tp_yardstick``. Returns (the
+    record, the captured kernel calls)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import group
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention, model, ssm, tp
+    from repro_torch.models.shardrules import (_items, bytes_per_device,
+                                               make_ctx, shard_batch,
+                                               shard_params)
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.telemetry import KIND_DECODE, KIND_PREFILL
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for _, x in _items(tree))
+
+    rank, t = dist.get_rank(), spec["model"]
+    mesh = make_host_mesh(model=t)
+    n_new, steps = spec["new"], spec["steps"]
+    max_len = spec["prompt"] + max(n_new, steps)
+    params = model.init_params(cfg, seed=seed, device=dev)
+    engine = ServeEngine(cfg, params, ServeConfig(
+        max_len=max_len, max_new_tokens=n_new, cache_dtype=cfg.dtype),
+        device=dev, mesh=mesh)
+    inf = make_ctx(mesh, inference=True)
+    placed = shard_params(params, inf)
+    want = bytes_per_device(params, mesh)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
+    # a first small collective on each of the new mesh's groups (the
+    # kernels and the host's buffers are warm from the models before)
+    for axis in ("data", "model", tp.MESH):
+        tp.ordered_sum(torch.zeros(8, device=dev), engine.ctx, axis)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    n_steps = len(engine.telemetry.steps)
+    cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
+                  key=_flash_key)
+    logits, served = [], {}              # generate's logits, caches
+    routing, drops, branches = _Routing(), [], {}
+
+    def keep(fn):
+        def wrapped(*a, **kw):
+            res = fn(*a, **kw)
+            logits.append(res[0])
+            if len(res) == 3:
+                served.update(caches=res[1], index=res[2])
+            return res
+        return wrapped
+    engine_mod.prefill = keep(model.prefill)
+    engine_mod.decode_step = keep(model.decode_step)
+    try:
+        dist.barrier()
+        if counters is not None:
+            _zero(counters)
+        group.collective_times(reset=True)
+        with routing.record(), _moe_dropped(drops), _branches(branches):
+            tokens = engine.generate(host)
+        sync()
+        launches = {k: counters[k].launches if counters else 0
+                    for k in ("flash_attention", "ssd_fused")}
+        tc = {k: getattr(counters[k], "wgmma_launches", 0) if counters
+              else 0 for k in ("flash_attention", "ssd_fused")}
+        coll = _by_kind(group.collective_times(reset=True))
+    finally:
+        engine_mod.prefill = model.prefill
+        engine_mod.decode_step = model.decode_step
+        cap.close()
+    steps_rec = engine.telemetry.steps[n_steps:]
+    pre_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps_rec
+              if e.kind == KIND_PREFILL]
+    dec_ms = [(e.end_ns - e.start_ns) / 1e6 for e in steps_rec
+              if e.kind == KIND_DECODE]
+    # the rank's rows of the served tokens; one more replicated step
+    rows, ctx = shard_batch({"t": torch.as_tensor(tokens, device=dev)},
+                            engine.ctx)
+    rows, caches, index = rows["t"], served["caches"], served["index"]
+    replicated = list(logits[1:])
+    with torch.inference_mode(), routing.record():
+        for i in range(len(replicated), steps):
+            lg, caches = model.decode_step(cfg, engine.params,
+                                           rows[:, i:i + 1], caches,
+                                           index + i, ctx)
+            replicated.append(lg)
+    # every rank's expert choices (the replay below and rank 0's P = 1)
+    every = group.gather([c.cpu() for c in routing.chosen], "dp_choices")
+    d = dist.get_world_size() // t
+    stat_routing, sta_branches, sta_logits, sta_ms = _Routing(), {}, [], []
+    stat_routing.chosen = [
+        torch.cat([every[j * t][n_moe * (1 + i) + l]
+                   for j in range(d)]).to(dev)
+        for i in range(steps) for l in range(n_moe)]
+    sta = dataclasses.replace(ctx, inference=True)
+    group.collective_times(reset=True)
+    with torch.inference_mode(), stat_routing.replay(), \
+            _branches(sta_branches):
+        for i in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            lg, caches = model.decode_step(cfg, placed, rows[:, i:i + 1],
+                                           caches, index + i, sta)
+            sync()
+            sta_ms.append((time.perf_counter() - t0) * 1e3)
+            sta_logits.append(lg)
+    sta_coll = _by_kind(group.collective_times(reset=True))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    rec = {
+        "launches": launches, "tensor_core": tc,
+        "errs": _captured_errs(cap.calls, f"{DP_TAG} rank {rank}")
+        if cuda else {},
+        "bytes": [nbytes(engine.params), want],
+        "bytes_inference": [nbytes(placed), want],
+        "prefill_ms": pre_ms, "decode_ms": dec_ms, "stationary_ms": sta_ms,
+        "peak_gib": peak, "collectives": coll,
+        "stationary_collectives": sta_coll, "tokens": tokens.tolist(),
+        "branches": branches, "stationary_branches": sta_branches,
+        "dropped": _mean(drops[:n_moe]),
+        "digest": _digest(*logits), "rows": int(rows.shape[0]),
+        "finite": all(bool(torch.isfinite(x).all())
+                      for x in logits + sta_logits),
+        "stationary_gaps": [_logit_gap(a.float(), b.float())
+                            for a, b in zip(sta_logits, replicated)],
+        "stationary_flips": stat_routing.flips,
+        "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
+                   for k, c in cap.calls.items()}}
+    # every rank's logits to rank 0, the requests stacked in data order
+    all_logits = group.gather([x.cpu() for x in logits], "dp_logits")
+    calls = cap.calls
+    del engine, placed, caches, served, logits, replicated, sta_logits
+    del routing, stat_routing, cap
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if rank == 0:
+        whole = [torch.cat([all_logits[j * t][i] for j in range(d)]).to(dev)
+                 for i in range(len(all_logits[0]))]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        rec.update(_tp_yardstick(cfg, seed, dev, batch, tokens, whole,
+                                 every, max_len, data=d))
+    return rec, calls
 
 
 def tp_rank(args) -> int:
@@ -4168,6 +4407,15 @@ def tp_rank(args) -> int:
         del tp_logits, cap, every
         gc.collect()
         torch.cuda.empty_cache()
+    cfg = get_config(DP_SPEC["arch"])
+    host = _serve_batch(cfg, args.seed, DP_SPEC["batch"], DP_SPEC["prompt"])
+    rec[DP_TAG], calls = dp_serve(cfg, args.seed, dev, host, DP_SPEC,
+                                  counters)
+    if rank == 0:
+        torch.save({k: ([a.cpu() if hasattr(a, "cpu") else a
+                         for a in c[0]], c[1]) for k, c in calls.items()},
+                   os.path.join(root, f"{DP_TAG}_calls.pt"))
+    del calls
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
@@ -4275,9 +4523,111 @@ def phase_tp(args, work, dev, card):
         c_args, c_kw = saved[key]
         calls[f"{name}/{tag}"] = ([a.to(dev) if hasattr(a, "to") else a
                                    for a in c_args], c_kw)
+    name = f"flash_attention/{DP_TAG}"
+    launches[name], err = _check_dp(recs, card)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    saved = torch.load(os.path.join(root, f"{DP_TAG}_calls.pt"))
+    c_args, c_kw = saved[next(k for k in saved
+                              if k.startswith("flash_attention"))]
+    calls[name] = ([a.to(dev) if hasattr(a, "to") else a for a in c_args],
+                   c_kw)
     log(f"tp: {TP_RANKS} ranks on cuda:0 over gloo, {seconds:.3f}s "
         f"[{card}]")
     return launches, errs, calls
+
+
+def _check_dp(recs, card):
+    """The gates of the tp phase's dp-granite step (see the docstring's
+    tp entry) on every rank's record; returns the flash_attention
+    launches a rank and the largest |kernel - plain| of its calls."""
+    spec, t = DP_SPEC, DP_SPEC["model"]
+    cfg_layers = spec["launches"]
+    n_dec = spec["new"] - 1
+    for rec in recs:
+        r, x = rec["rank"], rec[DP_TAG]
+
+        def kinds(coll):
+            return {k: f"{n} calls {sec:.3f}s"
+                    for k, (n, sec) in sorted(coll.items())}
+        log(f"{DP_TAG} rank {r} (data {r // t}, model {r % t}; "
+            f"{x['rows']} request(s)): prefill {x['prefill_ms'][0]:.3f} "
+            f"ms, decode median {sorted(x['decode_ms'])[n_dec // 2]:.3f} "
+            f"ms/token replicated ({len(x['decode_ms'])} steps), "
+            f"{sorted(x['stationary_ms'])[spec['steps'] // 2]:.3f} ms/token"
+            f" stationary ({len(x['stationary_ms'])} steps, "
+            f"{[round(v, 3) for v in x['stationary_ms']]}), peak "
+            f"{x['peak_gib']:.3f} GiB; launches {x['launches']} (tensor "
+            f"core {x['tensor_core']}); branches {x['branches']} in the "
+            f"generate, {x['stationary_branches']} in the stationary "
+            f"steps; parameter bytes {x['bytes'][0]} and "
+            f"{x['bytes_inference'][0]} in the inference layout "
+            f"(bytes_per_device {x['bytes'][1]}); kernel calls "
+            f"{x['shapes']}; |kernel - plain| {x['errs']} [{card}]")
+        log(f"{DP_TAG} rank {r}: collectives in the generate "
+            f"{kinds(x['collectives'])}; in the stationary steps "
+            f"{kinds(x['stationary_collectives'])} [{card}]")
+        gaps = x["stationary_gaps"]
+        log(f"{DP_TAG} rank {r}: stationary == replicated decode (the "
+            f"replicated steps' expert choices; tokens whose own top-k "
+            f"differs {sum(x['stationary_flips'])}): logits max "
+            f"{max(g[0] for g in gaps):.6f}, mean "
+            f"{max(g[1] for g in gaps):.6f} (gates {LOGIT_MAX_TOL} / "
+            f"{LOGIT_MEAN_TOL}) [{card}]")
+        want = {"flash_attention": cfg_layers, "ssd_fused": 0}
+        if x["launches"] != want or x["tensor_core"] != want:
+            raise AssertionError(f"{DP_TAG} rank {r}: launches "
+                                 f"{x['launches']} (tensor core "
+                                 f"{x['tensor_core']}), expected {want}")
+        if x["branches"] != {"ep": cfg_layers,
+                             "replicated": cfg_layers * n_dec}:
+            raise AssertionError(f"{DP_TAG} rank {r}: the generate took "
+                                 f"{x['branches']}")
+        if x["stationary_branches"] != {
+                "stationary": cfg_layers * spec["steps"]}:
+            raise AssertionError(f"{DP_TAG} rank {r}: the inference steps"
+                                 f" took {x['stationary_branches']}")
+        for key in ("bytes", "bytes_inference"):
+            if x[key][0] != x[key][1]:
+                raise AssertionError(f"{DP_TAG} rank {r} holds {x[key][0]}"
+                                     f" parameter bytes ({key}), "
+                                     f"bytes_per_device says {x[key][1]}")
+        if x["rows"] != spec["batch"] // (TP_RANKS // t):
+            raise AssertionError(f"{DP_TAG} rank {r} served {x['rows']} "
+                                 "requests")
+        if not x["finite"]:
+            raise AssertionError(f"{DP_TAG} rank {r}: non-finite logits")
+        lead = recs[r - r % t][DP_TAG]
+        if x["digest"] != lead["digest"] or \
+                x["tokens"] != recs[0][DP_TAG]["tokens"] or \
+                x["dropped"] != recs[0][DP_TAG]["dropped"]:
+            raise AssertionError(f"{DP_TAG}: rank {r}'s logits differ from "
+                                 "its data row's, or its tokens or dropped"
+                                 " share from rank 0's")
+        if any(m > LOGIT_MAX_TOL or a > LOGIT_MEAN_TOL for m, a in gaps):
+            raise AssertionError(f"{DP_TAG} rank {r}: stationary and "
+                                 "replicated decode logits disagree")
+    x = recs[0][DP_TAG]
+    gaps = x["gaps"]
+    rows = x["argmax_rows"]
+    agree = sum(a == b for tr, pr in zip(x["tokens"], rows)
+                for a, b in zip(tr, pr))
+    log(f"{DP_TAG}: (2, 2) mesh == P = 1 ({spec['batch']} requests): "
+        f"prefill logits |DP - P1| max {gaps[0][0]:.6f}, mean "
+        f"{gaps[0][1]:.6f}; decode (P = 1 teacher-forced on the served "
+        f"tokens) max {max(g[0] for g in gaps[1:]):.6f}, mean "
+        f"{max(g[1] for g in gaps[1:]):.6f} (gates {LOGIT_MAX_TOL} / "
+        f"{LOGIT_MEAN_TOL}); P = 1's argmax is the served token at "
+        f"{agree}/{spec['batch'] * spec['new']}; prefill dropped share "
+        f"{x['dropped']:.6f}, P = 1 {x['dropped_p1']:.6f}, free-running "
+        f"{x['dropped_free']:.6f}; free-running prefill gap max "
+        f"{x['free_gap'][0]:.6f}, mean {x['free_gap'][1]:.6f}; tokens whose"
+        f" own top-k at P = 1 differs, prefill by layer "
+        f"{x['flips_prefill']}, decode {x['flips_decode']} [{card}]")
+    if any(m > LOGIT_MAX_TOL or a > LOGIT_MEAN_TOL for m, a in gaps):
+        raise AssertionError(f"{DP_TAG}: the (2, 2) mesh and P = 1 logits "
+                             "disagree")
+    return x["launches"]["flash_attention"], max(
+        rec[DP_TAG]["errs"].get("flash_attention", 0.0) for rec in recs)
 
 
 def _time_ms(fn, iters=20, warmup=3):

@@ -51,7 +51,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.production_mesh:
         raise NotImplementedError(
             "--production-mesh: sharded training is not ported yet "
-            "(ROADMAP Queue 1 item 2b)")
+            "(ROADMAP Queue 1 item 2c)")
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(

@@ -154,11 +154,13 @@ def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
     return q, k, v
 
 
-def _out(params, o: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D) (a rank's partial under
-    tensor parallelism)."""
-    wo = params["wo"]
-    return o.flatten(2) @ wo.to(o.dtype).flatten(0, 1)
+def _out(params, o: torch.Tensor, ctx: Optional[ParallelCtx] = None,
+         split: bool = True) -> torch.Tensor:
+    """(B, S, H, hd) @ (H, hd, D) -> (B, S, D); where ``params`` hold a
+    rank's heads (``split``), the ranks' partials summed
+    (``tp.sum_matmul``)."""
+    return tp.sum_matmul(o.flatten(2), params["wo"].flatten(0, 1), ctx,
+                         split)
 
 
 # --- prefill / decode --------------------------------------------------------
@@ -180,7 +182,7 @@ def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions, ctx)
     out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
-    return tp.ordered_sum(_out(params, out), ctx), (
+    return _out(params, out, ctx), (
         {"k": k, "v": v} if cache else None)
 
 
@@ -230,7 +232,7 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).to(vt),
                      cache["v"].to(vt))
     o = o.reshape(b, 1, h, hd).to(x.dtype)
-    return tp.ordered_sum(_out(params, o), ctx), cache
+    return _out(params, o, ctx), cache
 
 
 def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -274,9 +276,7 @@ def _mla_out(params, o: torch.Tensor, cfg: AttnConfig,
     """``wo`` on the heads ``params`` hold, the ranks' partials summed
     where the rules split the heads (where T does not divide them, every
     rank runs them all and no sum is needed)."""
-    out = _out(params, o)
-    return tp.ordered_sum(out, ctx) if params["wo"].shape[0] < cfg.n_heads \
-        else out
+    return _out(params, o, ctx, params["wo"].shape[0] < cfg.n_heads)
 
 
 def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,

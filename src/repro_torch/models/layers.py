@@ -157,13 +157,17 @@ def ffn_init(d_model: int, d_ff: int, gated: bool, *,
     return p
 
 
-def ffn_apply(params, x: torch.Tensor,
-              activation: str = "silu") -> torch.Tensor:
+def ffn_hidden(params, x: torch.Tensor,
+               activation: str = "silu") -> torch.Tensor:
+    """The FFN's activated hidden units, before ``w_down``."""
     act = ACTIVATIONS[activation]
     dt = x.dtype
     up = x @ params["w_up"].to(dt)
     if "w_gate" in params:
-        h = act(x @ params["w_gate"].to(dt)) * up
-    else:
-        h = act(up)
-    return h @ params["w_down"].to(dt)
+        return act(x @ params["w_gate"].to(dt)) * up
+    return act(up)
+
+
+def ffn_apply(params, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    return ffn_hidden(params, x, activation) @ params["w_down"].to(x.dtype)

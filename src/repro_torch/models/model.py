@@ -18,12 +18,16 @@ keeps float32 master weights and differentiates their ``cast_params``
 copy (``repro_torch.train.step``). The dense projections and the head
 are ``torch.matmul``, as the reference leaves them to XLA.
 
-Serving entry points take a tensor-parallel context ``ctx``
-(:mod:`.shardrules`, None: one rank) with the rank's parameters
-(``shard_params``): the embedding and the head are vocab-parallel where
-the rules split the vocabulary (the logits gathered along V, so every
-rank holds the same (B, V)), the layers run :mod:`.tp`'s blocks, and the
-caches hold the rank's KV heads, SSM heads and ``conv_x`` channels.
+Serving entry points take a mesh context ``ctx`` (:mod:`.shardrules`,
+None: one rank) with the rank's parameters (``shard_params``) and its
+rows of the batch (``shard_batch``): the leaves outside the layers
+(embedding, head, frontend, meta tokens) are gathered over ``data``
+once a call by ``prefill`` and ``decode_step`` (``_gathered``) and each
+layer's at its use (``transformer.layer_forward``), the embedding
+and the head are vocab-parallel where the rules split the vocabulary
+(the logits gathered along V, so every rank of a data row holds the
+same (B, V)), the layers run :mod:`.tp`'s blocks, and the caches hold
+the rank's rows and its KV heads, SSM heads and ``conv_x`` channels.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ from .frontends import assemble, embed_tokens
 from .layers import (dense_init, embed_init, layernorm, layernorm_init,
                      rmsnorm, rmsnorm_init)
 from .shardrules import ParallelCtx
-from .transformer import (LayerSpec, layer_init_cache, segment_forward,
-                          segment_init)
+from .transformer import (LayerSpec, check_mode, layer_init_cache,
+                          segment_forward, segment_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,12 +139,26 @@ def _final_norm(cfg: ModelConfig, params, x):
     return rmsnorm(params["final_norm"], x)
 
 
+def _gathered(cfg: ModelConfig, params, ctx: Optional[ParallelCtx]):
+    """``params`` with the leaves outside the layers gathered over
+    ``data`` (``tp.gather_fsdp``; the same tree where none is cut)."""
+    if ctx is None or ctx.data_size == 1:
+        return params
+    out = tp.gather_fsdp({k: v for k, v in params.items()
+                          if k != "segments"}, ctx, cfg.d_model)
+    out["segments"] = params["segments"]
+    return out
+
+
 def forward_hidden(cfg: ModelConfig, params, batch: Dict,
                    mode: str = "train", caches: Optional[List] = None,
                    ctx: Optional[ParallelCtx] = None,
                    ) -> Tuple[torch.Tensor, Optional[List], Dict, int]:
     """Trunk forward. Returns (h, new_caches, metrics, prefix_len); the
-    metrics of the segments add up, as in the reference."""
+    metrics of the segments add up, as in the reference. Under a context
+    with a data axis the leaves outside the layers come gathered, as
+    :func:`prefill` hands them on; each layer gathers its own."""
+    check_mode(mode, ctx)
     x, positions, prefix = assemble(cfg, params, batch, ctx)
     new_caches: List[Any] = []
     metrics: Dict[str, torch.Tensor] = {}
@@ -308,6 +326,7 @@ def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
     generated positions); the attention caches take ``cache_dtype``, the
     SSM caches keep the reference's types (conv tails in the model dtype,
     states in float32)."""
+    params = _gathered(cfg, params, ctx)
     h, pre, _, _ = forward_hidden(cfg, params, batch, "prefill", ctx=ctx)
     caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype)
                for c in seg] for (spec, _), seg in zip(cfg.plan, pre)]
@@ -320,7 +339,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int at absolute position ``index`` (meta tokens
     counted). Returns ((B, V) logits, caches); the caches are updated in
-    place."""
+    place. Under a context, ``token`` holds the rank's rows."""
+    params = _gathered(cfg, params, ctx)
     h = embed_tokens(params, token, cfg.dtype, ctx, cfg.vocab)
     for i, (spec, _) in enumerate(cfg.plan):
         h, caches[i], _ = segment_forward(params["segments"][i], h, spec,

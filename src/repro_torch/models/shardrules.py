@@ -19,14 +19,15 @@ The port's segments are lists of per-layer dicts, so a path reads
 path's suffix and the shape's trailing dims, so each dim of a layer's
 leaf gets the reference's spec.
 
-The port runs the layout of a ``(1, T)`` mesh: T ranks on the tensor
-axis, the data axis of one rank (:func:`make_ctx` raises for more, which
-waits for sharded training, ROADMAP Queue 1 item 2b). Each rank holds
-exactly its slices (:func:`shard_params`; the MoE's expert tables by
-expert, see there), and the model's layers carry
-the layout out with explicit collectives (:mod:`.tp`): where the
-reference leaves the collectives to GSPMD's partitioner, every sum here
-is an ordered gather-and-add.
+The port serves on a ``(D, T)`` mesh: D ranks on the data axis, T on
+the tensor axis. Each rank holds exactly its slices (:func:`shard_params`:
+the ``fsdp`` dims cut over ``data``, the ``tensor`` dims over ``model``;
+the MoE's expert tables by expert, see there) and its rows of the batch
+(:func:`batch_specs`), and the model's layers carry the layout out with
+explicit collectives (:mod:`.tp`): each layer's ``fsdp`` leaves are
+gathered over ``data`` at use, and where the reference leaves the
+collectives to GSPMD's partitioner, every sum here is an ordered
+gather-and-add. Training on such a mesh waits (ROADMAP Queue 1 item 2c).
 """
 
 from __future__ import annotations
@@ -85,6 +86,21 @@ PARAM_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
     (r"(scale|bias|gain.*)$", (None,)),
 )
 
+# The weights-stationary decode layout of the expert tables (the
+# reference's §Perf H8): E over "model" and the FFN hidden dim F over the
+# batch axes, so decode runs each rank's E/T experts on its F/D slice and
+# only token-sized partials are summed. First in the rule list under
+# ``inference``, so the dense FFN's rules no longer shadow them.
+_INFERENCE_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
+    (r"experts/w_(up|gate)$", ("expert", None, "fsdp")),   # (E, D, F)
+    (r"experts/w_down$", ("expert", "fsdp", None)),        # (E, F, D)
+)
+
+# the expert tables' own rules of PARAM_RULES, which the dense FFN's
+# rules shadow in spec_for: the layout shard_params holds them in
+_EXPERT_RULES = tuple(r for r in PARAM_RULES if r[0].startswith("experts/"))
+
+
 def _mesh_axes_for(logical: Optional[str], mesh: Mesh) -> Tuple[str, ...]:
     if logical is None:
         return ()
@@ -104,26 +120,52 @@ def _fit_axes(dim: int, axes: Tuple[str, ...], mesh: Mesh,
     return None
 
 
-def spec_for(path: str, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+def _rules(inference: bool):
+    return (tuple(_INFERENCE_RULES) + tuple(PARAM_RULES)) if inference \
+        else PARAM_RULES
+
+
+def _logicals(rules, path: str, nd: int
+              ) -> Optional[Tuple[Optional[str], ...]]:
+    """The logical axes of a leaf's ``nd`` dims under the first rule that
+    matches ``path`` and has no more dims than the leaf (stacked leading
+    dims None); None where no rule matches."""
+    for pat, logicals in rules:
+        if re.search(pat, path) and nd >= len(logicals):
+            return (None,) * (nd - len(logicals)) + tuple(logicals)
+    return None
+
+
+def _spec(rules, path: str, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+    logicals = _logicals(rules, path, len(shape))
+    if logicals is None:
+        return ()
+    spec = []
+    for dim, logical in zip(shape, logicals):
+        axes = _mesh_axes_for(logical, mesh)
+        spec.append(_fit_axes(dim, axes, mesh) if axes else None)
+    return tuple(spec)
+
+
+def spec_for(path: str, shape: Tuple[int, ...], mesh: Mesh,
+             inference: bool = False) -> Spec:
     """The spec of one parameter: one entry per dim. Unmatched paths stay
     whole (``()``, as the reference's ``P()``). First match wins, so the
     dense FFN's ``w_(up|gate)$`` / ``w_down$`` shadow the expert tables'
     own rules here as in the reference: ``experts/w_up`` gets its F dim
-    cut. :func:`shard_params` holds the tables by expert all the same.
-    The reference's ``inference`` rules (the weights-stationary decode
-    layout) come with the data axis (ROADMAP Queue 1 item 2b)."""
-    for pat, logicals in PARAM_RULES:
-        if re.search(pat, path):
-            nd, nl = len(shape), len(logicals)
-            if nd < nl:       # scalar-ish param matched a wider rule
-                continue
-            lead = (None,) * (nd - nl)
-            spec = []
-            for dim, logical in zip(shape[nd - nl:], logicals):
-                axes = _mesh_axes_for(logical, mesh)
-                spec.append(_fit_axes(dim, axes, mesh) if axes else None)
-            return lead + tuple(spec)
-    return ()
+    cut (:func:`shard_params` holds the tables by expert all the same).
+    ``inference`` puts the reference's ``_INFERENCE_RULES`` first: the
+    weights-stationary decode layout of the expert tables."""
+    return _spec(_rules(inference), path, shape, mesh)
+
+
+def fsdp_dims(path: str, nd: int, inference: bool = False
+              ) -> Tuple[int, ...]:
+    """The dims of an ``nd``-dim leaf at ``path`` whose logical axis is
+    ``fsdp`` under the rule :func:`spec_for` matches: d_model's dim in
+    every rule but the stationary expert tables' F."""
+    logicals = _logicals(_rules(inference), path, nd) or ()
+    return tuple(i for i, lg in enumerate(logicals) if lg == "fsdp")
 
 
 def _items(tree, prefix: str = ""):
@@ -148,11 +190,11 @@ def _map(fn, tree, prefix: str = ""):
     return fn(prefix[:-1], tree)
 
 
-def tree_specs(params, mesh: Mesh):
+def tree_specs(params, mesh: Mesh, inference: bool = False):
     """The spec of every leaf, in ``params``' structure (any leaf with a
     ``shape``: tensors, meta tensors)."""
-    return _map(lambda path, x: spec_for(path, tuple(x.shape), mesh),
-                params)
+    return _map(lambda path, x: spec_for(path, tuple(x.shape), mesh,
+                                         inference), params)
 
 
 def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -162,6 +204,21 @@ def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
 
 def tensor_axis(mesh: Mesh) -> Optional[str]:
     return "model" if "model" in mesh.axis_names else None
+
+
+def batch_specs(batch, mesh: Mesh):
+    """The spec of every input of a serving batch, after the reference's
+    ``train/step.py::batch_specs``: the leading (request) dim over the
+    batch axes, or the whole batch where its size does not divide over
+    them (a batch of one request on a data axis of two)."""
+    axes = batch_axes(mesh)
+    size = math.prod(mesh.shape[a] for a in axes)
+
+    def spec(_, x):
+        if x.dim() == 0 or not axes or x.shape[0] % size:
+            return ()
+        return (axes,) + (None,) * (x.dim() - 1)
+    return _map(spec, batch)
 
 
 def _shards(entry, mesh: Mesh) -> int:
@@ -192,7 +249,13 @@ class ParallelCtx:
     """Runtime parallelism context threaded through the model code: the
     mesh, the axes of the batch and of tensor parallelism, this rank's
     index along the tensor axis (``tensor_rank``), the axis's size
-    (``tensor_size``, T) and its process group.
+    (``tensor_size``, T) and its process group (``group``); the same of
+    the data axis (``data_rank``, ``data_size`` D, ``data_group``);
+    ``inference``, the reference's switch to the weights-stationary
+    decode layout of the expert tables (:func:`shard_params`,
+    ``moe._moe_stationary``); and ``batch_whole``: every data rank holds
+    the whole batch, whose requests do not divide over the data ranks
+    (:func:`shard_batch` sets it; by default each holds its rows).
 
     None (one rank) disables every collective; the model computes the
     same function either way. The reference's ``explicit_tp`` switch has
@@ -204,36 +267,56 @@ class ParallelCtx:
     tensor_rank: int = 0
     tensor_size: int = 1
     group: Any = None
+    data_rank: int = 0
+    data_size: int = 1
+    data_group: Any = None
+    inference: bool = False
+    batch_whole: bool = False
 
     @property
     def batch_size(self) -> int:
         return math.prod(self.mesh.shape[a] for a in self.batch)
 
 
-def make_ctx(mesh: Optional[Mesh]) -> Optional[ParallelCtx]:
-    """The context of ``mesh`` for this rank; None without a mesh. A
-    mesh whose batch axes hold more than one rank raises: data
-    parallelism and FSDP come with sharded training (ROADMAP Queue 1
-    item 2b)."""
+def make_ctx(mesh: Optional[Mesh], inference: bool = False
+             ) -> Optional[ParallelCtx]:
+    """The context of ``mesh`` for this rank; None without a mesh. The
+    mesh must be this process group's (``make_host_mesh``): a mesh that
+    is only a description raises, as does one whose batch axes cut over
+    more than one axis ("pod" and "data" both above one rank)."""
     if mesh is None:
         return None
-    batch, tensor = batch_axes(mesh), tensor_axis(mesh)
-    ctx = ParallelCtx(mesh=mesh, batch=batch, tensor=tensor)
-    if ctx.batch_size > 1:
+    if mesh.coords is None:
         raise NotImplementedError(
-            f"mesh {mesh.shape}: the port runs tensor parallelism on a "
-            "data axis of one rank; data parallelism and FSDP come with "
-            "sharded training (ROADMAP Queue 1 item 2b)")
-    if tensor is None:
-        return ctx
-    return dataclasses.replace(ctx, tensor_rank=mesh.coord(tensor),
-                               tensor_size=mesh.shape[tensor],
-                               group=mesh.group(tensor))
+            f"mesh {mesh.shape} is a description: a context runs on its "
+            f"{mesh.size} ranks. Lowering a step on a description is the "
+            "dry-run's, which waits for sharded training (ROADMAP Queue 1 "
+            "item 2c, then item 3)")
+    batch, tensor = batch_axes(mesh), tensor_axis(mesh)
+    cut = [a for a in batch if mesh.shape[a] > 1]
+    if len(cut) > 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: the port cuts the batch over one axis")
+    fields: Dict[str, Any] = {"inference": inference}
+    if tensor is not None:
+        fields.update(tensor_rank=mesh.coord(tensor),
+                      tensor_size=mesh.shape[tensor],
+                      group=mesh.group(tensor))
+    if cut:
+        fields.update(data_rank=mesh.coord(cut[0]),
+                      data_size=mesh.shape[cut[0]],
+                      data_group=mesh.group(cut[0]))
+    return ParallelCtx(mesh=mesh, batch=batch, tensor=tensor, **fields)
 
 
 def tp_size(ctx: Optional[ParallelCtx]) -> int:
     """T: the ranks of the tensor axis (1 without a context)."""
     return ctx.tensor_size if ctx is not None else 1
+
+
+def dp_size(ctx: Optional[ParallelCtx]) -> int:
+    """D: the ranks of the data axis (1 without a context)."""
+    return ctx.data_size if ctx is not None else 1
 
 
 def cache_specs(caches, mesh: Mesh):
@@ -290,34 +373,54 @@ def _block(x: torch.Tensor, spec: Spec, ctx: ParallelCtx) -> torch.Tensor:
 EXPERT_TABLE = r"experts/w_(up|gate|down)$"
 
 
-def expert_spec(shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+def expert_spec(path: str, shape: Tuple[int, ...], mesh: Mesh,
+                inference: bool = False) -> Spec:
     """The layout :func:`shard_params` gives an MoE expert table (E, D,
-    F) or (E, F, D): experts ``[r E/T, (r+1) E/T)`` on tensor rank r,
-    the whole table where T does not divide E (the reference's
-    ``inference`` rules at data = 1)."""
-    return (_fit_axes(shape[0], _mesh_axes_for("expert", mesh), mesh),
-            None, None)
+    F) or (E, F, D): experts ``[r E/T, (r+1) E/T)`` on tensor rank r
+    (all of them where T does not divide E), and the ``fsdp`` dim over
+    the batch axes as the reference's own expert rules cut it: D, or
+    under ``inference`` the hidden dim F (``_INFERENCE_RULES``, which
+    :func:`spec_for` then gives too)."""
+    return _spec(_INFERENCE_RULES if inference else _EXPERT_RULES, path,
+                 shape, mesh)
 
 
 def shard_params(params, ctx: Optional[ParallelCtx]):
-    """This rank's parameters: the block :func:`spec_for` gives it of
-    every sharded leaf, as a tensor of its own (the full tree can be
-    freed), and every replicated leaf whole. The counterpart of
-    ``device_put(params, tree_shardings(params, mesh))``; without a
-    context, ``params`` as they are.
+    """This rank's parameters: the block :func:`spec_for` (under
+    ``ctx.inference``) gives it of every sharded leaf, as a tensor of its
+    own (the full tree can be freed), and every replicated leaf whole:
+    the ``tensor`` dims cut over ``model``, the ``fsdp`` dims over
+    ``data`` in data order. The counterpart of ``device_put(params,
+    tree_shardings(params, mesh))``; without a context, ``params`` as
+    they are.
 
     One departure of layout, not of math: the MoE's expert tables are
     held by expert (:func:`expert_spec`), the layout the reference's
-    ``ep`` and ``replicated`` bodies take in (its GSPMD reshards the
-    F-cut tables :func:`spec_for` gives into it at every call). Where E
-    and F both divide by T a rank holds the same bytes either way, so
-    ``bytes_per_device`` still counts them."""
+    ``ep``, ``replicated`` and stationary bodies take in (its GSPMD
+    reshards the F-cut tables :func:`spec_for` gives into it at every
+    call). Where E, D and F divide a rank holds the same bytes either
+    way, so ``bytes_per_device`` still counts them."""
     if ctx is None:
         return params
 
     def block(path, x):
-        spec = (expert_spec(tuple(x.shape), ctx.mesh)
+        shape = tuple(x.shape)
+        spec = (expert_spec(path, shape, ctx.mesh, ctx.inference)
                 if re.search(EXPERT_TABLE, path)
-                else spec_for(path, tuple(x.shape), ctx.mesh))
+                else spec_for(path, shape, ctx.mesh, ctx.inference))
         return _block(x, spec, ctx)
     return _map(block, params)
+
+
+def shard_batch(batch, ctx: Optional[ParallelCtx]):
+    """(this rank's rows of every input of ``batch``, a dict of tensors
+    with the requests on the leading dim; the context to run them under).
+    The rows are laid out as :func:`batch_specs` says: the data rank's
+    block of the requests, or all of them where their number does not
+    divide, and then the context says so (``batch_whole``)."""
+    if ctx is None or ctx.data_size == 1:
+        return batch, ctx
+    specs = batch_specs(batch, ctx.mesh)
+    rows = {k: _block(v, specs[k], ctx) for k, v in batch.items()}
+    whole = any(not specs[k] for k in batch)
+    return rows, dataclasses.replace(ctx, batch_whole=whole)

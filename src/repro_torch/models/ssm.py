@@ -184,7 +184,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
                          chunk=cfg.chunk)
     y = _gated_norm(params["ssm_norm"]["scale"], y.reshape(bsz, s, -1), z,
                     ctx=ctx)
-    out = tp.ordered_sum(y @ params["out_proj"], ctx)
+    out = tp.sum_matmul(y, params["out_proj"], ctx)
     if not cache:
         return out, None
 
@@ -232,7 +232,7 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
     y = (state * Ch[:, :, None, :]).sum(-1) + params["D"][None, :, None] * x1
     y = y.reshape(bsz, 1, H * Pd).to(x.dtype)
     y = _gated_norm(params["ssm_norm"]["scale"], y, z, ctx=ctx)
-    return tp.ordered_sum(y @ params["out_proj"], ctx), cache
+    return tp.sum_matmul(y, params["out_proj"], ctx), cache
 
 
 def ssm_init_cache(cfg: SSMConfig, batch: int, dtype: torch.dtype,

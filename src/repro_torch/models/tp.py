@@ -1,4 +1,4 @@
-"""The collectives of tensor parallelism, after ``repro/models/tp.py``.
+"""The collectives of the serving mesh, after ``repro/models/tp.py``.
 
 The reference's mesh path is GSPMD: its partitioner inserts the
 collectives that the sharding rules' layout implies, and the explicit
@@ -11,17 +11,32 @@ and at T: it computes on the parameters it holds and adds its partial
 output with one of these collectives over the tensor axis's group:
 
   * :func:`ordered_sum` — the sum of the ranks' partials: one
-    ``all_gather`` in the activation dtype (the reference's bf16 psum
-    wire), then every rank adds the T blocks in ascending rank order in
-    float32 and casts once, so every rank holds the same bits whatever
-    order the backend's ring would have used;
+    ``all_gather`` in the partials' dtype, then every rank adds the T
+    blocks in ascending rank order in float32 and casts once, so every
+    rank holds the same bits whatever order the backend's ring would
+    have used. The layers hand it float32 partials (:func:`sum_matmul`,
+    the MoE's combine; on the card the 16-bit product with a float32
+    result, :func:`matmul_f32`), so a sum rounds to the activation dtype
+    once where the reference's bf16 psum rounds each partial first;
   * :func:`gather_cat` — a gather that only concatenates (vocab logits,
     conv channels), exact;
   * :func:`all_to_all` — the MoE's expert-parallel exchange: block j of
     a tensor's leading dim to rank j, the blocks received stacked in
     rank order (16-bit floats on the same ``uint8`` wire, exact);
-  * :func:`ordered_mean` — the mean of float32 values over the ranks,
-    added in rank order and divided by T (the reference's ``pmean``).
+  * :func:`ordered_mean` — the mean of float32 values over the mesh,
+    added in rank order and divided by their number (the reference's
+    ``pmean``).
+
+The sums run over a named axis (``"model"`` by default, ``"data"``) or
+over the whole mesh (``MESH``: one gather over every rank, added in
+row-major rank order, where the reference does one psum an axis), the
+means over the whole mesh. On the data axis the reference's GSPMD
+gathers each FSDP parameter at use; here :func:`gather_fsdp` gathers
+one layer's leaves along their ``fsdp`` dims (data order, exact) before
+its tensor-parallel code runs, and the MoE gathers its expert tables as
+its branch needs (:mod:`.moe`). :func:`rows_gather` / :func:`rows_take`
+gather the data ranks' rows of a batch in order and take this rank's
+back.
 
 The FFN is column x row parallel with one sum after ``w_down``;
 attention (MLA too) runs rank r's query heads ``[r H/T, (r+1) H/T)``
@@ -34,17 +49,22 @@ them quietly.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import re
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..core.group import _timed
-from .shardrules import ParallelCtx, tp_size
+from .shardrules import (EXPERT_TABLE, ParallelCtx, _map, dp_size,
+                         fsdp_dims, tp_size)
 
 # the queue items that name what waits (ROADMAP.md, Queue 1)
-SHARDED_TRAINING = "ROADMAP Queue 1 item 2b"
+SHARDED_TRAINING = "ROADMAP Queue 1 item 2c"
 LENGTH_SHARDED = "ROADMAP Queue 1 item 8"
+
+MESH = "mesh"                 # the axis argument for the whole mesh
+_PREFIX = {"model": "tp", "data": "dp", MESH: "mesh"}
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -56,45 +76,158 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.element_size() == 2 else x
 
 
-def _gather(x: torch.Tensor, ctx: ParallelCtx, name: str
-            ) -> List[torch.Tensor]:
-    """The T ranks' ``x`` in rank order (one list-form ``all_gather``)."""
+def _axis(ctx: Optional[ParallelCtx], axis: str) -> Tuple[int, Any]:
+    """(ranks, process group) of ``axis`` ("model", "data" or ``MESH``);
+    (1, None) without a context. The whole mesh is the default group's
+    world (``make_host_mesh``), whose ranks lie row-major."""
+    if ctx is None:
+        return 1, None
+    if axis == "model":
+        return ctx.tensor_size, ctx.group
+    if axis == "data":
+        return ctx.data_size, ctx.data_group
+    if axis == MESH:
+        return ctx.mesh.size, None
+    raise ValueError(f"unknown axis {axis!r}")
+
+
+def _gather(x: torch.Tensor, ctx: ParallelCtx, name: str,
+            axis: str = "model") -> List[torch.Tensor]:
+    """The ranks' ``x`` along ``axis`` in rank order (one list-form
+    ``all_gather``, timed as ``<axis prefix>_<name>``)."""
+    n, grp = _axis(ctx, axis)
     wire = _wire(x)
-    parts = [torch.empty_like(wire) for _ in range(ctx.tensor_size)]
-    _timed(name, lambda: dist.all_gather(parts, wire, group=ctx.group))
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    _timed(f"{_PREFIX[axis]}_{name}",
+           lambda: dist.all_gather(parts, wire, group=grp))
     return [p.view(x.dtype) for p in parts]
 
 
-def ordered_sum(x: torch.Tensor, ctx: Optional[ParallelCtx]
-                ) -> torch.Tensor:
-    """The sum over the tensor axis of every rank's partial ``x``: added
-    in ascending rank order in float32, cast once to ``x``'s dtype."""
-    if tp_size(ctx) == 1:
+def ordered_sum(x: torch.Tensor, ctx: Optional[ParallelCtx],
+                axis: str = "model") -> torch.Tensor:
+    """The sum over ``axis`` of every rank's partial ``x``: added in
+    ascending rank order in float32, cast once to ``x``'s dtype."""
+    if _axis(ctx, axis)[0] == 1:
         return x
-    parts = _gather(x, ctx, "tp_sum")
+    parts = _gather(x, ctx, "sum", axis)
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p.float()
     return acc.to(x.dtype)
 
 
-def gather_cat(x: torch.Tensor, dim: int, ctx: Optional[ParallelCtx]
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (``w`` 2-D, or 3-D batched as ``torch.bmm`` takes it)
+    on operands in ``a``'s dtype, with a float32 result: on the card a
+    16-bit product runs on the tensor cores and writes float32 (cuBLAS's
+    ``out_dtype``), so the partial is not rounded; on the CPU, which has
+    no such kernel, the product of the operands widened to float32, the
+    same values up to the order of the adds."""
+    w = w.to(a.dtype)
+    if not (a.is_cuda and a.element_size() == 2):
+        return a.float() @ w.float()
+    if w.dim() == 3:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                    out_dtype=torch.float32).view(*a.shape[:-1],
+                                                  w.shape[-1])
+
+
+def sum_matmul(a: torch.Tensor, w: torch.Tensor,
+               ctx: Optional[ParallelCtx], split: bool = True
                ) -> torch.Tensor:
-    """The ranks' blocks of ``x`` concatenated along ``dim`` in rank
-    order."""
-    if tp_size(ctx) == 1:
+    """``a @ w`` in ``a``'s dtype, where ``w`` holds this rank's rows of
+    a row-parallel weight (``split``): each rank's product in float32
+    (:func:`matmul_f32`), the partials summed over ``model`` in rank
+    order (:func:`ordered_sum`) and cast once, so the sum rounds once, as
+    one rank's product does. Where nothing is split, ``a @ w`` itself."""
+    if not split or tp_size(ctx) == 1:
+        return a @ w.to(a.dtype)
+    return ordered_sum(matmul_f32(a, w), ctx).to(a.dtype)
+
+
+def gather_cat(x: torch.Tensor, dim: int, ctx: Optional[ParallelCtx],
+               axis: str = "model", name: str = "gather") -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``axis`` concatenated along
+    ``dim`` in rank order."""
+    if _axis(ctx, axis)[0] == 1:
         return x
-    return torch.cat(_gather(x, ctx, "tp_gather"), dim=dim)
+    return torch.cat(_gather(x, ctx, name, axis), dim=dim)
 
 
 def ordered_mean(x: torch.Tensor, ctx: Optional[ParallelCtx]
                  ) -> torch.Tensor:
-    """The mean over the tensor axis of every rank's float32 ``x``: the T
-    values added in ascending rank order, then divided by T, so every
-    rank holds the same bits."""
-    if tp_size(ctx) == 1:
+    """The mean over the whole mesh of every rank's float32 ``x``: the
+    values added in ascending rank order, then divided by their number,
+    so every rank holds the same bits."""
+    n = _axis(ctx, MESH)[0]
+    return x if n == 1 else ordered_sum(x, ctx, MESH) / n
+
+
+def gather_many(items: List[Tuple[torch.Tensor, int]],
+                ctx: Optional[ParallelCtx]) -> List[torch.Tensor]:
+    """For each ``(x, dim)``, the ranks' blocks of ``x`` over ``data``
+    concatenated along ``dim`` in data order: all of them in one
+    ``all_gather`` of their bytes (exact, whatever their types, timed as
+    ``dp_fsdp``), so a layer's leaves cost one collective."""
+    if not items or dp_size(ctx) == 1:
+        return [x for x, _ in items]
+    flat = [x.contiguous().view(-1).view(torch.uint8) for x, _ in items]
+    parts = _gather(torch.cat(flat), ctx, "fsdp", "data")
+    out, lo = [], 0
+    for (x, dim), f in zip(items, flat):
+        hi = lo + f.numel()
+        out.append(torch.cat([p[lo:hi].view(x.dtype).view(x.shape)
+                              for p in parts], dim=dim))
+        lo = hi
+    return out
+
+
+def gather_fsdp(tree, ctx: Optional[ParallelCtx], d_model: int):
+    """``tree`` (one layer's parameters, or the leaves outside the
+    layers) with every leaf the rules cut over ``data`` gathered whole
+    along its ``fsdp`` dim, the data ranks' blocks in data order (exact:
+    a concatenation; one collective, :func:`gather_many`). Every ``fsdp``
+    dim of these leaves is ``d_model``'s, so a dim is cut where it holds
+    fewer; a leaf already whole is returned as it is. The MoE's expert
+    tables stay as held (their layout depends on the branch,
+    ``moe.moe_forward`` gathers them). The gathered blocks live as long
+    as the returned tree."""
+    if dp_size(ctx) == 1:
+        return tree
+    todo = {}
+
+    def find(path, x):
+        if re.search(EXPERT_TABLE, path):
+            return x
+        for dim in fsdp_dims(path, x.dim(), ctx.inference):
+            if x.shape[dim] == d_model:
+                continue
+            if x.shape[dim] * ctx.data_size != d_model:
+                raise ValueError(f"{path} {tuple(x.shape)}: dim {dim} is "
+                                 f"not d_model {d_model} cut over "
+                                 f"{ctx.data_size} data ranks")
+            todo[path] = (x, dim)
         return x
-    return ordered_sum(x, ctx) / ctx.tensor_size
+    _map(find, tree)
+    whole = dict(zip(todo, gather_many(list(todo.values()), ctx)))
+    return _map(lambda path, x: whole.get(path, x), tree)
+
+
+def rows_gather(x: torch.Tensor, ctx: Optional[ParallelCtx]
+                ) -> torch.Tensor:
+    """Every data rank's rows of ``x`` (its leading dim), stacked in data
+    order: the whole batch on every rank."""
+    return gather_cat(x, 0, ctx, "data", "rows")
+
+
+def rows_take(x: torch.Tensor, n: int, ctx: Optional[ParallelCtx]
+              ) -> torch.Tensor:
+    """This data rank's ``n`` rows of a whole batch ``x`` (the inverse
+    of :func:`rows_gather`); ``x`` itself when it has ``n`` rows."""
+    if x.shape[0] == n:
+        return x
+    return x.narrow(0, ctx.data_rank * n, n)
 
 
 def all_to_all(x: torch.Tensor, ctx: Optional[ParallelCtx]

@@ -16,10 +16,12 @@ A layer returns its metrics beside its output (an MoE layer's aux_loss
 and dropped share; none for the others), and a segment reduces them over
 its layers as the reference's ``_agg_metrics`` does.
 
-A tensor-parallel context (:mod:`.shardrules`) reaches every mixer and
-FFN, whose parameters are then the rank's (:mod:`.tp`); at T > 1 a layer
-the layout does not cover raises (``tp.check_layer``), and so does
-training (sharded training, ROADMAP Queue 1 item 2b).
+A mesh context (:mod:`.shardrules`) reaches every mixer and FFN, whose
+parameters are then the rank's (:mod:`.tp`): each layer first gathers
+its leaves cut over ``data`` (``tp.gather_fsdp``), and the gathered
+blocks go when the layer returns; at T > 1 a layer the layout does not
+cover raises (``tp.check_layer``), and training under a context of more
+than one rank raises (sharded training, ROADMAP Queue 1 item 2c).
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (AttnConfig, attn_decode, attn_forward, attn_init,
                         attn_init_cache)
-from .layers import (ffn_apply, ffn_init, layernorm, layernorm_init, rmsnorm,
-                     rmsnorm_init)
+from .layers import (ffn_hidden, ffn_init, layernorm, layernorm_init,
+                     rmsnorm, rmsnorm_init)
 from . import tp
 from .moe import MoEConfig, moe_forward, moe_init
-from .shardrules import ParallelCtx, tp_size
+from .shardrules import ParallelCtx
 from .ssm import SSMConfig, ssm_decode, ssm_forward, ssm_init, ssm_init_cache
 
 MODES = ("train", "prefill", "decode")
@@ -155,6 +157,7 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     tp.check_layer(spec, ctx)
+    params = tp.gather_fsdp(params, ctx, x.shape[-1])
     metrics: Dict[str, torch.Tensor] = {}
     y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,
                           positions, mode, cache, cache_index, ctx)
@@ -165,12 +168,12 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
                                  ctx)
         x = x + h
     elif "ffn" in params:
-        y = ffn_apply(params["ffn"], _norm(spec, params["norm2"], x),
-                      spec.activation)
+        h = ffn_hidden(params["ffn"], _norm(spec, params["norm2"], x),
+                       spec.activation)
         # a rank's hidden columns give a partial (the rules keep a d_ff
         # that T does not divide whole, and every rank runs it whole)
-        split = params["ffn"]["w_down"].shape[0] < spec.d_ff
-        x = x + (tp.ordered_sum(y, ctx) if split else y)
+        w_down = params["ffn"]["w_down"]
+        x = x + tp.sum_matmul(h, w_down, ctx, w_down.shape[0] < spec.d_ff)
     return x, new_cache, metrics
 
 
@@ -196,6 +199,17 @@ def segment_init(spec: LayerSpec, count: int, d_model: int, *,
 
 
 REMAT = ("none", "full", "dots")
+
+
+def check_mode(mode: str, ctx: Optional[ParallelCtx]) -> None:
+    """Raise for training under a context of more than one rank, on every
+    rank alike and before any collective."""
+    if mode == "train" and ctx is not None and ctx.mesh.size > 1:
+        raise NotImplementedError(
+            f"training on a mesh of {ctx.mesh.size} ranks "
+            f"{dict(ctx.mesh.shape)}: the collectives here carry no "
+            f"gradient and the data axis has no gradient sum; sharded "
+            f"training waits ({tp.SHARDED_TRAINING})")
 
 
 def _train_layer(layer_p, x, spec, positions):
@@ -229,10 +243,7 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
     activation."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
-    if mode == "train" and tp_size(ctx) > 1:
-        raise NotImplementedError(
-            f"training at T = {tp_size(ctx)}: the collectives here carry no "
-            f"gradient; sharded training waits ({tp.SHARDED_TRAINING})")
+    check_mode(mode, ctx)
     if mode == "train":
         if remat == "dots":
             raise NotImplementedError(

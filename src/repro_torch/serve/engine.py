@@ -5,17 +5,23 @@ and no CUDA graph (a graph for the decode step is later work). Each step
 is timed on the host clock around work that ends in a device
 synchronisation and recorded in the paper's trace format.
 
-With a ``mesh`` (``repro_torch.launch.mesh.make_host_mesh(model=T)``),
-every rank of the default process group builds the engine on the same
-full parameters and calls ``generate`` on the same batch (SPMD, one
-process a rank). The engine keeps only the rank's shards
-(``shard_params``), and each layer runs tensor-parallel over the
-``model`` axis (``repro_torch.models.tp``): attention and MLA on the
-rank's heads, the FFN on its hidden columns, the SSM on its heads, the
-MoE on its experts (``ep`` in prefill, ``replicated`` in decode,
-``repro_torch.models.moe``). Every rank returns the same tokens. A layout the port does not cover raises in the constructor on
-every rank, and a batch that differs between ranks raises in
-``generate`` on every rank before the first collective.
+With a ``mesh`` (``repro_torch.launch.mesh.make_host_mesh(model=T)``,
+a ``(world / T, T)`` mesh on ``("data", "model")``), every rank of the
+default process group builds the engine on the same full parameters and
+calls ``generate`` on the same batch (SPMD, one process a rank). The
+engine keeps only the rank's shards (``shard_params``: the ``fsdp``
+dims cut over ``data``, gathered at use) and serves its data rank's
+rows of the batch (``shard_batch``; all of them where the requests do
+not divide over the data ranks), its caches holding those rows. Each
+layer runs tensor-parallel over the ``model`` axis
+(``repro_torch.models.tp``): attention and MLA on the rank's heads, the
+FFN on its hidden columns, the SSM on its heads, the MoE on its experts
+(``ep`` in prefill, ``replicated`` in decode,
+``repro_torch.models.moe``). The tokens are gathered over ``data`` in
+order, so every rank returns the whole batch's. A layout the port does
+not cover raises in the constructor on every rank, and a batch that
+differs between ranks raises in ``generate`` on every rank before the
+first collective.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ..device import resolve_device
 from ..core.mesh import Mesh
 from ..models import tp
 from ..models.model import ModelConfig, decode_step, prefill
-from ..models.shardrules import make_ctx, shard_params
+from ..models.shardrules import make_ctx, shard_batch, shard_params
 from ..telemetry import KIND_DECODE, KIND_PREFILL, TelemetryRecorder
 
 
@@ -95,10 +101,11 @@ class ServeEngine:
                 f"positions ({prefix} meta and patch + "
                 f"{tokens.shape[1]} prompt + {self.scfg.max_new_tokens - 1}"
                 " decoded)")
+        rows, ctx = shard_batch(inputs, self.ctx)
         with self.telemetry.timed(0, KIND_PREFILL, 0):
             logits, caches, index = prefill(
-                self.cfg, self.params, inputs, self.scfg.max_len,
-                cache_dtype=self.scfg.cache_dtype, ctx=self.ctx)
+                self.cfg, self.params, rows, self.scfg.max_len,
+                cache_dtype=self.scfg.cache_dtype, ctx=ctx)
             self._sync()
         tok = logits.argmax(-1)[:, None]
         out = [tok]
@@ -107,8 +114,11 @@ class ServeEngine:
             # to its jitted decode step for the same effect)
             with self.telemetry.timed(0, KIND_DECODE, t):
                 logits, caches = decode_step(self.cfg, self.params, tok,
-                                             caches, index + t, self.ctx)
+                                             caches, index + t, ctx)
                 self._sync()
             tok = logits.argmax(-1)[:, None]
             out.append(tok)
-        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+        out = torch.cat(out, dim=1).to(torch.int32)
+        if ctx is not None and not ctx.batch_whole:
+            out = tp.rows_gather(out, ctx)    # the data ranks' requests
+        return out.cpu().numpy()

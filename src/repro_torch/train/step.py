@@ -7,9 +7,10 @@ bf16; master weights, Adam moments and the microbatch accumulator stay
 float32 (``compress_grads=False`` keeps float32 end to end). On one card
 nothing is all-reduced; the option keeps the reference's numbers.
 
-The reference's ``state_specs``, ``batch_specs`` and ``jit_train_step``
-lay the state over a mesh; they come with sharded training (ROADMAP
-Queue 1 item 2b).
+The reference's ``state_specs`` and ``jit_train_step`` lay the state
+over a mesh; they come with sharded training (ROADMAP Queue 1 item 2c).
+Its ``batch_specs`` is ``models.shardrules.batch_specs``, which serving
+uses.
 """
 
 from __future__ import annotations

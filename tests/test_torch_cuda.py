@@ -1084,9 +1084,9 @@ def test_tp_blocks_two_ranks_on_the_card(cuda):
     heads), ``layer_forward`` (attention and the gated FFN on each
     rank's hidden columns) and ``moe_forward`` (each rank's 16 of 32
     experts, the ``ep`` and ``replicated`` paths, no assignment dropped)
-    at T = 2 on cuda:0 over gloo equal the one-rank block (bfloat16: each
-    rank's partial is rounded once more before the sum, so within 2^-7
-    relative), the prefill cache is the rank's KV heads bit for bit, and
+    at T = 2 on cuda:0 over gloo equal the one-rank block (bfloat16: the
+    sums add float32 partials in another order than one rank's product,
+    so within 2^-7 relative), the prefill cache is the rank's KV heads bit for bit, and
     the ordered sum equals plain float32 adds in rank order bit for
     bit."""
     import os

@@ -25,8 +25,10 @@ inputs come from this process as numpy.
   the reference's; every rank's logits bit-equal to rank 0's, and a
   rank's parameter bytes equal to ``bytes_per_device``.
 - These raise on every rank, none hangs: danube's smoke config at T = 4
-  (2 KV heads: the reference shards the cache length), hymba, a mesh
-  with data > 1 and a batch that differs between ranks. The MoE and MLA
+  (2 KV heads: the reference shards the cache length), hymba, training
+  on a mesh with data > 1 (serving there is
+  ``tests/test_torch_tp_data.py``'s) and a batch that differs between
+  ranks. The MoE and MLA
   families are served on the mesh in ``tests/test_torch_tp_moe.py``.
 """
 
@@ -69,7 +71,7 @@ CASES = {
 }
 # what raises at T = 4, and the words its message must hold
 REFUSED = {
-    "danube-kv": "item 8", "hymba": "item 8", "data-axis": "item 2b",
+    "danube-kv": "item 8", "hymba": "item 8", "data-axis": "item 2c",
     "divergent": "differ",
 }
 
@@ -229,6 +231,7 @@ def _refusals(rank, mesh, checks):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model
+    from repro_torch.models.shardrules import make_ctx
     from repro_torch.serve import ServeConfig, ServeEngine
 
     scfg = ServeConfig(max_len=S + NEW, max_new_tokens=NEW,
@@ -239,6 +242,12 @@ def _refusals(rank, mesh, checks):
         return ServeEngine(cfg, model.init_params(cfg, 0, "cpu"), scfg,
                            device="cpu", mesh=m)
 
+    def train_on(m):
+        cfg = get_smoke_config("stablelm-3b")
+        model.forward_hidden(cfg, model.init_params(cfg, 0, "cpu"), {
+            "tokens": torch.zeros((B, S), dtype=torch.long)}, "train",
+            ctx=make_ctx(m))
+
     def divergent():
         tokens = np.random.default_rng(rank if rank == 1 else 0).integers(
             0, 128, (B, S))
@@ -247,7 +256,7 @@ def _refusals(rank, mesh, checks):
     cases = {
         "danube-kv": lambda: engine("h2o-danube-1.8b"),
         "hymba": lambda: engine("hymba-1.5b"),
-        "data-axis": lambda: engine("stablelm-3b", make_host_mesh(model=2)),
+        "data-axis": lambda: train_on(make_host_mesh(model=2)),
         "divergent": divergent,
     }
     for name, fn in cases.items():
