@@ -311,7 +311,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              both decode paths, peak GiB, each collective kind's calls
              and seconds in the generate and in the stationary steps
              (tp_* the model axis, dp_* the data axis, mesh_* the whole
-             mesh), the P = 1 and replicated-decode gaps;
+             mesh), the P = 1 and replicated-decode gaps. Then the
+             steps tp-train-granite and tp-train-mamba2
+             (TP_TRAIN_SPECS): the same 4 ranks train granite-moe-1b-a400m
+             and mamba2-370m at full width, 4 layers each
+             (TP_TRAIN_DEPTH_CUTS), on make_host_mesh(model=4) = (1, 4)
+             through ``make_train_step(cfg, tcfg, mesh)``: each rank
+             draws the whole float32 tree from --seed and keeps its
+             blocks of the weights and of both moments (bytes ==
+             bytes_per_device, moments twice that), takes the whole batch
+             of 1 x 2,048 tokens from make_batch, runs the forward on its
+             heads, experts (ep) or SSM heads and vocabulary block, the
+             backward through every collective, remat "full"; one
+             warm-up step and 2 timed ones at the peak lr of
+             TRAIN_SPECS, the counters zeroed just before the timed ones:
+             2 launches a layer a step (forward and recompute) on the
+             tensor cores. Every rank's losses, grad norms and updated
+             whole leaves bit-equal; every rank's first-step gradient
+             blocks go to rank 0, which runs the same steps at P = 1 (the
+             MoE on the 4 sequence blocks' capacity under the mesh run's
+             expert choices): each step's loss within 0.05, each matrix
+             gradient block's cosine >= 0.98. Printed a rank: step ms,
+             tokens/s, peak GiB, the seconds of the step's parts (the
+             first includes the process's first non-reentrant checkpoint
+             call, ~9-12 s), collectives by kind with the backward's
+             (``*_bwd``) apart;
 16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -331,8 +355,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              count must be 1 a call up to 16,384 keys and at most 16 at
              120,000 (a reading that saw fewer kernels than calls lost
              profiler events and is taken again, up to 4 more times);
-             flash_attention and ssd_fused also at rank 0's calls of the tp
-             phase (its per-rank shapes);
+             it runs before the tp phase (in the wake of its training
+             steps the profiler lost the short iqr_fences calls' events),
+             and flash_attention and ssd_fused at rank 0's calls of the tp
+             phase (its per-rank shapes, the tp-train steps' too) are
+             timed the same way just after the tp phase;
 17. host trace — time.perf_counter_ns around each step of the
              rolling_stats, binstats, binstats_flat, histbin_flat and
              iqr_fences wrappers (checks, allocations, library lookup,
@@ -3764,18 +3791,18 @@ def _rank_stream(spec, pipe, rank, counters, rec, dist):
     return faults
 
 
-def _run_ranks(args, root, role, n, limit_s):
+def _run_ranks(args, root, role, n, limit_s, script=None):
     """Start ``n`` rank processes of ``role`` (``chip_smoke.py
-    --rank-role ROLE --collective-rank R``, the kernels loaded from the
-    parent's build) in a gloo group on a free port, wait for all of them
-    (at most ``limit_s`` seconds, then kill them) and raise if any failed;
-    returns the seconds they took."""
+    --rank-role ROLE --collective-rank R``, or ``script`` with the same
+    flags; the kernels loaded from the parent's build) in a gloo group on
+    a free port, wait for all of them (at most ``limit_s`` seconds, then
+    kill them) and raise if any failed; returns the seconds they took."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+    cmd = [sys.executable, str(Path(script or __file__).resolve()), "--seed",
            str(args.seed), "--ranks", str(args.ranks), "--duration",
            str(args.duration), "--rank-role", role, "--collective-dir",
            root, "--collective-port", str(port), "--collective-rank"]
@@ -3903,7 +3930,7 @@ def phase_collective(args, work, main_res, delta_copy, card):
 
 
 TP_RANKS = 4
-TP_TIMEOUT_S = 300               # the group's; the phase's is 400 s
+TP_TIMEOUT_S = 300               # the group's; the phase's is 460 s
 # the tp phase's models, each at full width (and depth, but as
 # TP_DEPTH_CUTS says) with 1 request of 2,048 prompt tokens and 8 new
 # tokens; the kernel each must launch in one prefill on every rank, how
@@ -3930,6 +3957,26 @@ DP_TAG = "dp-granite"
 DP_SPEC = dict(arch="granite-moe-1b-a400m", model=2, batch=2, prompt=2048,
                new=8, steps=8, launches=24)
 TP_FLASH_ROWS += (f"flash_attention/{DP_TAG}",)
+# the tp phase's training steps on the (1, 4) mesh: each model at full
+# width, its depth cut as TP_TRAIN_DEPTH_CUTS says, a batch of 1 x 2,048
+# tokens from make_batch at --seed, grad_accum 1, remat "full", one
+# warm-up step and TP_TRAIN_STEPS timed ones at the peak lr TRAIN_SPECS
+# gives the architecture (no warm-up of the schedule); the kernel each
+# launches, 2 a layer a step (the forward and the remat recompute)
+TP_TRAIN_SPECS = {
+    "tp-train-granite": dict(arch="granite-moe-1b-a400m", seq=2048,
+                             lr=TRAIN_SPECS["train-granite"]["lr"],
+                             kernel="flash_attention"),
+    "tp-train-mamba2": dict(arch="mamba2-370m", seq=2048,
+                            lr=TRAIN_SPECS["train"]["lr"],
+                            kernel="ssd_fused"),
+}
+# (mamba2's 8 layers took 13-15 s of the step on one host, over the 30 s
+# the two steps may add to the tp phase with the ~9 s the process's first
+# non-reentrant checkpoint call takes)
+TP_TRAIN_DEPTH_CUTS = {"granite-moe-1b-a400m": (4,), "mamba2-370m": (4,)}
+TP_TRAIN_STEPS = 2
+TP_FLASH_ROWS += ("flash_attention/tp-train-granite",)
 # deepseek-v2-236b's dense layer and 1 of its 59 MoE layers: every rank
 # draws the whole tree before it keeps its shards, ~4.8 B parameters (9.7
 # GB in bfloat16) here, so the four trees take ~39 GB at once (DEPTH_CUTS'
@@ -3938,11 +3985,19 @@ TP_DEPTH_CUTS = {"deepseek-v2-236b": (1, 1)}
 
 
 def _digest(*tensors):
-    import hashlib
-    h = hashlib.sha256()
+    """A checksum of the bits of ``tensors`` (each as float32, which keeps
+    16-bit values apart), computed on their device: each one's words
+    summed plainly and weighted by a position hash (int64 wrap-around),
+    so two tensors that differ in any word differ here."""
+    import torch
+    out = []
     for t in tensors:
-        h.update(t.detach().float().cpu().numpy().tobytes())
-    return h.hexdigest()
+        w = t.detach().float().contiguous().view(-1).view(torch.int32).to(
+            torch.int64)
+        pos = (torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+               * 2654435761) % 2147483647 + 1
+        out.append([int(w.sum()), int((w * pos).sum())])
+    return out
 
 
 @contextlib.contextmanager
@@ -4255,6 +4310,250 @@ def dp_serve(cfg, seed, dev, host, spec, counters=None):
     return rec, calls
 
 
+@contextlib.contextmanager
+def _first_grads(into):
+    """Keep the gradients the first ``adamw_update`` call of the block
+    receives (the train step's float32 gradients, before clipping) in
+    ``into``, one tensor a leaf in tree order."""
+    from repro_torch.train import step
+    from repro_torch.train.optim import tree_leaves
+    real = step.adamw_update
+
+    def kept(cfg, grads, *a, **kw):
+        if not into:
+            into.extend(tree_leaves(grads))
+        return real(cfg, grads, *a, **kw)
+    step.adamw_update = kept
+    try:
+        yield into
+    finally:
+        step.adamw_update = real
+
+
+def _block_of(x, spec, r, t):
+    """Rank r's block (of t) of a whole tensor ``x`` along the dim
+    ``spec`` cuts over ``model``."""
+    for dim, entry in enumerate(spec):
+        if entry and "model" in entry:
+            n = x.shape[dim] // t
+            x = x.narrow(dim, r * n, n)
+    return x
+
+
+def _tp_train_yardstick(cfg, seed, dev, tcfg, batches, chosen, blocks,
+                        names, specs, t):
+    """Rank 0's P = 1 run of the steps the mesh run took: the whole state
+    drawn again from ``seed``, the same batches; for an MoE model each
+    MoE call on the t sequence blocks as separate calls (the ep path's
+    capacity, ``_blocked_moe``) under the mesh run's expert choices
+    (``_Routing``: call i's block r is rank r's call i). Returns each
+    step's loss and grad norm and, for each rank, its smallest cosine of
+    a matrix gradient block (``blocks[r]``: leaf index -> the rank's
+    first-step gradient block) against the same block of P = 1's
+    first-step gradient, with the leaf."""
+    from repro_torch.train import init_state, make_train_step
+
+    n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
+    routing = _Routing()
+    routing.chosen = [chosen[r][i].to(dev) for i in range(len(chosen[0]))
+                      for r in range(t)]
+    replay = routing.replay() if n_moe else contextlib.nullcontext()
+    blocked = _blocked_moe(t) if n_moe else contextlib.nullcontext()
+    state = init_state(cfg, seed, dev)
+    step_fn = make_train_step(cfg, tcfg)
+    losses, norms, grads = [], [], []
+    with replay, blocked, _first_grads(grads):
+        for batch in batches:
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    del state
+    cosines = []
+    for r in range(t):
+        worst = (2.0, "")
+        for i, g in blocks[r].items():
+            want = _block_of(grads[i], specs[i], r, t)
+            worst = min(worst, (_cosine(g.to(want.device).float(),
+                                        want.float()), names[i]))
+        cosines.append(worst)
+    return {"losses": losses, "grad_norms": norms, "cosines": cosines,
+            "flips": sum(routing.flips)}
+
+
+def tp_train(cfg, seed, dev, spec, counters=None):
+    """The tp-train step on this rank of a group of TP_RANKS ranks (on the
+    CPU too, at any config): ``cfg`` trained on
+    ``make_host_mesh(model=TP_RANKS)`` from ``seed`` by
+    ``make_train_step(cfg, tcfg, mesh)`` on the state of
+    ``init_state(..., mesh=mesh)``: one warm-up step and TP_TRAIN_STEPS
+    timed ones, each on a batch of 1 x ``spec["seq"]`` tokens from
+    ``make_batch`` at ``seed``; the counters zeroed just before the timed
+    steps and read just after. Every rank's first-step gradient blocks go
+    to rank 0, which runs ``_tp_train_yardstick``. Returns (the record,
+    the kernels' first calls in the timed steps)."""
+    t_start = time.perf_counter()
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import group
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.model import param_shapes
+    from repro_torch.models.shardrules import (_items, bytes_per_device,
+                                               held_specs)
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import batch_to, split_leaves
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for _, x in _items(tree))
+
+    rank, t = dist.get_rank(), dist.get_world_size()
+    laps, t_last = {}, [t_start]
+
+    def lap(name):
+        sync()
+        now = time.perf_counter()
+        laps[name] = now - t_last[0]
+        t_last[0] = now
+    lap("imports")
+    mesh = make_host_mesh(model=t)
+    steps = 1 + TP_TRAIN_STEPS
+    tcfg = TrainConfig(optim=AdamWConfig(peak_lr=spec["lr"], warmup_steps=0,
+                                         total_steps=steps))
+    dcfg = DataConfig(batch=1, seq=spec["seq"], seed=seed)
+    batches = [batch_to(make_batch(cfg, dcfg, i), dev) for i in range(steps)]
+    lap("batches")
+    shapes = param_shapes(cfg)
+    want = bytes_per_device(shapes, mesh)
+    specs = [s for _, s in _items(held_specs(shapes, mesh))]
+    names = [p for p, _ in _items(shapes)]
+    del shapes
+    lap("inputs")
+    state = init_state(cfg, seed, dev, mesh)
+    lap("init")
+    held = nbytes(state["params"])
+    moments = nbytes(state["opt"]["m"]) + nbytes(state["opt"]["v"])
+    split = split_leaves(cfg, mesh)
+    step_fn = make_train_step(cfg, tcfg, mesh)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    routing, grads, losses, norms, step_ms = _Routing(), [], [], [], []
+    with routing.record(), _first_grads(grads):
+        state, m = step_fn(state, batches[0])        # the warm-up step
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lap("warm-up")
+        dist.barrier()
+        if counters is not None:
+            _zero(counters)
+        group.collective_times(reset=True)
+        cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
+                      key=_flash_key)
+        try:
+            for batch in batches[1:]:
+                sync()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))     # waits for the device
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                norms.append(float(m["grad_norm"]))
+            sync()
+            launches = {k: counters[k].launches if counters else 0
+                        for k in ("flash_attention", "ssd_fused")}
+            tc = {k: getattr(counters[k], "wgmma_launches", 0) if counters
+                  else 0 for k in ("flash_attention", "ssd_fused")}
+            coll = _by_kind(group.collective_times(reset=True))
+        finally:
+            cap.close()
+    lap("timed")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    calls = {k: ([a.detach() if hasattr(a, "detach") else a for a in c[0]],
+                 c[1]) for k, c in cap.calls.items()}
+    with torch.no_grad():
+        errs = _captured_errs(calls, f"{spec.get('tag', 'tp-train')} rank "
+                              f"{rank}") if cuda else {}
+    whole = [x for tree in (state["params"], state["opt"]["m"],
+                            state["opt"]["v"])
+             for x, cut in zip(tree_leaves(tree), split) if not cut]
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(x).all()) for x in tree_leaves(state["params"]))
+    digest = _digest(*whole)
+    lap("checks")
+    rec = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "laps": laps, "peak_gib": peak, "collectives": coll,
+           "launches": launches, "tensor_core": tc, "errs": errs,
+           "bytes": [held, want], "moment_bytes": moments,
+           "digest": digest, "finite": finite, "tokens": spec["seq"],
+           "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
+                      for k, c in calls.items()}}
+    del state, whole, step_fn
+    # the split matrix gradient blocks to rank 0 (exact in cfg.dtype,
+    # the working copy's), the whole ones stay: every rank's are equal
+    mats = [i for i, (g, cut) in enumerate(zip(grads, split))
+            if cut and g.dim() >= 2]
+    flat = torch.cat([grads[i].to(cfg.dtype).flatten() for i in mats]
+                     ).cpu()
+    wire = flat.view(torch.uint8) if flat.element_size() == 2 else flat
+    parts = [torch.empty_like(wire) for _ in range(t)] if rank == 0 \
+        else None
+    dist.gather(wire, parts, dst=0)
+    every = group.gather([c.cpu() for c in routing.chosen], "tp_choices")
+    lap("gather")
+    if rank == 0:
+        blocks = []
+        for r in range(t):
+            got, lo = parts[r].view(flat.dtype), 0
+            mine = {}
+            for i in mats:
+                n = grads[i].numel()
+                mine[i] = got[lo:lo + n].view(grads[i].shape)
+                lo += n
+            blocks.append(mine)
+        blocks[0].update({i: g for i, g in enumerate(grads)
+                          if not split[i] and g.dim() >= 2})
+        del parts
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        rec["yardstick"] = _tp_train_yardstick(
+            cfg, seed, dev, tcfg, batches, every, blocks, names, specs, t)
+        lap("yardstick")
+        rec["yardstick"]["seconds"] = laps["yardstick"]
+    del grads, batches
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec, calls
+
+
+def _mm_out_dtype_grad(dev):
+    """Whether this PyTorch runs a backward through ``torch.mm`` with a
+    float32 result of bfloat16 operands (``tp.matmul_f32`` carries its
+    own backward either way)."""
+    import torch
+    a = torch.ones(8, 8, dtype=torch.bfloat16, device=dev,
+                   requires_grad=True)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32).sum().backward()
+        return f"taken (grad {a.grad.dtype})"
+    except RuntimeError as e:
+        return f"refused: {e}"[:200]
+
+
 def tp_rank(args) -> int:
     """One rank of the tp phase, in a process of its own (``chip_smoke.py
     --rank-role tp --collective-rank R``): every rank draws each model of
@@ -4306,6 +4605,7 @@ def tp_rank(args) -> int:
         rec["gloo_bf16"] = "taken"
     except RuntimeError as e:
         rec["gloo_bf16"] = f"refused: {e}"[:200]
+    rec["mm_out_dtype_grad"] = _mm_out_dtype_grad(dev)
     for tag, spec in TP_SPECS.items():
         cfg = cut_depth(get_config(spec["arch"]),
                         TP_DEPTH_CUTS.get(spec["arch"]))
@@ -4416,6 +4716,22 @@ def tp_rank(args) -> int:
                          for a in c[0]], c[1]) for k, c in calls.items()},
                    os.path.join(root, f"{DP_TAG}_calls.pt"))
     del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, spec in TP_TRAIN_SPECS.items():
+        cfg = cut_depth(get_config(spec["arch"]),
+                        TP_TRAIN_DEPTH_CUTS[spec["arch"]])
+        t0 = time.perf_counter()
+        rec[tag], calls = tp_train(cfg, args.seed, dev, dict(spec, tag=tag),
+                                   counters)
+        rec[tag]["seconds"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({k: ([a.cpu() if hasattr(a, "cpu") else a
+                             for a in c[0]], c[1]) for k, c in calls.items()},
+                       os.path.join(root, f"{tag}_calls.pt"))
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
@@ -4440,13 +4756,15 @@ def phase_tp(args, work, dev, card):
 
     root = os.path.join(work, "tp")
     os.makedirs(root, exist_ok=True)
-    seconds = _run_ranks(args, root, "tp", TP_RANKS, 400)
+    seconds = _run_ranks(args, root, "tp", TP_RANKS, 460)
     recs = []
     for r in range(TP_RANKS):
         with open(os.path.join(root, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     log(f"tp: gloo all_gather of bfloat16 CUDA tensors as they are: "
-        f"{recs[0]['gloo_bf16']}")
+        f"{recs[0]['gloo_bf16']}; a backward through torch.mm(..., "
+        f"out_dtype=torch.float32) of bfloat16 operands: "
+        f"{recs[0]['mm_out_dtype_grad']}")
     launches, errs, calls = {}, {}, {}
     for tag, spec in TP_SPECS.items():
         name, want = spec["kernel"], spec["launches"]
@@ -4531,9 +4849,86 @@ def phase_tp(args, work, dev, card):
                               if k.startswith("flash_attention"))]
     calls[name] = ([a.to(dev) if hasattr(a, "to") else a for a in c_args],
                    c_kw)
+    for tag, spec in TP_TRAIN_SPECS.items():
+        name = f"{spec['kernel']}/{tag}"
+        launches[name], err = _check_tp_train(recs, tag, card)
+        errs[spec["kernel"]] = max(errs[spec["kernel"]], err)
+        saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
+        c_args, c_kw = saved[next(k for k in saved
+                                  if k.startswith(spec["kernel"]))]
+        calls[name] = ([a.to(dev) if hasattr(a, "to") else a
+                        for a in c_args], c_kw)
     log(f"tp: {TP_RANKS} ranks on cuda:0 over gloo, {seconds:.3f}s "
         f"[{card}]")
     return launches, errs, calls
+
+
+def _check_tp_train(recs, tag, card):
+    """The gates of a tp-train step (see the docstring's tp entry) on
+    every rank's record; returns the kernel's launches a rank in the
+    timed steps and the largest |kernel - plain| of its calls."""
+    import statistics
+    spec = TP_TRAIN_SPECS[tag]
+    name = spec["kernel"]
+    layers = TP_TRAIN_DEPTH_CUTS[spec["arch"]][0]
+    want = {"flash_attention": 0, "ssd_fused": 0}
+    want[name] = 2 * layers * TP_TRAIN_STEPS
+    y = recs[0][tag]["yardstick"]
+    for rec in recs:
+        r, x = rec["rank"], rec[tag]
+        med = statistics.median(x["step_ms"])
+        fwd = {k: f"{n} calls {sec:.3f}s" for k, (n, sec) in
+               sorted(x["collectives"].items()) if not k.endswith("_bwd")}
+        bwd = {k: f"{n} calls {sec:.3f}s" for k, (n, sec) in
+               sorted(x["collectives"].items()) if k.endswith("_bwd")}
+        log(f"{tag} rank {r}: step ms median {med:.3f} "
+            f"({[round(v, 3) for v in x['step_ms']]}, {TP_TRAIN_STEPS} "
+            f"timed steps after 1 warm-up), {x['tokens'] / med * 1e3:.0f} "
+            f"tokens/s a rank at the median, peak {x['peak_gib']:.3f} GiB; "
+            f"the step {x['seconds']:.2f}s in all, by part "
+            f"{ {k: round(v, 2) for k, v in x['laps'].items()} }; launches "
+            f"{x['launches']} (tensor core "
+            f"{x['tensor_core']}; expected {want}); parameter bytes "
+            f"{x['bytes'][0]}, moment bytes {x['moment_bytes']} "
+            f"(bytes_per_device {x['bytes'][1]}); kernel calls "
+            f"{x['shapes']}; |kernel - plain| {x['errs']} [{card}]")
+        log(f"{tag} rank {r}: collectives in the {TP_TRAIN_STEPS} timed "
+            f"steps, forward and remat recompute {fwd}; backward {bwd} "
+            f"[{card}]")
+        if x["launches"] != want or x["tensor_core"] != want:
+            raise AssertionError(f"{tag} rank {r}: launches {x['launches']}"
+                                 f" (tensor core {x['tensor_core']}), "
+                                 f"expected {want}")
+        if x["bytes"][0] != x["bytes"][1] or \
+                x["moment_bytes"] != 2 * x["bytes"][1]:
+            raise AssertionError(f"{tag} rank {r} holds {x['bytes'][0]} "
+                                 f"parameter and {x['moment_bytes']} moment "
+                                 f"bytes, bytes_per_device says "
+                                 f"{x['bytes'][1]}")
+        if not x["finite"]:
+            raise AssertionError(f"{tag} rank {r}: non-finite values")
+        lead = recs[0][tag]
+        for k in ("losses", "grad_norms", "digest"):
+            if x[k] != lead[k]:
+                raise AssertionError(f"{tag}: rank {r}'s {k} differ from "
+                                     "rank 0's")
+    x = recs[0][tag]
+    gaps = [abs(a - b) for a, b in zip(x["losses"], y["losses"])]
+    log(f"{tag}: {TP_RANKS} ranks == P = 1: losses {x['losses']} (P = 1 "
+        f"{y['losses']}), largest gap {max(gaps):.6f} (tolerance "
+        f"{TRAIN_LOSS_TOL}); grad_norm {x['grad_norms']} (P = 1 "
+        f"{y['grad_norms']}); smallest first-step gradient cosine by rank "
+        f"{[[round(c, 6), leaf] for c, leaf in y['cosines']]} (tolerance "
+        f"{TRAIN_COSINE}); every rank's losses, grad norms and whole "
+        f"leaves bit-equal; tokens whose own top-k at P = 1 differs from "
+        f"the mesh run's choice {y['flips']}; P = 1 run "
+        f"{y['seconds']:.2f}s [{card}]")
+    if max(gaps) > TRAIN_LOSS_TOL or \
+            min(c for c, _ in y["cosines"]) < TRAIN_COSINE:
+        raise AssertionError(f"{tag}: the (1, {TP_RANKS}) mesh and P = 1 "
+                             "disagree")
+    return x["launches"][name], max(rec[tag]["errs"].get(name, 0.0)
+                                    for rec in recs)
 
 
 def _check_dp(recs, card):
@@ -4825,12 +5220,22 @@ def phase_times(shapes):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
-    _ssd_rows(rows, shapes, ("ssd_fused", "ssd_fused/hymba",
-                             "ssd_fused/tp-mamba2"))
+    _ssd_rows(rows, shapes, ("ssd_fused", "ssd_fused/hymba"))
     _flash_rows(rows, shapes, ("flash_attention/window",
                                "flash_attention/global") + tuple(
-        f"flash_attention/{tag}" for tag in FAMILY_PHASES) + TP_FLASH_ROWS)
+        f"flash_attention/{tag}" for tag in FAMILY_PHASES))
     rows["flash_attention"] = rows["flash_attention/window"]
+    return rows
+
+
+def phase_tp_times(shapes):
+    """The tp phase's rows, timed after it as the times phase times the
+    others: ssd_fused at rank 0's mamba2 calls (serving, training),
+    flash_attention at rank 0's call of each TP_FLASH_ROWS step."""
+    rows = {}
+    _ssd_rows(rows, shapes, ("ssd_fused/tp-mamba2",
+                             "ssd_fused/tp-train-mamba2"))
+    _flash_rows(rows, shapes, TP_FLASH_ROWS)
     return rows
 
 
@@ -4966,7 +5371,8 @@ ALSO = {"binstats": ("binstats/table1",),
         "iqr_fences": ("iqr_fences/f32", "iqr_fences/micro",
                        "iqr_fences/120k", "iqr_fences/monitor"),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
-                      "ssd_fused/train-hymba", "ssd_fused/tp-mamba2"),
+                      "ssd_fused/train-hymba", "ssd_fused/tp-mamba2",
+                      "ssd_fused/tp-train-mamba2"),
         "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
         + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES)
         + TP_FLASH_ROWS,
@@ -5136,6 +5542,13 @@ def main() -> int:
         del f_calls, call
         _free(dev)
         lap(tag)
+    # the times phase comes before the tp phase: in the wake of the tp
+    # phase's training steps the profiler lost the device events of the
+    # short iqr_fences calls (F31a: 16 of 20 at best in 6 readings); the
+    # tp phase's rows are timed after it (phase_tp_times)
+    times = phase_times(shapes)
+    _free(dev)          # the tp phase's ranks draw up to ~39 GB at once
+    lap("times")
     tp_work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
         tp_launches, tp_errs, tp_calls = phase_tp(args, tp_work, dev, card)
@@ -5151,8 +5564,8 @@ def main() -> int:
     del tp_calls
     _free(dev)
     lap("tp")
-    times = phase_times(shapes)
-    lap("times")
+    times.update(phase_tp_times(shapes))
+    lap("tp times")
     phase_host_trace(shapes)
     lap("host trace")
     # the training phases come after the times phase: in their wake the

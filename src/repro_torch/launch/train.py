@@ -15,8 +15,10 @@ checkpoints with auto-resume from ``--workdir``, and the straggler
 monitor on the run's own step telemetry. A full config must fit the card
 at 20 B a parameter of training state (the 15 B models and
 deepseek-v2-236b do not; ``--smoke`` fits anywhere).
-``--production-mesh`` (tensor parallelism over a mesh) is not ported
-yet.
+``--production-mesh`` (the reference's (16, 16) mesh, which has a data
+axis) raises: training with a data axis waits (ROADMAP Queue 1 item
+2c-ii). Training on a ``(1, T)`` mesh of T ranks is
+``Trainer(..., mesh=make_host_mesh(model=T))`` in each rank's process.
 """
 
 from __future__ import annotations
@@ -46,12 +48,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--workdir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--production-mesh", action="store_true",
-                    help="sharded training over a mesh (not ported yet)")
+                    help="training on the (16, 16) mesh (not ported yet)")
     args = ap.parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: sharded training is not ported yet "
-            "(ROADMAP Queue 1 item 2c)")
+            "--production-mesh: the (16, 16) mesh has a data axis, and "
+            "training with one is not ported yet (ROADMAP Queue 1 item "
+            "2c-ii)")
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(

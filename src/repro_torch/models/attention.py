@@ -137,8 +137,10 @@ def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
                  positions: torch.Tensor,
                  ctx: Optional[ParallelCtx] = None):
     """q, k and v of the heads ``params`` hold (a rank's, under a
-    tensor-parallel ``ctx``: the whole biases are cut to them)."""
+    tensor-parallel ``ctx``: the whole biases are cut to them, and ``x``
+    enters the rank's heads, ``tp.enter``)."""
     dt = x.dtype
+    x = tp.enter(x, ctx)
     q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
     if "bq" in params:
         q = q + tp.local_block(params["bq"], q.shape[2], ctx).to(dt)
@@ -250,12 +252,22 @@ def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
 
 # --- MLA (deepseek-v2) -------------------------------------------------------
 
+def _split_heads(params, cfg: AttnConfig) -> bool:
+    """Whether ``params`` hold a rank's share of MLA's heads (where T does
+    not divide them, every rank runs them all)."""
+    return params["wo"].shape[0] < cfg.n_heads
+
+
 def _mla_query(params, x: torch.Tensor, cfg: AttnConfig,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor,
+               ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """(B, S, H, nope + rope): the up-projected query, RoPE on its rope
-    part."""
+    part; the whole query latent enters the rank's heads (``tp.enter``)
+    where they are split."""
     dn = cfg.qk_nope_dim
     q_lat = rmsnorm(params["q_norm"], _heads(x, params["wq_a"]))
+    if _split_heads(params, cfg):
+        q_lat = tp.enter(q_lat, ctx)
     q = _heads(q_lat, params["wq_b"])
     return torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions,
                                               cfg.rope_theta)], dim=-1)
@@ -276,7 +288,7 @@ def _mla_out(params, o: torch.Tensor, cfg: AttnConfig,
     """``wo`` on the heads ``params`` hold, the ranks' partials summed
     where the rules split the heads (where T does not divide them, every
     rank runs them all and no sum is needed)."""
-    return _out(params, o, ctx, params["wo"].shape[0] < cfg.n_heads)
+    return _out(params, o, ctx, _split_heads(params, cfg))
 
 
 def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
@@ -291,11 +303,14 @@ def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = _mla_query(params, x, cfg, positions)
+    q = _mla_query(params, x, cfg, positions, ctx)
     latent, k_rope = _mla_latent(params, x, cfg, positions)
-    k_nope = _heads(latent, params["wk_b"])
-    v = _heads(latent, params["wv_b"])
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    lat, rope = latent, k_rope
+    if _split_heads(params, cfg):     # whole tensors into the rank's heads
+        lat, rope = tp.enter(latent, ctx), tp.enter(k_rope, ctx)
+    k_nope = _heads(lat, params["wk_b"])
+    v = _heads(lat, params["wv_b"])
+    k = torch.cat([k_nope, rope[:, :, None, :].expand(
         b, s, k_nope.shape[2], cfg.qk_rope_dim)], dim=-1)
     out = flash_attention(q, k, v, causal=cfg.causal, scale=1.0 / math.sqrt(
         cfg.qk_nope_dim + cfg.qk_rope_dim))

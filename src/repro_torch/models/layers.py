@@ -19,10 +19,15 @@ import torch.nn.functional as F
 
 
 def truncated_normal(shape: Sequence[int], scale: float, *,
-                     generator: torch.Generator, device: torch.device,
+                     generator: Optional[torch.Generator],
+                     device: torch.device,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``scale`` times a standard normal truncated at ±2, drawn in float32
-    and returned in ``dtype``."""
+    and returned in ``dtype``. Without a generator nothing is drawn: the
+    shape alone, as a 0-stride view of one element (no memory)."""
+    if generator is None:
+        return torch.empty((), dtype=dtype, device=device).expand(
+            tuple(shape))
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(scale).to(dtype)

@@ -3,6 +3,7 @@
 
 Public entry points (functions of (cfg, params, ...)):
   init_params    parameters on the card (or the CPU when asked)
+  param_shapes   the whole tree's shapes and types, nothing drawn
   loss_fn        training loss (chunked CE: the (B, S, V) float32 logits
                  are never held whole) plus the MoE layers' aux losses
   forward_hidden trunk output and the layers' metrics
@@ -28,6 +29,9 @@ and the head are vocab-parallel where the rules split the vocabulary
 (the logits gathered along V, so every rank of a data row holds the
 same (B, V)), the layers run :mod:`.tp`'s blocks, and the caches hold
 the rank's rows and its KV heads, SSM heads and ``conv_x`` channels.
+``loss_fn`` takes a context of one data rank (training at ``(1, T)``):
+the whole batch on every rank, the layers' collectives with their
+backward, and the loss vocab-parallel where the vocabulary is split.
 """
 
 from __future__ import annotations
@@ -100,8 +104,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     the peak is the finished tree plus one float32 leaf; the draws come
     in the generator order of drawing the whole float32 tree first."""
     dev = resolve_device(device)
-    dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
+    return _draw(cfg, gen, dev, dtype or cfg.dtype)
+
+
+def _draw(cfg: ModelConfig, gen: Optional[torch.Generator],
+          dev: torch.device, dtype: torch.dtype) -> Dict:
     kw = {"generator": gen, "device": dev, "dtype": dtype}
     p: Dict[str, Any] = {
         "embed": {"tokens": embed_init((cfg.vocab, cfg.d_model), **kw)},
@@ -121,6 +129,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     p["segments"] = [segment_init(spec, count, cfg.d_model, **kw)
                      for spec, count in cfg.plan]
     return cast_params(p, dtype)      # the undrawn biases and norms
+
+
+def param_shapes(cfg: ModelConfig, dtype: torch.dtype = torch.float32
+                 ) -> Dict:
+    """The whole parameter tree's shapes and types without its data: each
+    matrix a 0-stride view of one element on the CPU (nothing drawn), the
+    vectors small tensors. What a rank holding only its blocks reads the
+    rules from."""
+    return _draw(cfg, None, torch.device("cpu"), dtype)
 
 
 def param_count(params) -> int:
@@ -198,8 +215,31 @@ def _chunk_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
     return ((lse - corr) * mask).sum()
 
 
+def _chunk_ce_tp(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """:func:`_chunk_ce` where ``w_vd`` is this rank's block of V/T rows:
+    the rank's (B, c, V/T) float32 logits, never gathered. The
+    log-sum-exp shifts by the largest of the ranks' (B, c) maxima and
+    adds their sums of exponentials, the label's logit comes from the
+    rank that owns it, both by one ordered sum (identical on every
+    rank)."""
+    logits = (h @ w_vd.to(h.dtype).T).float()
+    n = w_vd.shape[0]
+    with torch.no_grad():          # the shift: lse does not depend on it
+        top = tp.gather_max(logits.amax(-1), ctx)
+    local = labels.long() - ctx.tensor_rank * n
+    mine = (local >= 0) & (local < n)
+    corr = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    sums = tp.ordered_sum(torch.stack([
+        torch.exp(logits - top[..., None]).sum(-1),
+        torch.where(mine, corr, 0.0)]), ctx)
+    lse = top + torch.log(sums[0])
+    return ((lse - sums[1]) * mask).sum()
+
+
 def chunked_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor, chunk: int,
+               ctx: Optional[ParallelCtx] = None,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without holding the (B, S, V) logits.
 
@@ -207,7 +247,10 @@ def chunked_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
     S is padded to a multiple of ``min(chunk, S)`` as the reference pads
     it, and each chunk's CE runs under ``torch.utils.checkpoint`` when
     grad mode is on: backward keeps h and recomputes one chunk's logits
-    at a time. Returns (sum_ce, sum_mask), float32."""
+    at a time. Given ``ctx``, ``w_vd`` is this rank's block of the
+    vocabulary (vocab-parallel): each chunk is :func:`_chunk_ce_tp`, and
+    ``h`` is entered (``tp.enter``), so the ranks' partial gradients of
+    h add up. Returns (sum_ce, sum_mask), float32."""
     b, s, _ = h.shape
     c = min(chunk, s)
     nc = -(-s // c)
@@ -217,25 +260,36 @@ def chunked_ce(h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    fn, extra = _chunk_ce, ()
+    if ctx is not None:
+        h, fn, extra = tp.enter(h, ctx), _chunk_ce_tp, (ctx,)
     for i in range(nc):
         sl = slice(i * c, (i + 1) * c)
-        args = (h[:, sl], w_vd, labels[:, sl], mask[:, sl])
+        args = (h[:, sl], w_vd, labels[:, sl], mask[:, sl]) + extra
         if torch.is_grad_enabled():
-            tot = tot + checkpoint(_chunk_ce, *args, use_reentrant=False)
+            tot = tot + checkpoint(fn, *args, use_reentrant=False)
         else:
-            tot = tot + _chunk_ce(*args)
+            tot = tot + fn(*args)
     return tot, mask.sum()
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict,
+            ctx: Optional[ParallelCtx] = None,
             ) -> Tuple[torch.Tensor, Dict]:
     """Mean masked CE plus the MoE layers' aux losses. ``batch`` holds the
     model's inputs (tokens; frames for the audio frontend; patches and
     positions3 for the VLM one), labels (B, S_text) and optionally
     loss_mask (B, S_text); meta-token and patch positions carry no loss.
     Returns (loss, {"ce", "loss"} and the layers' metrics, aux_loss and
-    dropped for an MoE model)."""
-    h, _, metrics, prefix = forward_hidden(cfg, params, batch, "train")
+    dropped for an MoE model).
+
+    Under a context of one data rank and T tensor ranks, ``params`` are
+    the rank's (``shard_params``) and ``batch`` the whole batch: the loss
+    is vocab-parallel where the rules split the vocabulary (the
+    reference's §Perf H3: the logits stay on their rank), and every rank
+    computes the same loss, bit for bit."""
+    h, _, metrics, prefix = forward_hidden(cfg, params, batch, "train",
+                                           ctx=ctx)
     if prefix:
         h = h[:, prefix:]
     labels = torch.as_tensor(batch["labels"], device=h.device)
@@ -243,8 +297,10 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
             if mask is None else
             torch.as_tensor(mask, device=h.device).float())
-    tot, cnt = chunked_ce(h * _head_scale(cfg), _head_weight(cfg, params),
-                          labels, mask, cfg.loss_chunk)
+    w_vd = _head_weight(cfg, params)
+    tot, cnt = chunked_ce(h * _head_scale(cfg), w_vd, labels, mask,
+                          cfg.loss_chunk,
+                          ctx if w_vd.shape[0] < cfg.vocab else None)
     ce = tot / cnt.clamp_min(1.0)
     metrics["ce"] = ce
     loss = ce + metrics["aux_loss"] if "aux_loss" in metrics else ce

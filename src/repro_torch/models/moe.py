@@ -60,6 +60,16 @@ over ranks: they come out in float32 and are combined in float32, so
 each sum rounds to the activation dtype once. The shared experts (deepseek) are
 cut on their hidden dim by the dense FFN's rules and run column x row
 parallel with one ordered sum.
+
+In training (T > 1, one data rank) every collective above carries its
+backward (:mod:`.tp`), and the whole tensors that enter a rank's work
+are entered (``tp.enter``): on ``ep`` the layer's input and the router,
+whose gradients on a rank come from its sequence block alone; on
+``replicated`` the tokens and the routing weights as they enter the
+rank's experts; the shared experts' input where their hidden dim is
+split. The aux loss's ordered mean divides its gradient by the ranks;
+on ``replicated``, whose ranks route alike, the aux loss is entered first,
+so the T equal copies' gradients add up to the whole.
 """
 
 from __future__ import annotations
@@ -244,8 +254,10 @@ def _moe_ep(params, x: torch.Tensor, cfg: MoEConfig, ctx: ParallelCtx):
     b, s, d = x.shape
     t, r = ctx.tensor_size, ctx.tensor_rank
     e_loc, n = cfg.n_experts // t, s // t
-    tokens = x[:, r * n:(r + 1) * n].reshape(b * n, d)
-    top_w, top_i, aux = _route(params["router"], tokens, cfg)
+    # the whole x and router into the rank's sequence block
+    tokens = tp.enter(x, ctx)[:, r * n:(r + 1) * n].reshape(b * n, d)
+    top_w, top_i, aux = _route(tp.enter(params["router"], ctx), tokens,
+                               cfg)
     cap = _capacity(b * n, cfg)
     buf, slot, order, keep = _dispatch(tokens, top_i, cfg, cap)
     # (E, C, D): rows of experts [j E/T, (j+1) E/T) to rank j; received
@@ -273,12 +285,16 @@ def _expert_slice(experts, tokens: torch.Tensor, cfg: MoEConfig,
     lo = ctx.tensor_rank * e_loc
     top_w, top_i, aux = _route(experts["router"], tokens, cfg)
     cap = _capacity(t, cfg)
-    buf, slot, order, keep = _dispatch(tokens, top_i, cfg, cap)
+    # every rank routes alike; the tokens and the weights enter the
+    # rank's experts (their gradients there are the rank's partials)
+    buf, slot, order, keep = _dispatch(tp.enter(tokens, ctx), top_i, cfg,
+                                       cap)
     out_buf = torch.zeros(buf.shape, device=buf.device,
                           dtype=torch.float32)
     out_buf[lo:lo + e_loc] = _expert_ffn(experts["experts"],
                                          buf[lo:lo + e_loc], wide=True)
-    out = _combine(out_buf, slot, order, keep, top_w, t, d, cfg.top_k)
+    out = _combine(out_buf, slot, order, keep, tp.enter(top_w, ctx), t, d,
+                   cfg.top_k)
     return out, aux, 1.0 - keep.float().mean()
 
 
@@ -289,7 +305,10 @@ def _moe_replicated(params, tokens: torch.Tensor, cfg: MoEConfig,
     out, aux, dropped = _expert_slice(
         {"router": params["router"],
          "experts": _tables(params["experts"], cfg, ctx)}, tokens, cfg, ctx)
-    aux, dropped = tp.ordered_mean(torch.stack([aux, dropped]), ctx)
+    # every rank of a data row routed its tokens alike: the T copies'
+    # gradients add up to the row's
+    aux, dropped = tp.ordered_mean(tp.enter(torch.stack([aux, dropped]),
+                                            ctx), ctx)
     return tp.ordered_sum(out, ctx).to(tokens.dtype), aux, dropped
 
 
@@ -346,9 +365,10 @@ def moe_forward(params, x: torch.Tensor, cfg: MoEConfig,
     if "shared" in params:
         sh = params["shared"]
         dt = x.dtype
-        h = F.silu(x @ sh["w_gate"].to(dt)) * (x @ sh["w_up"].to(dt))
         # a rank's hidden columns give a partial (whole where T does not
         # divide the shared hidden dim)
         split = sh["w_down"].shape[0] < cfg.n_shared * cfg.d_ff
+        xs = tp.enter(x, ctx) if split else x
+        h = F.silu(xs @ sh["w_gate"].to(dt)) * (xs @ sh["w_up"].to(dt))
         out = out + tp.sum_matmul(h, sh["w_down"], ctx, split)
     return out, metrics

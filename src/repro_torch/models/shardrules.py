@@ -27,7 +27,10 @@ the MoE's expert tables by expert, see there) and its rows of the batch
 explicit collectives (:mod:`.tp`): each layer's ``fsdp`` leaves are
 gathered over ``data`` at use, and where the reference leaves the
 collectives to GSPMD's partitioner, every sum here is an ordered
-gather-and-add. Training on such a mesh waits (ROADMAP Queue 1 item 2c).
+gather-and-add. Training runs on a ``(1, T)`` mesh, each rank holding
+its blocks of the master weights and of both moments as
+:func:`shard_params` places them; training with a data axis waits
+(ROADMAP Queue 1 item 2c-ii).
 """
 
 from __future__ import annotations
@@ -290,8 +293,8 @@ def make_ctx(mesh: Optional[Mesh], inference: bool = False
         raise NotImplementedError(
             f"mesh {mesh.shape} is a description: a context runs on its "
             f"{mesh.size} ranks. Lowering a step on a description is the "
-            "dry-run's, which waits for sharded training (ROADMAP Queue 1 "
-            "item 2c, then item 3)")
+            "dry-run's, which waits for training with a data axis (ROADMAP "
+            "Queue 1 item 2c-ii, then item 3)")
     batch, tensor = batch_axes(mesh), tensor_axis(mesh)
     cut = [a for a in batch if mesh.shape[a] > 1]
     if len(cut) > 1:
@@ -402,14 +405,25 @@ def shard_params(params, ctx: Optional[ParallelCtx]):
     way, so ``bytes_per_device`` still counts them."""
     if ctx is None:
         return params
+    return _map(lambda path, x: _block(x, held_spec(
+        path, tuple(x.shape), ctx.mesh, ctx.inference), ctx), params)
 
-    def block(path, x):
-        shape = tuple(x.shape)
-        spec = (expert_spec(path, shape, ctx.mesh, ctx.inference)
-                if re.search(EXPERT_TABLE, path)
-                else spec_for(path, shape, ctx.mesh, ctx.inference))
-        return _block(x, spec, ctx)
-    return _map(block, params)
+
+def held_spec(path: str, shape: Tuple[int, ...], mesh: Mesh,
+              inference: bool = False) -> Spec:
+    """The layout :func:`shard_params` holds a leaf in: the expert tables
+    by expert (:func:`expert_spec`), every other leaf as
+    :func:`spec_for` says."""
+    if re.search(EXPERT_TABLE, path):
+        return expert_spec(path, shape, mesh, inference)
+    return spec_for(path, shape, mesh, inference)
+
+
+def held_specs(params, mesh: Mesh, inference: bool = False):
+    """:func:`held_spec` of every leaf of a whole tree (tensors or meta
+    tensors), in its structure."""
+    return _map(lambda path, x: held_spec(path, tuple(x.shape), mesh,
+                                          inference), params)
 
 
 def shard_batch(batch, ctx: Optional[ParallelCtx]):

@@ -116,11 +116,13 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
           ctx: Optional[ParallelCtx]) -> torch.Tensor:
     """:func:`_causal_conv` of the channels ``w`` holds: where ``x`` is
     whole and ``w`` a rank's block, the rank's block of channels, then
-    the ranks' blocks gathered (exact: each channel is its own conv)."""
+    the ranks' blocks gathered (exact: each channel is its own conv) and
+    entered (``tp.enter``) for the rank's heads."""
     if w.shape[1] == x.shape[2]:
         return _causal_conv(x, w, b)
     x = tp.local_block(x, w.shape[1], ctx, dim=2)
-    return tp.gather_cat(_causal_conv(x, w, b), -1, ctx)
+    # the whole result feeds the scan on the rank's heads
+    return tp.enter(tp.gather_cat(_causal_conv(x, w, b), -1, ctx), ctx)
 
 
 def _conv_step(state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
@@ -147,20 +149,26 @@ def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                 ) -> torch.Tensor:
     """RMS norm of ``y * silu(z)`` over the whole ``d_inner``: at T > 1
     ``y`` and ``z`` hold a rank's channels, and the sum of squares is a
-    float32 ordered sum over the ranks."""
+    float32 ordered sum over the ranks, entered (``tp.enter``) for the
+    rank's channels."""
     gf = (y * F.silu(z)).float()
     t = tp_size(ctx)
     if t == 1:
         var = (gf * gf).mean(-1, keepdim=True)
     else:
-        var = tp.ordered_sum((gf * gf).sum(-1, keepdim=True), ctx) / (
-            gf.shape[-1] * t)
+        var = tp.enter(tp.ordered_sum((gf * gf).sum(-1, keepdim=True),
+                                      ctx), ctx) / (gf.shape[-1] * t)
     return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
-def _projections(params, x: torch.Tensor):
-    return (x @ params["in_z"], x @ params["in_x"], x @ params["in_b"],
-            x @ params["in_c"], x @ params["in_dt"])
+def _projections(params, x: torch.Tensor,
+                 ctx: Optional[ParallelCtx] = None):
+    """z, x, B, C and dt's projections: ``in_b`` and ``in_c`` are whole
+    and read ``x`` as it is; the others hold the rank's heads and read it
+    entered (``tp.enter``)."""
+    xe = tp.enter(x, ctx)
+    return (xe @ params["in_z"], xe @ params["in_x"], x @ params["in_b"],
+            x @ params["in_c"], xe @ params["in_dt"])
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
@@ -171,7 +179,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
     keeps no decode cache). At T > 1 the scan runs on the rank's heads."""
     tp.check_ssm(cfg, ctx)
     bsz, s, _ = x.shape
-    z, xr, Br, Cr, dt_raw = _projections(params, x)
+    z, xr, Br, Cr, dt_raw = _projections(params, x, ctx)
     xc = _conv(xr, params["conv_x"]["w"], params["conv_x"]["b"], ctx)
     Bc = _conv(Br, params["conv_b"]["w"], params["conv_b"]["b"], ctx)
     Cc = _conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"], ctx)
@@ -211,7 +219,7 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
     loop donates it to the jitted step for the same effect)."""
     tp.check_ssm(cfg, ctx)
     bsz = x.shape[0]
-    z, xr, Br, Cr, dt_raw = _projections(params, x)
+    z, xr, Br, Cr, dt_raw = _projections(params, x, ctx)
     xc = _conv_step(cache["conv_x"], xr, params["conv_x"]["w"],
                     params["conv_x"]["b"], ctx)
     Bc = _conv_step(cache["conv_b"], Br, params["conv_b"]["w"],

@@ -38,6 +38,23 @@ its branch needs (:mod:`.moe`). :func:`rows_gather` / :func:`rows_take`
 gather the data ranks' rows of a batch in order and take this rank's
 back.
 
+In training every one of them carries its backward (a
+``torch.autograd.Function``), Megatron's rule: a tensor every rank
+holds whole gets a gradient every rank holds whole and bit-equal.
+:func:`ordered_sum`'s backward is the identity; :func:`enter`, the
+identity forward where a whole tensor enters work a rank does on its
+own block (its heads, channels, experts, vocabulary block or sequence
+block), adds the ranks' partial gradients back by an ordered sum (timed
+as ``tp_sum_bwd``); :func:`gather_cat`'s backward keeps the rank's own
+slice, :func:`all_to_all`'s is the inverse exchange (``tp_all_to_all_bwd``),
+and :func:`ordered_mean`'s divides by n. No ring ``all_reduce`` is used:
+its order moves with the length, and the ranks' whole leaves would
+drift apart. On the card :func:`matmul_f32`'s product has a backward of
+its own, the 16-bit products a one-rank step takes.
+:func:`gather_many`, :func:`gather_fsdp`, :func:`rows_gather` and
+:func:`rows_take` carry none: training with a data axis waits
+(ROADMAP Queue 1 item 2c-ii).
+
 The FFN is column x row parallel with one sum after ``w_down``;
 attention (MLA too) runs rank r's query heads ``[r H/T, (r+1) H/T)``
 and the KV heads they read, with one sum after ``wo``, whatever its
@@ -60,7 +77,7 @@ from .shardrules import (EXPERT_TABLE, ParallelCtx, _map, dp_size,
                          fsdp_dims, tp_size)
 
 # the queue items that name what waits (ROADMAP.md, Queue 1)
-SHARDED_TRAINING = "ROADMAP Queue 1 item 2c"
+SHARDED_TRAINING = "ROADMAP Queue 1 item 2c-ii"
 LENGTH_SHARDED = "ROADMAP Queue 1 item 8"
 
 MESH = "mesh"                 # the axis argument for the whole mesh
@@ -103,17 +120,116 @@ def _gather(x: torch.Tensor, ctx: ParallelCtx, name: str,
     return [p.view(x.dtype) for p in parts]
 
 
-def ordered_sum(x: torch.Tensor, ctx: Optional[ParallelCtx],
-                axis: str = "model") -> torch.Tensor:
-    """The sum over ``axis`` of every rank's partial ``x``: added in
-    ascending rank order in float32, cast once to ``x``'s dtype."""
-    if _axis(ctx, axis)[0] == 1:
-        return x
-    parts = _gather(x, ctx, "sum", axis)
+def _axis_rank(ctx: ParallelCtx, axis: str) -> int:
+    """This rank's index along ``axis``."""
+    if axis == "model":
+        return ctx.tensor_rank
+    if axis == "data":
+        return ctx.data_rank
+    return dist.get_rank()
+
+
+def _sum(x: torch.Tensor, ctx: ParallelCtx, axis: str,
+         name: str = "sum") -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` added in ascending rank order in
+    float32, cast once to ``x``'s dtype."""
+    parts = _gather(x, ctx, name, axis)
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p.float()
     return acc.to(x.dtype)
+
+
+class _OrderedSum(torch.autograd.Function):
+    """:func:`_sum` forward; the identity backward (every rank's partial
+    gets the whole sum's gradient, which every rank holds alike)."""
+
+    @staticmethod
+    def forward(fc, x, ctx, axis):
+        return _sum(x, ctx, axis)
+
+    @staticmethod
+    def backward(fc, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity forward; backward, the ranks' partial gradients
+    added in rank order (:func:`_sum`, timed ``<axis>_sum_bwd``)."""
+
+    @staticmethod
+    def forward(fc, x, ctx, axis):
+        fc.pctx, fc.axis = ctx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fc, g):
+        return _sum(g, fc.pctx, fc.axis, "sum_bwd"), None, None
+
+
+def ordered_sum(x: torch.Tensor, ctx: Optional[ParallelCtx],
+                axis: str = "model") -> torch.Tensor:
+    """The sum over ``axis`` of every rank's partial ``x``: added in
+    ascending rank order in float32, cast once to ``x``'s dtype. Its
+    backward is the identity."""
+    if _axis(ctx, axis)[0] == 1:
+        return x
+    return _OrderedSum.apply(x, ctx, axis)
+
+
+def gather_max(x: torch.Tensor, ctx: ParallelCtx,
+               axis: str = "model") -> torch.Tensor:
+    """The elementwise largest of the ranks' ``x`` (exact in any order;
+    no gradient), timed as ``<axis>_max``."""
+    if _axis(ctx, axis)[0] == 1:
+        return x
+    return torch.stack(_gather(x.detach(), ctx, "max", axis)).amax(0)
+
+
+def enter(x: torch.Tensor, ctx: Optional[ParallelCtx],
+          axis: str = "model") -> torch.Tensor:
+    """``x``, a tensor every rank holds whole, as it enters work each rank
+    does on its own block: the identity forward, and backward the
+    ranks' partial gradients of ``x`` ordered-summed, so every rank
+    holds the whole gradient, bit-equal. Only where the consumer is
+    rank-local: a whole consumer already gets the whole gradient."""
+    if _axis(ctx, axis)[0] == 1:
+        return x
+    return _Enter.apply(x, ctx, axis)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The card's 16-bit product with a float32 result (cuBLAS's
+    ``out_dtype``); backward the 16-bit products of the gradient rounded
+    to the operands' dtype, as a one-rank 16-bit product's backward
+    takes them."""
+
+    @staticmethod
+    def forward(fc, a, w):
+        fc.save_for_backward(a, w)
+        if w.dim() == 3:
+            return torch.bmm(a, w, out_dtype=torch.float32)
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).view(*a.shape[:-1],
+                                                      w.shape[-1])
+
+    @staticmethod
+    def backward(fc, g):
+        a, w = fc.saved_tensors
+        g = g.to(a.dtype)
+        ga = gw = None
+        if w.dim() == 3:
+            if fc.needs_input_grad[0]:
+                ga = torch.bmm(g, w.transpose(1, 2))
+            if fc.needs_input_grad[1]:
+                gw = torch.bmm(a.transpose(1, 2), g)
+            return ga, gw
+        g2 = g.reshape(-1, g.shape[-1])
+        if fc.needs_input_grad[0]:
+            ga = (g2 @ w.T).view(a.shape)
+        if fc.needs_input_grad[1]:
+            gw = a.reshape(-1, a.shape[-1]).T @ g2
+        return ga, gw
 
 
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -126,11 +242,7 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w = w.to(a.dtype)
     if not (a.is_cuda and a.element_size() == 2):
         return a.float() @ w.float()
-    if w.dim() == 3:
-        return torch.bmm(a, w, out_dtype=torch.float32)
-    return torch.mm(a.reshape(-1, a.shape[-1]), w,
-                    out_dtype=torch.float32).view(*a.shape[:-1],
-                                                  w.shape[-1])
+    return _MatmulF32.apply(a, w)
 
 
 def sum_matmul(a: torch.Tensor, w: torch.Tensor,
@@ -146,20 +258,38 @@ def sum_matmul(a: torch.Tensor, w: torch.Tensor,
     return ordered_sum(matmul_f32(a, w), ctx).to(a.dtype)
 
 
+class _GatherCat(torch.autograd.Function):
+    """The ranks' blocks concatenated in rank order; backward the rank's
+    own slice of the whole gradient."""
+
+    @staticmethod
+    def forward(fc, x, dim, ctx, axis, name):
+        fc.dim, fc.n = dim, x.shape[dim]
+        fc.lo = _axis_rank(ctx, axis) * fc.n
+        return torch.cat(_gather(x, ctx, name, axis), dim=dim)
+
+    @staticmethod
+    def backward(fc, g):
+        return g.narrow(fc.dim, fc.lo, fc.n), None, None, None, None
+
+
 def gather_cat(x: torch.Tensor, dim: int, ctx: Optional[ParallelCtx],
                axis: str = "model", name: str = "gather") -> torch.Tensor:
     """The ranks' blocks of ``x`` along ``axis`` concatenated along
-    ``dim`` in rank order."""
+    ``dim`` in rank order. Its backward keeps the rank's slice: where
+    the whole result feeds rank-local work, :func:`enter` it."""
     if _axis(ctx, axis)[0] == 1:
         return x
-    return torch.cat(_gather(x, ctx, name, axis), dim=dim)
+    return _GatherCat.apply(x, dim, ctx, axis, name)
 
 
 def ordered_mean(x: torch.Tensor, ctx: Optional[ParallelCtx]
                  ) -> torch.Tensor:
     """The mean over the whole mesh of every rank's float32 ``x``: the
     values added in ascending rank order, then divided by their number,
-    so every rank holds the same bits."""
+    so every rank holds the same bits. Backward: the gradient over n (a
+    value every rank of a data row holds alike enters first,
+    :func:`enter`, so its copies' gradients add up)."""
     n = _axis(ctx, MESH)[0]
     return x if n == 1 else ordered_sum(x, ctx, MESH) / n
 
@@ -230,29 +360,51 @@ def rows_take(x: torch.Tensor, n: int, ctx: Optional[ParallelCtx]
     return x.narrow(0, ctx.data_rank * n, n)
 
 
+def _exchange(x: torch.Tensor, ctx: ParallelCtx, name: str
+              ) -> torch.Tensor:
+    wire = _wire(x)
+    out = torch.empty_like(wire)
+    _timed(name, lambda: dist.all_to_all_single(out, wire,
+                                                group=ctx.group))
+    return out.view(x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_exchange` forward; backward the inverse exchange, which is
+    the same exchange of the gradient (block j received from rank j goes
+    back to rank j)."""
+
+    @staticmethod
+    def forward(fc, x, ctx):
+        fc.pctx = ctx
+        return _exchange(x, ctx, "tp_all_to_all")
+
+    @staticmethod
+    def backward(fc, g):
+        return _exchange(g, fc.pctx, "tp_all_to_all_bwd"), None
+
+
 def all_to_all(x: torch.Tensor, ctx: Optional[ParallelCtx]
                ) -> torch.Tensor:
     """Block j of ``x``'s T equal blocks along dim 0 goes to rank j;
     returns the T blocks this rank receives, stacked along dim 0 in rank
-    order (the shape of ``x``). One ``all_to_all_single``."""
+    order (the shape of ``x``). One ``all_to_all_single``; its backward
+    is the inverse exchange."""
     if tp_size(ctx) == 1:
         return x
-    wire = _wire(x)
-    out = torch.empty_like(wire)
-    _timed("tp_all_to_all", lambda: dist.all_to_all_single(
-        out, wire, group=ctx.group))
-    return out.view(x.dtype)
+    return _AllToAll.apply(x, ctx)
 
 
 def local_block(t: torch.Tensor, n: int, ctx: Optional[ParallelCtx],
                 dim: int = 0) -> torch.Tensor:
     """This rank's block of ``n`` entries along ``dim`` of a tensor the
     rules keep whole (``bq`` beside a head-split ``wq``, the B and C
-    channels beside a channel-split conv); ``t`` itself when it has ``n``
-    already."""
+    channels beside a channel-split conv), entered (:func:`enter`): the
+    ranks' gradients of their blocks add up to the whole one. ``t``
+    itself when it has ``n`` already."""
     if t.shape[dim] == n:
         return t
-    return t.narrow(dim, ctx.tensor_rank * n, n)
+    return enter(t, ctx).narrow(dim, ctx.tensor_rank * n, n)
 
 
 def check_layer(spec, ctx: Optional[ParallelCtx]) -> None:

@@ -20,8 +20,12 @@ A mesh context (:mod:`.shardrules`) reaches every mixer and FFN, whose
 parameters are then the rank's (:mod:`.tp`): each layer first gathers
 its leaves cut over ``data`` (``tp.gather_fsdp``), and the gathered
 blocks go when the layer returns; at T > 1 a layer the layout does not
-cover raises (``tp.check_layer``), and training under a context of more
-than one rank raises (sharded training, ROADMAP Queue 1 item 2c).
+cover raises (``tp.check_layer``). Training runs under a context of one
+data rank and T tensor ranks: every collective carries its backward
+(:mod:`.tp`), each block enters the whole tensors its rank-local work
+reads (``tp.enter``), and under remat ``"full"`` the recompute issues
+the layer's forward collectives again, in the same order on every rank.
+Training with a data axis raises (ROADMAP Queue 1 item 2c-ii).
 """
 
 from __future__ import annotations
@@ -168,12 +172,14 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
                                  ctx)
         x = x + h
     elif "ffn" in params:
-        h = ffn_hidden(params["ffn"], _norm(spec, params["norm2"], x),
-                       spec.activation)
         # a rank's hidden columns give a partial (the rules keep a d_ff
         # that T does not divide whole, and every rank runs it whole)
         w_down = params["ffn"]["w_down"]
-        x = x + tp.sum_matmul(h, w_down, ctx, w_down.shape[0] < spec.d_ff)
+        split = w_down.shape[0] < spec.d_ff
+        x_n = _norm(spec, params["norm2"], x)
+        h = ffn_hidden(params["ffn"], tp.enter(x_n, ctx) if split else x_n,
+                       spec.activation)
+        x = x + tp.sum_matmul(h, w_down, ctx, split)
     return x, new_cache, metrics
 
 
@@ -202,18 +208,19 @@ REMAT = ("none", "full", "dots")
 
 
 def check_mode(mode: str, ctx: Optional[ParallelCtx]) -> None:
-    """Raise for training under a context of more than one rank, on every
-    rank alike and before any collective."""
-    if mode == "train" and ctx is not None and ctx.mesh.size > 1:
+    """Raise for training under a context with a data axis, on every rank
+    alike and before any collective."""
+    if mode == "train" and ctx is not None and ctx.data_size > 1:
         raise NotImplementedError(
             f"training on a mesh of {ctx.mesh.size} ranks "
-            f"{dict(ctx.mesh.shape)}: the collectives here carry no "
-            f"gradient and the data axis has no gradient sum; sharded "
-            f"training waits ({tp.SHARDED_TRAINING})")
+            f"{dict(ctx.mesh.shape)}: the data axis's collectives carry no "
+            f"gradient and the FSDP gathers have no backward; training "
+            f"with a data axis waits ({tp.SHARDED_TRAINING})")
 
 
-def _train_layer(layer_p, x, spec, positions):
-    x, _, metrics = layer_forward(layer_p, x, spec, positions, "train")
+def _train_layer(layer_p, x, spec, positions, ctx=None):
+    x, _, metrics = layer_forward(layer_p, x, spec, positions, "train",
+                                  ctx=ctx)
     return x, metrics
 
 
@@ -253,9 +260,9 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
         for layer_p in params:
             if remat == "full" and torch.is_grad_enabled():
                 x, m = checkpoint(_train_layer, layer_p, x, spec, positions,
-                                  use_reentrant=False)
+                                  ctx, use_reentrant=False)
             else:
-                x, m = _train_layer(layer_p, x, spec, positions)
+                x, m = _train_layer(layer_p, x, spec, positions, ctx)
             ms.append(m)
         return x, None, _agg_metrics(ms)
     new_caches, ms = [], []

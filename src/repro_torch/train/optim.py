@@ -8,16 +8,20 @@ place, where the reference's jitted step donates them, one slice of a
 leaf at a time (``row_slices``).
 
 Parameter trees are the port's: dictionaries of tensors, with each
-segment a list of per-layer dictionaries.
+segment a list of per-layer dictionaries. On a ``(1, T)`` mesh each rank
+holds its blocks of the weights and of both moments and updates them
+alone; only the clipping norm is the whole model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models import tp
 
 Path = Tuple
 NO_DECAY = ("scale", "bias", "A_log", "D", "dt_bias", "gain_attn",
@@ -92,9 +96,20 @@ def adamw_init(params) -> Dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, split: Optional[List[bool]] = None,
+                ctx=None) -> torch.Tensor:
+    """The norm of the whole model's ``tree``. Where ``ctx`` has T > 1
+    tensor ranks and ``split`` flags the leaves each rank holds a block
+    of: the squares of those blocks ordered-summed over ``model``, plus
+    the squares of the leaves every rank holds whole, counted once, so
+    every rank gets the same norm, bit for bit."""
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if split is None or tp.tp_size(ctx) == 1:
+        return torch.sqrt(sum(sq))
+    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    part = sum((q for q, cut in zip(sq, split) if cut), zero)
+    whole = sum((q for q, cut in zip(sq, split) if not cut), zero)
+    return torch.sqrt(tp.ordered_sum(part.reshape(1), ctx)[0] + whole)
 
 
 def _decay_mask(path: Path) -> bool:
@@ -106,11 +121,14 @@ def _decay_mask(path: Path) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state: Dict, params,
-                 step) -> Tuple[object, Dict, Dict]:
+                 step, split: Optional[List[bool]] = None,
+                 ctx=None) -> Tuple[object, Dict, Dict]:
     """One AdamW step. ``grads`` may be bf16; moments and parameters
-    update in float32, in place. Returns (params, state, stats), the same
+    update in float32, in place. Under a tensor-parallel ``ctx`` each
+    rank updates its own blocks, clipped by the whole model's norm
+    (:func:`global_norm`). Returns (params, state, stats), the same
     objects as given, with stats {grad_norm, lr} as 0-d tensors."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split, ctx)
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

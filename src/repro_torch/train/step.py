@@ -1,28 +1,41 @@
 """Train step builder: grad-accum microbatching and the bf16 working copy,
-after ``repro/train/step.py``.
+sharded state specs, after ``repro/train/step.py``.
 
 Gradient compression: the forward and backward run against the **bf16
 working copy** of the weights (``cast_params``), so the gradients are
 bf16; master weights, Adam moments and the microbatch accumulator stay
-float32 (``compress_grads=False`` keeps float32 end to end). On one card
-nothing is all-reduced; the option keeps the reference's numbers.
+float32 (``compress_grads=False`` keeps float32 end to end).
 
-The reference's ``state_specs`` and ``jit_train_step`` lay the state
-over a mesh; they come with sharded training (ROADMAP Queue 1 item 2c).
-Its ``batch_specs`` is ``models.shardrules.batch_specs``, which serving
-uses.
+On a ``(1, T)`` mesh (``make_train_step(cfg, tcfg, mesh)``) each rank
+holds its blocks of the master weights and of both moments
+(``init_state(..., mesh=)``: the whole tree drawn from the seed, then
+the rank's blocks kept by ``shard_params``; the expert tables by
+expert), takes the whole batch, runs the forward on its heads,
+channels, experts and vocabulary block and the backward through every
+collective (:mod:`repro_torch.models.tp`), and updates its own blocks,
+clipped by the whole model's norm. ``state_specs`` is the reference's:
+the parameters' and both moments' specs from ``tree_specs``, the step
+whole. Training with a data axis raises (ROADMAP Queue 1 item 2c-ii);
+the reference's ``jit_train_step`` has no counterpart, as there is no
+partitioner. Its ``batch_specs`` is ``models.shardrules.batch_specs``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.mesh import Mesh
 from ..device import resolve_device
-from ..models.model import ModelConfig, cast_params, init_params, loss_fn
+from ..models import tp
+from ..models.model import (ModelConfig, cast_params, init_params, loss_fn,
+                            param_shapes)
+from ..models.shardrules import (ParallelCtx, _items, _map, held_specs,
+                                 make_ctx, shard_params, tp_size,
+                                 tree_specs)
 from .optim import (AdamWConfig, adamw_init, adamw_update, tree_leaves,
                     tree_map, tree_unflatten)
 
@@ -35,13 +48,81 @@ class TrainConfig:
 
 
 def init_state(cfg: ModelConfig, seed: int = 0,
-               device: Union[str, torch.device] = "cuda") -> Dict:
+               device: Union[str, torch.device] = "cuda",
+               mesh: Optional[Mesh] = None) -> Dict:
     """{step, params (float32 master weights), opt {m, v}} on ``device``,
-    the weights drawn from ``seed``."""
+    the weights drawn from ``seed``; on a mesh the whole tree is drawn,
+    then the rank's blocks are kept (``shard_params``) and the moments
+    are the blocks'."""
     dev = resolve_device(device)
     params = init_params(cfg, seed, dev, dtype=torch.float32)
+    params = shard_params(params, make_ctx(mesh))
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "params": params, "opt": adamw_init(params)}
+
+
+def state_specs(state, mesh: Mesh) -> Dict:
+    """The spec of every leaf of a whole training state, as the
+    reference's ``state_specs``: the parameters and both moments by the
+    rules (``tree_specs``), the step whole (``()``)."""
+    return {"step": (),
+            "params": tree_specs(state["params"], mesh),
+            "opt": {"m": tree_specs(state["opt"]["m"], mesh),
+                    "v": tree_specs(state["opt"]["v"], mesh)}}
+
+
+def shard_state(state: Dict, ctx: Optional[ParallelCtx]) -> Dict:
+    """This rank's blocks of a whole training state: the parameters and
+    both moments as ``shard_params`` places them, the step whole."""
+    return {"step": state["step"],
+            "params": shard_params(state["params"], ctx),
+            "opt": {k: shard_params(state["opt"][k], ctx)
+                    for k in ("m", "v")}}
+
+
+def _held(cfg: ModelConfig, mesh: Mesh):
+    """The layout each leaf of ``cfg``'s parameters is held in on
+    ``mesh`` (``held_specs`` of the whole tree's shapes)."""
+    return held_specs(param_shapes(cfg), mesh)
+
+
+def split_leaves(cfg: ModelConfig, mesh: Mesh) -> List[bool]:
+    """For each leaf, in tree order: whether a rank of ``mesh`` holds a
+    block of it (cut over ``model``) rather than all of it."""
+    return [any(e and "model" in e for e in spec)
+            for _, spec in _items(_held(cfg, mesh))]
+
+
+@torch.no_grad()
+def gather_state(cfg: ModelConfig, state: Dict,
+                 ctx: Optional[ParallelCtx]) -> Dict:
+    """The whole training state from every rank's blocks (the inverse of
+    :func:`shard_state`), on every rank: each leaf cut over ``model``
+    gathered along its cut dim in rank order, which is exact."""
+    if tp_size(ctx) == 1:
+        return state
+    held = _held(cfg, ctx.mesh)
+    specs = dict(_items(held))
+
+    def whole(path, x):
+        for dim, entry in enumerate(specs[path]):
+            if entry and "model" in entry:
+                x = tp.gather_cat(x, dim, ctx, name="ckpt")
+        return x
+    return {"step": state["step"],
+            "params": _map(whole, state["params"]),
+            "opt": {k: _map(whole, state["opt"][k]) for k in ("m", "v")}}
+
+
+def whole_template(cfg: ModelConfig, device: torch.device) -> Dict:
+    """A whole training state's shapes, types and device without its
+    memory (each leaf a 0-stride view of one element): the template a
+    checkpoint restores into before a rank keeps its blocks."""
+    def empty(m):
+        return torch.empty((), dtype=m.dtype, device=device).expand(m.shape)
+    params = tree_map(empty, param_shapes(cfg))
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "params": params, "opt": {"m": params, "v": params}}
 
 
 def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -60,10 +141,13 @@ def working_copy(cfg: ModelConfig, tcfg: TrainConfig, params):
 
 
 def loss_and_grads(cfg: ModelConfig, work, batch: Dict,
+                   ctx: Optional[ParallelCtx] = None,
                    ) -> Tuple[torch.Tensor, Dict, List[torch.Tensor]]:
-    """(loss, metrics, one gradient a leaf of ``work`` in its dtype)."""
+    """(loss, metrics, one gradient a leaf of ``work`` in its dtype);
+    under ``ctx``, the rank's blocks' gradients and the whole leaves'
+    whole ones."""
     leaves = tree_leaves(work)
-    loss, metrics = loss_fn(cfg, work, batch)
+    loss, metrics = loss_fn(cfg, work, batch, ctx)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -80,23 +164,28 @@ def _microbatches(batch: Dict, n: int) -> List[Dict]:
             for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics). The state's
     parameters and moments are updated in place; ``batch`` holds tensors
-    on the state's device (``batch_to``). Metrics: loss, ce, grad_norm
-    and lr, 0-d tensors."""
+    on the state's device (``batch_to``), the whole batch on every rank
+    of a ``mesh``, whose state holds the rank's blocks
+    (``init_state(..., mesh=)``). Metrics: loss, ce, grad_norm and lr,
+    0-d tensors, the same bits on every rank."""
+    ctx = make_ctx(mesh)
+    split = split_leaves(cfg, mesh) if tp_size(ctx) > 1 else None
 
     def train_step(state, batch):
         params = state["params"]
         work = working_copy(cfg, tcfg, params)
         n = tcfg.grad_accum
         if n <= 1:
-            loss, metrics, grads = loss_and_grads(cfg, work, batch)
+            loss, metrics, grads = loss_and_grads(cfg, work, batch, ctx)
             grads = [g.float() for g in grads]
         else:
             grads, lsum, ms = None, 0.0, []
             for mb in _microbatches(batch, n):
-                loss_i, m_i, g_i = loss_and_grads(cfg, work, mb)
+                loss_i, m_i, g_i = loss_and_grads(cfg, work, mb, ctx)
                 if grads is None:          # the float32 accumulator
                     grads = [g.float() for g in g_i]
                 else:
@@ -113,7 +202,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         del work
         _, _, stats = adamw_update(tcfg.optim,
                                    tree_unflatten(params, grads),
-                                   state["opt"], params, state["step"])
+                                   state["opt"], params, state["step"],
+                                   split, ctx)
         metrics = dict(metrics)
         metrics.update(stats)
         metrics["loss"] = loss
