@@ -335,7 +335,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              tokens/s, peak GiB, the seconds of the step's parts (the
              first includes the process's first non-reentrant checkpoint
              call, ~9-12 s), collectives by kind with the backward's
-             (``*_bwd``) apart;
+             (``*_bwd``) apart. Then the step dp-train-granite (the same
+             ranks, processes and spec list): granite-moe-1b-a400m, 4
+             layers, on make_host_mesh(model=2) = (2, 2), a batch of 2 x
+             2,048 tokens, one row a data rank: each rank holds its FSDP
+             and tensor blocks of the weights and moments, gathers a
+             layer's fsdp leaves at use (and again in the recompute), the
+             backward reduce-scatters their gradients over data
+             (dp_fsdp_bwd) and adds the data-whole leaves' over data
+             (dp_sum_bwd); the same gates against rank 0's P = 1 run of
+             the 2 rows (the MoE on the 4 (row, sequence block) blocks),
+             and the two data ranks' copies of each model block bit-equal;
+             the dp_* collectives on a line of their own;
 16. times  — each kernel, its plain version and a one-call PyTorch
              yardstick where one exists, at the main path's shapes, beside
              the kernel's bound: a wrapper call by CUDA events, the
@@ -3970,13 +3981,20 @@ TP_TRAIN_SPECS = {
     "tp-train-mamba2": dict(arch="mamba2-370m", seq=2048,
                             lr=TRAIN_SPECS["train"]["lr"],
                             kernel="ssd_fused"),
+    # on a (2, 2) mesh (``model`` ranks on the tensor axis, the rest on
+    # data), ``batch`` rows of ``seq`` tokens: one row a data rank
+    "dp-train-granite": dict(arch="granite-moe-1b-a400m", seq=2048,
+                             batch=2, model=2,
+                             lr=TRAIN_SPECS["train-granite"]["lr"],
+                             kernel="flash_attention"),
 }
 # (mamba2's 8 layers took 13-15 s of the step on one host, over the 30 s
 # the two steps may add to the tp phase with the ~9 s the process's first
 # non-reentrant checkpoint call takes)
 TP_TRAIN_DEPTH_CUTS = {"granite-moe-1b-a400m": (4,), "mamba2-370m": (4,)}
 TP_TRAIN_STEPS = 2
-TP_FLASH_ROWS += ("flash_attention/tp-train-granite",)
+TP_FLASH_ROWS += ("flash_attention/tp-train-granite",
+                  "flash_attention/dp-train-granite")
 # deepseek-v2-236b's dense layer and 1 of its 59 MoE layers: every rank
 # draws the whole tree before it keeps its shards, ~4.8 B parameters (9.7
 # GB in bfloat16) here, so the four trees take ~39 GB at once (DEPTH_CUTS'
@@ -4330,22 +4348,27 @@ def _first_grads(into):
         step.adamw_update = real
 
 
-def _block_of(x, spec, r, t):
-    """Rank r's block (of t) of a whole tensor ``x`` along the dim
-    ``spec`` cuts over ``model``."""
+def _block_of(x, spec, r, shape):
+    """Rank r's block of a whole tensor ``x`` on a ``(data, model)`` mesh
+    of ``shape``: along each dim ``spec`` cuts, its coordinate's block
+    (the rank's data row over ``data``, its column over ``model``)."""
+    d, t = shape
     for dim, entry in enumerate(spec):
-        if entry and "model" in entry:
-            n = x.shape[dim] // t
-            x = x.narrow(dim, r * n, n)
+        for axis, i, n in (("data", r // t, d), ("model", r % t, t)):
+            if entry and axis in entry:
+                size = x.shape[dim] // n
+                x = x.narrow(dim, i * size, size)
     return x
 
 
 def _tp_train_yardstick(cfg, seed, dev, tcfg, batches, chosen, blocks,
-                        names, specs, t):
-    """Rank 0's P = 1 run of the steps the mesh run took: the whole state
-    drawn again from ``seed``, the same batches; for an MoE model each
-    MoE call on the t sequence blocks as separate calls (the ep path's
-    capacity, ``_blocked_moe``) under the mesh run's expert choices
+                        names, specs, shape):
+    """Rank 0's P = 1 run of the steps the run on a ``(data, model)``
+    mesh of ``shape`` took: the whole state drawn again from ``seed``,
+    the same batches; for an MoE model each MoE call on the ranks' blocks
+    as separate calls (the ep path's capacity, ``_blocked_moe``: rank r =
+    (d, m) routes row d's sequence block m, the P = 1 call's r-th block
+    of its (row, position) tokens) under the mesh run's expert choices
     (``_Routing``: call i's block r is rank r's call i). Returns each
     step's loss and grad norm and, for each rank, its smallest cosine of
     a matrix gradient block (``blocks[r]``: leaf index -> the rank's
@@ -4353,6 +4376,7 @@ def _tp_train_yardstick(cfg, seed, dev, tcfg, batches, chosen, blocks,
     first-step gradient, with the leaf."""
     from repro_torch.train import init_state, make_train_step
 
+    t = shape[0] * shape[1]
     n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
     routing = _Routing()
     routing.chosen = [chosen[r][i].to(dev) for i in range(len(chosen[0]))
@@ -4372,7 +4396,7 @@ def _tp_train_yardstick(cfg, seed, dev, tcfg, batches, chosen, blocks,
     for r in range(t):
         worst = (2.0, "")
         for i, g in blocks[r].items():
-            want = _block_of(grads[i], specs[i], r, t)
+            want = _block_of(grads[i], specs[i], r, shape)
             worst = min(worst, (_cosine(g.to(want.device).float(),
                                         want.float()), names[i]))
         cosines.append(worst)
@@ -4381,13 +4405,14 @@ def _tp_train_yardstick(cfg, seed, dev, tcfg, batches, chosen, blocks,
 
 
 def tp_train(cfg, seed, dev, spec, counters=None):
-    """The tp-train step on this rank of a group of TP_RANKS ranks (on the
+    """A tp-train step on this rank of a group of TP_RANKS ranks (on the
     CPU too, at any config): ``cfg`` trained on
-    ``make_host_mesh(model=TP_RANKS)`` from ``seed`` by
-    ``make_train_step(cfg, tcfg, mesh)`` on the state of
+    ``make_host_mesh(model=spec.get("model", TP_RANKS))`` from ``seed``
+    by ``make_train_step(cfg, tcfg, mesh)`` on the state of
     ``init_state(..., mesh=mesh)``: one warm-up step and TP_TRAIN_STEPS
-    timed ones, each on a batch of 1 x ``spec["seq"]`` tokens from
-    ``make_batch`` at ``seed``; the counters zeroed just before the timed
+    timed ones, each on a global batch of ``spec.get("batch", 1)`` x
+    ``spec["seq"]`` tokens from ``make_batch`` at ``seed`` (each data
+    rank takes its rows); the counters zeroed just before the timed
     steps and read just after. Every rank's first-step gradient blocks go
     to rank 0, which runs ``_tp_train_yardstick``. Returns (the record,
     the kernels' first calls in the timed steps)."""
@@ -4419,7 +4444,9 @@ def tp_train(cfg, seed, dev, spec, counters=None):
     def nbytes(tree):
         return sum(x.numel() * x.element_size() for _, x in _items(tree))
 
-    rank, t = dist.get_rank(), dist.get_world_size()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t = spec.get("model", world)
+    shape = (world // t, t)
     laps, t_last = {}, [t_start]
 
     def lap(name):
@@ -4432,7 +4459,8 @@ def tp_train(cfg, seed, dev, spec, counters=None):
     steps = 1 + TP_TRAIN_STEPS
     tcfg = TrainConfig(optim=AdamWConfig(peak_lr=spec["lr"], warmup_steps=0,
                                          total_steps=steps))
-    dcfg = DataConfig(batch=1, seq=spec["seq"], seed=seed)
+    rows = spec.get("batch", 1)
+    dcfg = DataConfig(batch=rows, seq=spec["seq"], seed=seed)
     batches = [batch_to(make_batch(cfg, dcfg, i), dev) for i in range(steps)]
     lap("batches")
     shapes = param_shapes(cfg)
@@ -4486,21 +4514,28 @@ def tp_train(cfg, seed, dev, spec, counters=None):
     with torch.no_grad():
         errs = _captured_errs(calls, f"{spec.get('tag', 'tp-train')} rank "
                               f"{rank}") if cuda else {}
-    whole = [x for tree in (state["params"], state["opt"]["m"],
-                            state["opt"]["v"])
+    trees = (state["params"], state["opt"]["m"], state["opt"]["v"])
+    whole = [x for tree in trees
              for x, cut in zip(tree_leaves(tree), split) if not cut]
+    # the blocks cut over model alone: each data rank holds a copy
+    model = [x for tree in trees
+             for x, cut in zip(tree_leaves(tree), split)
+             if cut == ("model",)]
     finite = all(np.isfinite(losses)) and all(
         bool(torch.isfinite(x).all()) for x in tree_leaves(state["params"]))
     digest = _digest(*whole)
+    model_digest = _digest(*model)
     lap("checks")
     rec = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "laps": laps, "peak_gib": peak, "collectives": coll,
            "launches": launches, "tensor_core": tc, "errs": errs,
            "bytes": [held, want], "moment_bytes": moments,
-           "digest": digest, "finite": finite, "tokens": spec["seq"],
+           "digest": digest, "model_digest": model_digest,
+           "finite": finite, "mesh": list(shape),
+           "tokens": rows // shape[0] * spec["seq"],
            "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
                       for k, c in calls.items()}}
-    del state, whole, step_fn
+    del state, whole, model, step_fn
     # the split matrix gradient blocks to rank 0 (exact in cfg.dtype,
     # the working copy's), the whole ones stay: every rank's are equal
     mats = [i for i, (g, cut) in enumerate(zip(grads, split))
@@ -4508,14 +4543,14 @@ def tp_train(cfg, seed, dev, spec, counters=None):
     flat = torch.cat([grads[i].to(cfg.dtype).flatten() for i in mats]
                      ).cpu()
     wire = flat.view(torch.uint8) if flat.element_size() == 2 else flat
-    parts = [torch.empty_like(wire) for _ in range(t)] if rank == 0 \
+    parts = [torch.empty_like(wire) for _ in range(world)] if rank == 0 \
         else None
     dist.gather(wire, parts, dst=0)
     every = group.gather([c.cpu() for c in routing.chosen], "tp_choices")
     lap("gather")
     if rank == 0:
         blocks = []
-        for r in range(t):
+        for r in range(world):
             got, lo = parts[r].view(flat.dtype), 0
             mine = {}
             for i in mats:
@@ -4530,7 +4565,8 @@ def tp_train(cfg, seed, dev, spec, counters=None):
         if cuda:
             torch.cuda.empty_cache()
         rec["yardstick"] = _tp_train_yardstick(
-            cfg, seed, dev, tcfg, batches, every, blocks, names, specs, t)
+            cfg, seed, dev, tcfg, batches, every, blocks, names, specs,
+            shape)
         lap("yardstick")
         rec["yardstick"]["seconds"] = laps["yardstick"]
     del grads, batches
@@ -4863,6 +4899,11 @@ def phase_tp(args, work, dev, card):
     return launches, errs, calls
 
 
+# the data axis's collectives a training step on a mesh with D > 1 runs:
+# the FSDP gathers, their backward and the data-whole leaves' sum
+DP_TRAIN_KINDS = ("dp_fsdp", "dp_fsdp_bwd", "dp_sum_bwd")
+
+
 def _check_tp_train(recs, tag, card):
     """The gates of a tp-train step (see the docstring's tp entry) on
     every rank's record; returns the kernel's launches a rank in the
@@ -4874,14 +4915,20 @@ def _check_tp_train(recs, tag, card):
     want = {"flash_attention": 0, "ssd_fused": 0}
     want[name] = 2 * layers * TP_TRAIN_STEPS
     y = recs[0][tag]["yardstick"]
+    d, t = recs[0][tag]["mesh"]
+
+    def kinds(coll, dp, bwd=None):
+        """The calls and seconds of the kinds on the data axis (``dp``)
+        or not, of the backward (``bwd``) or not (None: either)."""
+        return {k: f"{n} calls {sec:.3f}s" for k, (n, sec) in
+                sorted(coll.items()) if k.startswith("dp_") == dp and
+                bwd in (None, k.endswith("_bwd"))}
     for rec in recs:
         r, x = rec["rank"], rec[tag]
         med = statistics.median(x["step_ms"])
-        fwd = {k: f"{n} calls {sec:.3f}s" for k, (n, sec) in
-               sorted(x["collectives"].items()) if not k.endswith("_bwd")}
-        bwd = {k: f"{n} calls {sec:.3f}s" for k, (n, sec) in
-               sorted(x["collectives"].items()) if k.endswith("_bwd")}
-        log(f"{tag} rank {r}: step ms median {med:.3f} "
+        coll = x["collectives"]
+        log(f"{tag} rank {r} (data {r // t}, model {r % t} of ({d}, {t})):"
+            f" step ms median {med:.3f} "
             f"({[round(v, 3) for v in x['step_ms']]}, {TP_TRAIN_STEPS} "
             f"timed steps after 1 warm-up), {x['tokens'] / med * 1e3:.0f} "
             f"tokens/s a rank at the median, peak {x['peak_gib']:.3f} GiB; "
@@ -4893,8 +4940,17 @@ def _check_tp_train(recs, tag, card):
             f"(bytes_per_device {x['bytes'][1]}); kernel calls "
             f"{x['shapes']}; |kernel - plain| {x['errs']} [{card}]")
         log(f"{tag} rank {r}: collectives in the {TP_TRAIN_STEPS} timed "
-            f"steps, forward and remat recompute {fwd}; backward {bwd} "
-            f"[{card}]")
+            f"steps, forward and remat recompute "
+            f"{kinds(coll, False, False)}; backward "
+            f"{kinds(coll, False, True)} [{card}]")
+        if d > 1:
+            log(f"{tag} rank {r}: data-axis collectives in the "
+                f"{TP_TRAIN_STEPS} timed steps {kinds(coll, True)} "
+                f"[{card}]")
+            missing = [k for k in DP_TRAIN_KINDS if k not in coll]
+            if missing:
+                raise AssertionError(f"{tag} rank {r}: no {missing} calls "
+                                     "in the timed steps")
         if x["launches"] != want or x["tensor_core"] != want:
             raise AssertionError(f"{tag} rank {r}: launches {x['launches']}"
                                  f" (tensor core {x['tensor_core']}), "
@@ -4912,20 +4968,24 @@ def _check_tp_train(recs, tag, card):
             if x[k] != lead[k]:
                 raise AssertionError(f"{tag}: rank {r}'s {k} differ from "
                                      "rank 0's")
+        if x["model_digest"] != recs[r % t][tag]["model_digest"]:
+            raise AssertionError(f"{tag}: rank {r}'s model blocks differ "
+                                 f"from data rank 0's copy (rank {r % t})")
     x = recs[0][tag]
     gaps = [abs(a - b) for a, b in zip(x["losses"], y["losses"])]
-    log(f"{tag}: {TP_RANKS} ranks == P = 1: losses {x['losses']} (P = 1 "
+    log(f"{tag}: ({d}, {t}) mesh == P = 1: losses {x['losses']} (P = 1 "
         f"{y['losses']}), largest gap {max(gaps):.6f} (tolerance "
         f"{TRAIN_LOSS_TOL}); grad_norm {x['grad_norms']} (P = 1 "
         f"{y['grad_norms']}); smallest first-step gradient cosine by rank "
         f"{[[round(c, 6), leaf] for c, leaf in y['cosines']]} (tolerance "
         f"{TRAIN_COSINE}); every rank's losses, grad norms and whole "
-        f"leaves bit-equal; tokens whose own top-k at P = 1 differs from "
+        f"leaves bit-equal, each model block's copies on the data ranks "
+        f"bit-equal; tokens whose own top-k at P = 1 differs from "
         f"the mesh run's choice {y['flips']}; P = 1 run "
         f"{y['seconds']:.2f}s [{card}]")
     if max(gaps) > TRAIN_LOSS_TOL or \
             min(c for c, _ in y["cosines"]) < TRAIN_COSINE:
-        raise AssertionError(f"{tag}: the (1, {TP_RANKS}) mesh and P = 1 "
+        raise AssertionError(f"{tag}: the ({d}, {t}) mesh and P = 1 "
                              "disagree")
     return x["launches"][name], max(rec[tag]["errs"].get(name, 0.0)
                                     for rec in recs)

@@ -10,12 +10,14 @@ of this script on ``cuda:0`` in a gloo group (``chip_smoke._run_ranks``).
 Each runs ``chip_smoke.tp_rank`` with the tp phase's serving models
 (``TP_SPECS``) and its dp-granite step left out, so only
 ``TP_TRAIN_SPECS`` run: granite-moe-1b-a400m and mamba2-370m at full
-width on ``make_host_mesh(model=4)``, their depth cut as
-``TP_TRAIN_DEPTH_CUTS`` says. The parent applies the phase's gates
-(``_check_tp_train``), which print each rank's step ms, the seconds of
-each part of the step and its collectives by kind (the backward's
-apart), and times ``ssd_fused/tp-train-mamba2`` and
-``flash_attention/tp-train-granite`` at the ranks' own calls
+width on ``make_host_mesh(model=4)``, then granite-moe-1b-a400m on
+``make_host_mesh(model=2)`` (dp-train-granite, a (2, 2) mesh), their
+depth cut as ``TP_TRAIN_DEPTH_CUTS`` says. The parent applies the
+phase's gates (``_check_tp_train``), which print each rank's step ms,
+the seconds of each part of the step and its collectives by kind (the
+backward's and the data axis's apart), and times
+``ssd_fused/tp-train-mamba2``, ``flash_attention/tp-train-granite`` and
+``flash_attention/dp-train-granite`` at the ranks' own calls
 (``_ssd_rows``, ``_flash_rows``). Every line names the card and its
 power limit. Needs one CUDA card and nvcc; exits non-zero without a
 card.
@@ -83,7 +85,8 @@ def main() -> int:
            f"{seconds:.1f}s [{card}]")
     rows = {}
     cs._ssd_rows(rows, shapes, ("ssd_fused/tp-train-mamba2",))
-    cs._flash_rows(rows, shapes, ("flash_attention/tp-train-granite",))
+    cs._flash_rows(rows, shapes, ("flash_attention/tp-train-granite",
+                                  "flash_attention/dp-train-granite"))
     for name, t in rows.items():
         cs.log(f"time {name}: {json.dumps(t, default=str)} [{card}]")
     return 0

@@ -1,10 +1,11 @@
 """Meshes of ranks, after ``repro/launch/mesh.py``: the host mesh over
-the default process group, and the reference's production meshes as
-descriptions (:class:`repro_torch.core.mesh.Mesh`).
+the default process group, and the reference's production meshes
+(:class:`repro_torch.core.mesh.Mesh`).
 
-:func:`make_production_mesh` only describes ``(16, 16)`` and ``(2, 16,
-16)``: the sharding rules read their axis sizes without 256 ranks, and
-running on one raises.
+:func:`make_production_mesh` gives ``(16, 16)`` over the default process
+group when the group has its 256 ranks; otherwise, and for ``(2, 16,
+16)``, it only describes the mesh: the sharding rules read its axis
+sizes without the ranks, and running on it raises.
 """
 
 from __future__ import annotations
@@ -28,10 +29,17 @@ def make_host_mesh(model: int = 1) -> Mesh:
                 groups=axis_groups(shape, axes))
 
 
+PRODUCTION = (16, 16)
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production mesh as a description: ``(16, 16)`` on
-    ``("data", "model")``, or ``(2, 16, 16)`` on ``("pod", "data",
-    "model")``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
+    """The reference's production mesh: ``(16, 16)`` on ``("data",
+    "model")``, or ``(2, 16, 16)`` on ``("pod", "data", "model")``. The
+    ``(16, 16)`` mesh is the default process group's
+    (:func:`make_host_mesh`: coordinates and axis groups) when the group
+    has 256 ranks, else a description."""
+    if not multi_pod and _world_size() == 16 * 16:
+        return make_host_mesh(model=16)
+    shape = (2, 16, 16) if multi_pod else PRODUCTION
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(axes, dict(zip(axes, shape)))

@@ -15,10 +15,12 @@ checkpoints with auto-resume from ``--workdir``, and the straggler
 monitor on the run's own step telemetry. A full config must fit the card
 at 20 B a parameter of training state (the 15 B models and
 deepseek-v2-236b do not; ``--smoke`` fits anywhere).
-``--production-mesh`` (the reference's (16, 16) mesh, which has a data
-axis) raises: training with a data axis waits (ROADMAP Queue 1 item
-2c-ii). Training on a ``(1, T)`` mesh of T ranks is
-``Trainer(..., mesh=make_host_mesh(model=T))`` in each rank's process.
+``--production-mesh`` trains on the reference's (16, 16) mesh: run in
+each of the 256 processes of a default process group (started by the
+caller, or from the ``torchrun`` environment), and raises a
+``ValueError`` on a group of another size. Training on any ``(D, T)``
+mesh is ``Trainer(..., mesh=make_host_mesh(model=T))`` in each rank's
+process.
 """
 
 from __future__ import annotations
@@ -28,10 +30,14 @@ import os
 import tempfile
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from ..configs import ARCH_NAMES, get_config, get_smoke_config
+from ..core.group import _world_size
 from ..data.pipeline import DataConfig
 from ..device import resolve_device
 from ..train import AdamWConfig, RunConfig, TrainConfig, Trainer
+from .mesh import PRODUCTION, make_production_mesh
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -48,13 +54,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--workdir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train"))
     ap.add_argument("--production-mesh", action="store_true",
-                    help="training on the (16, 16) mesh (not ported yet)")
+                    help="train on the (16, 16) mesh of a 256-rank group")
     args = ap.parse_args(argv)
+    mesh = None
     if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the (16, 16) mesh has a data axis, and "
-            "training with one is not ported yet (ROADMAP Queue 1 item "
-            "2c-ii)")
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            dist.init_process_group("gloo")
+        need = PRODUCTION[0] * PRODUCTION[1]
+        if _world_size() != need:
+            raise ValueError(
+                f"--production-mesh: the {PRODUCTION} mesh takes a process "
+                f"group of {need} ranks, and this one has {_world_size()}")
+        mesh = make_production_mesh()
+        if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+            args.device = f"cuda:{os.environ['LOCAL_RANK']}"
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
@@ -67,7 +80,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rcfg = RunConfig(steps=args.steps, workdir=args.workdir,
                      ckpt_every=max(args.steps // 2, 1),
                      monitor_every=max(args.steps // 4, 1))
-    trainer = Trainer(cfg, tcfg, dcfg, rcfg, device=device)
+    trainer = Trainer(cfg, tcfg, dcfg, rcfg, device=device, mesh=mesh)
     res = trainer.run(progress=lambda i, m: print(
         f"step {i}: loss={float(m['loss']):.4f} "
         f"gnorm={float(m['grad_norm']):.3f}"))

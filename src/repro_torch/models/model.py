@@ -29,9 +29,10 @@ and the head are vocab-parallel where the rules split the vocabulary
 (the logits gathered along V, so every rank of a data row holds the
 same (B, V)), the layers run :mod:`.tp`'s blocks, and the caches hold
 the rank's rows and its KV heads, SSM heads and ``conv_x`` channels.
-``loss_fn`` takes a context of one data rank (training at ``(1, T)``):
-the whole batch on every rank, the layers' collectives with their
-backward, and the loss vocab-parallel where the vocabulary is split.
+``loss_fn`` takes the same context in training, on a ``(D, T)`` mesh:
+the rank's blocks and its rows, the layers' collectives with their
+backward, the loss vocab-parallel where the vocabulary is split and the
+mean over the global batch.
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ from . import tp
 from .frontends import assemble, embed_tokens
 from .layers import (dense_init, embed_init, layernorm, layernorm_init,
                      rmsnorm, rmsnorm_init)
-from .shardrules import ParallelCtx
-from .transformer import (LayerSpec, check_mode, layer_init_cache,
-                          segment_forward, segment_init)
+from .shardrules import ParallelCtx, dp_size
+from .transformer import (LayerSpec, layer_init_cache, segment_forward,
+                          segment_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +176,6 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict,
     metrics of the segments add up, as in the reference. Under a context
     with a data axis the leaves outside the layers come gathered, as
     :func:`prefill` hands them on; each layer gathers its own."""
-    check_mode(mode, ctx)
     x, positions, prefix = assemble(cfg, params, batch, ctx)
     new_caches: List[Any] = []
     metrics: Dict[str, torch.Tensor] = {}
@@ -283,11 +283,16 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
     Returns (loss, {"ce", "loss"} and the layers' metrics, aux_loss and
     dropped for an MoE model).
 
-    Under a context of one data rank and T tensor ranks, ``params`` are
-    the rank's (``shard_params``) and ``batch`` the whole batch: the loss
-    is vocab-parallel where the rules split the vocabulary (the
-    reference's §Perf H3: the logits stay on their rank), and every rank
-    computes the same loss, bit for bit."""
+    Under a context, ``params`` are the rank's (``shard_params``) and
+    ``batch`` its rows (``shard_batch``): the leaves outside the layers
+    are gathered over ``data`` (``_gathered``), the loss is
+    vocab-parallel where the rules split the vocabulary (the reference's
+    §Perf H3: the logits stay on their rank), and the CE is the mean over
+    the global batch: each data rank's masked sum and count added over
+    ``data`` in rank order before the division (where every data rank
+    holds the whole batch, its own mean, counted once, ``tp.once``).
+    Every rank computes the same loss, bit for bit."""
+    params = _gathered(cfg, params, ctx)
     h, _, metrics, prefix = forward_hidden(cfg, params, batch, "train",
                                            ctx=ctx)
     if prefix:
@@ -301,7 +306,11 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict,
     tot, cnt = chunked_ce(h * _head_scale(cfg), w_vd, labels, mask,
                           cfg.loss_chunk,
                           ctx if w_vd.shape[0] < cfg.vocab else None)
+    if dp_size(ctx) > 1 and not ctx.batch_whole:
+        tot, cnt = tp.ordered_sum(torch.stack([tot, cnt]), ctx, "data")
     ce = tot / cnt.clamp_min(1.0)
+    if ctx is not None and ctx.batch_whole:
+        ce = tp.once(ce, ctx)
     metrics["ce"] = ce
     loss = ce + metrics["aux_loss"] if "aux_loss" in metrics else ce
     metrics["loss"] = loss

@@ -61,15 +61,20 @@ each sum rounds to the activation dtype once. The shared experts (deepseek) are
 cut on their hidden dim by the dense FFN's rules and run column x row
 parallel with one ordered sum.
 
-In training (T > 1, one data rank) every collective above carries its
-backward (:mod:`.tp`), and the whole tensors that enter a rank's work
-are entered (``tp.enter``): on ``ep`` the layer's input and the router,
-whose gradients on a rank come from its sequence block alone; on
+In training every collective above carries its backward (:mod:`.tp`),
+and the whole tensors that enter a rank's work are entered
+(``tp.enter``): on ``ep`` the layer's input and the router, whose
+gradients on a rank come from its sequence block alone; on
 ``replicated`` the tokens and the routing weights as they enter the
 rank's experts; the shared experts' input where their hidden dim is
 split. The aux loss's ordered mean divides its gradient by the ranks;
 on ``replicated``, whose ranks route alike, the aux loss is entered first,
-so the T equal copies' gradients add up to the whole.
+so the T equal copies' gradients add up to the whole. With a data axis
+the tables' gathers reduce-scatter their gradients over ``data``; on
+``local`` every data rank routes the whole batch (its rows gathered,
+``tp.rows_gather``, whose backward adds the data ranks' gradients of
+the whole batch) and computes the same aux loss, which
+``tp.once`` counts once.
 """
 
 from __future__ import annotations
@@ -360,6 +365,8 @@ def moe_forward(params, x: torch.Tensor, cfg: MoEConfig,
              "experts": _tables(params["experts"], cfg, ctx)},
             whole.reshape(-1, d), cfg)
         out = tp.rows_take(out.view(-1, s, d), b, ctx)
+        # every data rank routed the whole batch alike
+        aux = tp.once(aux, ctx)
     out = out.reshape(b, s, d)
     metrics = {"aux_loss": aux * cfg.router_aux_weight, "dropped": dropped}
     if "shared" in params:

@@ -27,10 +27,10 @@ the MoE's expert tables by expert, see there) and its rows of the batch
 explicit collectives (:mod:`.tp`): each layer's ``fsdp`` leaves are
 gathered over ``data`` at use, and where the reference leaves the
 collectives to GSPMD's partitioner, every sum here is an ordered
-gather-and-add. Training runs on a ``(1, T)`` mesh, each rank holding
-its blocks of the master weights and of both moments as
-:func:`shard_params` places them; training with a data axis waits
-(ROADMAP Queue 1 item 2c-ii).
+gather-and-add. Training runs on the same ``(D, T)`` meshes, each rank
+holding its blocks of the master weights and of both moments as
+:func:`shard_params` places them and taking its rows of each
+microbatch (:func:`shard_batch`).
 """
 
 from __future__ import annotations
@@ -293,8 +293,7 @@ def make_ctx(mesh: Optional[Mesh], inference: bool = False
         raise NotImplementedError(
             f"mesh {mesh.shape} is a description: a context runs on its "
             f"{mesh.size} ranks. Lowering a step on a description is the "
-            "dry-run's, which waits for training with a data axis (ROADMAP "
-            "Queue 1 item 2c-ii, then item 3)")
+            "dry-run's (ROADMAP Queue 1 item 3)")
     batch, tensor = batch_axes(mesh), tensor_axis(mesh)
     cut = [a for a in batch if mesh.shape[a] > 1]
     if len(cut) > 1:

@@ -39,21 +39,30 @@ gather the data ranks' rows of a batch in order and take this rank's
 back.
 
 In training every one of them carries its backward (a
-``torch.autograd.Function``), Megatron's rule: a tensor every rank
-holds whole gets a gradient every rank holds whole and bit-equal.
-:func:`ordered_sum`'s backward is the identity; :func:`enter`, the
-identity forward where a whole tensor enters work a rank does on its
+``torch.autograd.Function``), Megatron's rule on the tensor axis: a
+tensor every rank holds whole gets a gradient every rank holds whole and
+bit-equal. :func:`ordered_sum`'s backward is the identity; :func:`enter`,
+the identity forward where a whole tensor enters work a rank does on its
 own block (its heads, channels, experts, vocabulary block or sequence
 block), adds the ranks' partial gradients back by an ordered sum (timed
 as ``tp_sum_bwd``); :func:`gather_cat`'s backward keeps the rank's own
 slice, :func:`all_to_all`'s is the inverse exchange (``tp_all_to_all_bwd``),
-and :func:`ordered_mean`'s divides by n. No ring ``all_reduce`` is used:
-its order moves with the length, and the ranks' whole leaves would
-drift apart. On the card :func:`matmul_f32`'s product has a backward of
-its own, the 16-bit products a one-rank step takes.
-:func:`gather_many`, :func:`gather_fsdp`, :func:`rows_gather` and
-:func:`rows_take` carry none: training with a data axis waits
-(ROADMAP Queue 1 item 2c-ii).
+and :func:`ordered_mean`'s divides by n. On the data axis each rank's
+backward gives the part of a gradient its own rows make, and the parts
+add up: :func:`gather_many`'s backward (so :func:`gather_fsdp`'s, the
+MoE's tables' and :func:`rows_gather`'s) is a reduce-scatter in data
+order, every data rank's gradient of the whole leaf cut into the D
+blocks, block j sent to data rank j (one ``all_to_all`` for the call's
+leaves, timed ``dp_fsdp_bwd``), the D blocks a rank receives added in
+data order in float32 and cast once; :func:`sum_many` adds the gradients
+of the leaves no rank cuts over ``data`` the same way after the backward
+(``dp_sum_bwd``, ``train.step``); :func:`once` counts once a value every
+data rank computes alike. The reference's cross-``data`` reduce is a
+bf16 psum in the partitioner's order; here a bf16 gradient is added in
+float32 and rounds once, as the tensor axis's sums do. No ring
+``all_reduce`` is used: its order moves with the length, and the ranks'
+whole leaves would drift apart. On the card :func:`matmul_f32`'s product
+has a backward of its own, the 16-bit products a one-rank step takes.
 
 The FFN is column x row parallel with one sum after ``w_down``;
 attention (MLA too) runs rank r's query heads ``[r H/T, (r+1) H/T)``
@@ -76,8 +85,7 @@ from ..core.group import _timed
 from .shardrules import (EXPERT_TABLE, ParallelCtx, _map, dp_size,
                          fsdp_dims, tp_size)
 
-# the queue items that name what waits (ROADMAP.md, Queue 1)
-SHARDED_TRAINING = "ROADMAP Queue 1 item 2c-ii"
+# the queue item that names what waits (ROADMAP.md, Queue 1)
 LENGTH_SHARDED = "ROADMAP Queue 1 item 8"
 
 MESH = "mesh"                 # the axis argument for the whole mesh
@@ -133,11 +141,18 @@ def _sum(x: torch.Tensor, ctx: ParallelCtx, axis: str,
          name: str = "sum") -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` added in ascending rank order in
     float32, cast once to ``x``'s dtype."""
-    parts = _gather(x, ctx, name, axis)
-    acc = parts[0].float()
-    for p in parts[1:]:
-        acc = acc + p.float()
-    return acc.to(x.dtype)
+    return sum_many([x], ctx, axis, name)[0]
+
+
+def _add_in_order(parts, dtype: torch.dtype, shape) -> torch.Tensor:
+    """The ranks' copies of a tensor (flat bytes, in rank order) viewed
+    as ``dtype`` and ``shape``, added in float32 in that order and cast
+    once to ``dtype``."""
+    acc = None
+    for p in parts:
+        v = p.view(dtype).view(shape).float()
+        acc = v if acc is None else acc + v
+    return acc.to(dtype)
 
 
 class _OrderedSum(torch.autograd.Function):
@@ -294,35 +309,124 @@ def ordered_mean(x: torch.Tensor, ctx: Optional[ParallelCtx]
     return x if n == 1 else ordered_sum(x, ctx, MESH) / n
 
 
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes, flat (``uint8``), whatever its type."""
+    return x.contiguous().view(-1).view(torch.uint8)
+
+
+def _scatter_sum(gs, dims, ctx: ParallelCtx, name: str
+                 ) -> List[torch.Tensor]:
+    """The reduce-scatter over ``data`` of the whole gradients ``gs``:
+    block j of each ``g`` along its ``dims`` entry goes to data rank j
+    (one ``all_to_all`` of their bytes, timed ``dp_<name>``), and this
+    rank's block is the D blocks it receives added in data order in
+    float32, cast once to the gradient's type."""
+    n, r = ctx.data_size, ctx.data_rank
+    blocks = [[b.contiguous() for b in g.chunk(n, dim)]
+              for g, dim in zip(gs, dims)]
+    send = torch.cat([_bytes(bl[j]) for j in range(n) for bl in blocks])
+    recv = torch.empty_like(send)
+    _timed(f"dp_{name}", lambda: dist.all_to_all_single(
+        recv, send, group=ctx.data_group))
+    seg = recv.numel() // n
+    out, lo = [], 0
+    for g, bl in zip(gs, blocks):
+        hi = lo + bl[r].numel() * bl[r].element_size()
+        out.append(_add_in_order([recv[j * seg + lo:j * seg + hi]
+                                  for j in range(n)], g.dtype, bl[r].shape))
+        lo = hi
+    return out
+
+
+class _GatherMany(torch.autograd.Function):
+    """:func:`gather_many`'s forward; backward the reduce-scatter of the
+    whole leaves' gradients in data order (:func:`_scatter_sum`)."""
+
+    @staticmethod
+    def forward(fc, ctx, name, dims, *xs):
+        fc.pctx, fc.name, fc.dims = ctx, name, dims
+        flat = [_bytes(x) for x in xs]
+        parts = _gather(torch.cat(flat), ctx, name, "data")
+        out, lo = [], 0
+        for x, dim, f in zip(xs, dims, flat):
+            hi = lo + f.numel()
+            out.append(torch.cat([p[lo:hi].view(x.dtype).view(x.shape)
+                                  for p in parts], dim=dim))
+            lo = hi
+        return tuple(out)
+
+    @staticmethod
+    def backward(fc, *gs):
+        return (None, None, None) + tuple(_scatter_sum(
+            gs, fc.dims, fc.pctx, f"{fc.name}_bwd"))
+
+
 def gather_many(items: List[Tuple[torch.Tensor, int]],
-                ctx: Optional[ParallelCtx]) -> List[torch.Tensor]:
+                ctx: Optional[ParallelCtx], name: str = "fsdp"
+                ) -> List[torch.Tensor]:
     """For each ``(x, dim)``, the ranks' blocks of ``x`` over ``data``
     concatenated along ``dim`` in data order: all of them in one
     ``all_gather`` of their bytes (exact, whatever their types, timed as
-    ``dp_fsdp``), so a layer's leaves cost one collective."""
+    ``dp_<name>``), so a layer's leaves cost one collective. Its backward
+    is the reduce-scatter in data order of the whole leaves' gradients,
+    one collective too (``dp_<name>_bwd``)."""
     if not items or dp_size(ctx) == 1:
         return [x for x, _ in items]
-    flat = [x.contiguous().view(-1).view(torch.uint8) for x, _ in items]
-    parts = _gather(torch.cat(flat), ctx, "fsdp", "data")
+    return list(_GatherMany.apply(ctx, name, tuple(d for _, d in items),
+                                  *(x for x, _ in items)))
+
+
+def sum_many(xs: List[torch.Tensor], ctx: Optional[ParallelCtx],
+             axis: str = "data", name: str = "sum") -> List[torch.Tensor]:
+    """Each of ``xs`` summed over ``axis``: one ``all_gather`` of their
+    bytes (timed ``<axis prefix>_<name>``), every rank adding the ranks'
+    copies in ascending rank order in float32 and casting each sum once
+    to its type. No gradient: the step's sum of gradients."""
+    if not xs or _axis(ctx, axis)[0] == 1:
+        return list(xs)
+    flat = [_bytes(x) for x in xs]
+    parts = _gather(torch.cat(flat), ctx, name, axis)
     out, lo = [], 0
-    for (x, dim), f in zip(items, flat):
+    for x, f in zip(xs, flat):
         hi = lo + f.numel()
-        out.append(torch.cat([p[lo:hi].view(x.dtype).view(x.shape)
-                              for p in parts], dim=dim))
+        out.append(_add_in_order([p[lo:hi] for p in parts], x.dtype,
+                                 x.shape))
         lo = hi
     return out
+
+
+class _Once(torch.autograd.Function):
+    """The identity forward; backward the gradient over n."""
+
+    @staticmethod
+    def forward(fc, x, n):
+        fc.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fc, g):
+        return g / fc.n, None
+
+
+def once(x: torch.Tensor, ctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """``x``, a value every data rank computes alike from the same inputs
+    (the whole batch), counted once in the loss: the identity forward,
+    and backward the gradient over D, so the D ranks' parts of the
+    gradients, summed over ``data``, add up to one."""
+    n = dp_size(ctx)
+    return x if n == 1 else _Once.apply(x, n)
 
 
 def gather_fsdp(tree, ctx: Optional[ParallelCtx], d_model: int):
     """``tree`` (one layer's parameters, or the leaves outside the
     layers) with every leaf the rules cut over ``data`` gathered whole
     along its ``fsdp`` dim, the data ranks' blocks in data order (exact:
-    a concatenation; one collective, :func:`gather_many`). Every ``fsdp``
-    dim of these leaves is ``d_model``'s, so a dim is cut where it holds
-    fewer; a leaf already whole is returned as it is. The MoE's expert
-    tables stay as held (their layout depends on the branch,
-    ``moe.moe_forward`` gathers them). The gathered blocks live as long
-    as the returned tree."""
+    a concatenation; one collective, :func:`gather_many`, whose backward
+    is the reduce-scatter). Every ``fsdp`` dim of these leaves is
+    ``d_model``'s, so a dim is cut where it holds fewer; a leaf already
+    whole is returned as it is. The MoE's expert tables stay as held
+    (their layout depends on the branch, ``moe.moe_forward`` gathers
+    them). The gathered blocks live as long as the returned tree."""
     if dp_size(ctx) == 1:
         return tree
     todo = {}
@@ -347,14 +451,20 @@ def gather_fsdp(tree, ctx: Optional[ParallelCtx], d_model: int):
 def rows_gather(x: torch.Tensor, ctx: Optional[ParallelCtx]
                 ) -> torch.Tensor:
     """Every data rank's rows of ``x`` (its leading dim), stacked in data
-    order: the whole batch on every rank."""
-    return gather_cat(x, 0, ctx, "data", "rows")
+    order: the whole batch on every rank (:func:`gather_many`, timed
+    ``dp_rows``). Every data rank's work on the whole batch gives a part
+    of the gradient of each rank's rows, so the backward adds the D
+    ranks' gradients of the whole batch in data order and keeps this
+    rank's rows (``dp_rows_bwd``)."""
+    return gather_many([(x, 0)], ctx, "rows")[0]
 
 
 def rows_take(x: torch.Tensor, n: int, ctx: Optional[ParallelCtx]
               ) -> torch.Tensor:
     """This data rank's ``n`` rows of a whole batch ``x`` (the inverse
-    of :func:`rows_gather`); ``x`` itself when it has ``n`` rows."""
+    of :func:`rows_gather`); ``x`` itself when it has ``n`` rows. Its
+    backward is the narrow's: the rank's rows' gradient, zeros
+    elsewhere."""
     if x.shape[0] == n:
         return x
     return x.narrow(0, ctx.data_rank * n, n)

@@ -20,12 +20,13 @@ A mesh context (:mod:`.shardrules`) reaches every mixer and FFN, whose
 parameters are then the rank's (:mod:`.tp`): each layer first gathers
 its leaves cut over ``data`` (``tp.gather_fsdp``), and the gathered
 blocks go when the layer returns; at T > 1 a layer the layout does not
-cover raises (``tp.check_layer``). Training runs under a context of one
-data rank and T tensor ranks: every collective carries its backward
+cover raises (``tp.check_layer``). Training runs under a context of D
+data ranks and T tensor ranks: every collective carries its backward
 (:mod:`.tp`), each block enters the whole tensors its rank-local work
 reads (``tp.enter``), and under remat ``"full"`` the recompute issues
-the layer's forward collectives again, in the same order on every rank.
-Training with a data axis raises (ROADMAP Queue 1 item 2c-ii).
+the layer's forward collectives again, in the same order on every rank
+(the data axis's gathers among them; their backward reduce-scatters the
+gathered leaves' gradients).
 """
 
 from __future__ import annotations
@@ -207,17 +208,6 @@ def segment_init(spec: LayerSpec, count: int, d_model: int, *,
 REMAT = ("none", "full", "dots")
 
 
-def check_mode(mode: str, ctx: Optional[ParallelCtx]) -> None:
-    """Raise for training under a context with a data axis, on every rank
-    alike and before any collective."""
-    if mode == "train" and ctx is not None and ctx.data_size > 1:
-        raise NotImplementedError(
-            f"training on a mesh of {ctx.mesh.size} ranks "
-            f"{dict(ctx.mesh.shape)}: the data axis's collectives carry no "
-            f"gradient and the FSDP gathers have no backward; training "
-            f"with a data axis waits ({tp.SHARDED_TRAINING})")
-
-
 def _train_layer(layer_p, x, spec, positions, ctx=None):
     x, _, metrics = layer_forward(layer_p, x, spec, positions, "train",
                                   ctx=ctx)
@@ -250,7 +240,6 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
     activation."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
-    check_mode(mode, ctx)
     if mode == "train":
         if remat == "dots":
             raise NotImplementedError(

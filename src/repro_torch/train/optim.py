@@ -8,7 +8,7 @@ place, where the reference's jitted step donates them, one slice of a
 leaf at a time (``row_slices``).
 
 Parameter trees are the port's: dictionaries of tensors, with each
-segment a list of per-layer dictionaries. On a ``(1, T)`` mesh each rank
+segment a list of per-layer dictionaries. On a ``(D, T)`` mesh each rank
 holds its blocks of the weights and of both moments and updates them
 alone; only the clipping norm is the whole model's.
 """
@@ -16,7 +16,7 @@ alone; only the clipping norm is the whole model's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,20 +96,36 @@ def adamw_init(params) -> Dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree, split: Optional[List[bool]] = None,
+def global_norm(tree, cuts: Optional[Sequence[Tuple[str, ...]]] = None,
                 ctx=None) -> torch.Tensor:
-    """The norm of the whole model's ``tree``. Where ``ctx`` has T > 1
-    tensor ranks and ``split`` flags the leaves each rank holds a block
-    of: the squares of those blocks ordered-summed over ``model``, plus
-    the squares of the leaves every rank holds whole, counted once, so
-    every rank gets the same norm, bit for bit."""
+    """The norm of the whole model's ``tree``. Under a mesh ``ctx``,
+    ``cuts`` names for each leaf the axes that cut it (``("model",)``,
+    ``("data",)``, both, or none: ``step.split_leaves``): the squares of
+    each kind of block are summed on the rank, one gather over the mesh
+    brings every rank's three partial sums, and each kind is added over
+    the axes that cut it in rank order (the model-cut blocks over data
+    row 0's ranks, the data-cut ones over model column 0's, the blocks
+    cut over both over every rank); the squares of the leaves every rank
+    holds whole are counted once. Every rank gets the same norm, bit for
+    bit."""
     sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    if split is None or tp.tp_size(ctx) == 1:
+    if cuts is None or ctx is None or ctx.mesh.size == 1:
         return torch.sqrt(sum(sq))
     zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-    part = sum((q for q, cut in zip(sq, split) if cut), zero)
-    whole = sum((q for q, cut in zip(sq, split) if not cut), zero)
-    return torch.sqrt(tp.ordered_sum(part.reshape(1), ctx)[0] + whole)
+    kinds = (("model",), ("data",), ("data", "model"))
+    part = torch.stack([sum((q for q, c in zip(sq, cuts) if c == k), zero)
+                        for k in kinds])
+    whole = sum((q for q, c in zip(sq, cuts) if not c), zero)
+    parts = tp._gather(part, ctx, "norm", tp.MESH)
+    t = ctx.tensor_size
+
+    def add(ranks, i):
+        acc = parts[ranks[0]][i]
+        for r in ranks[1:]:
+            acc = acc + parts[r][i]
+        return acc
+    total = add(range(t), 0) + add(range(0, len(parts), t), 1)
+    return torch.sqrt(total + add(range(len(parts)), 2) + whole)
 
 
 def _decay_mask(path: Path) -> bool:
@@ -121,14 +137,15 @@ def _decay_mask(path: Path) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state: Dict, params,
-                 step, split: Optional[List[bool]] = None,
+                 step, cuts: Optional[Sequence[Tuple[str, ...]]] = None,
                  ctx=None) -> Tuple[object, Dict, Dict]:
     """One AdamW step. ``grads`` may be bf16; moments and parameters
-    update in float32, in place. Under a tensor-parallel ``ctx`` each
-    rank updates its own blocks, clipped by the whole model's norm
-    (:func:`global_norm`). Returns (params, state, stats), the same
-    objects as given, with stats {grad_norm, lr} as 0-d tensors."""
-    gnorm = global_norm(grads, split, ctx)
+    update in float32, in place. Under a mesh ``ctx`` each rank updates
+    its own blocks, clipped by the whole model's norm
+    (:func:`global_norm` over ``cuts``). Returns (params, state, stats),
+    the same objects as given, with stats {grad_norm, lr} as 0-d
+    tensors."""
+    gnorm = global_norm(grads, cuts, ctx)
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

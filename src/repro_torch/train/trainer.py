@@ -9,14 +9,19 @@ and hybrid layer, MLA's included), and the monitor's fences on the
 ``TelemetryRecorder.timed`` around work that ends by reading the loss
 back, which waits for the device.
 
-With ``mesh`` (``make_host_mesh(model=T)``, one data rank) every rank of
-the group runs this loop on the whole batch, holding its blocks of the
-state (``step.init_state``). A checkpoint gathers each leaf whole in
-rank order (exact, ``step.gather_state``) and rank 0 writes it: the
-file a one-rank run writes, so a run checkpointed at T resumes at any
-T' (restore reads the whole state and keeps the rank's blocks). Rank 0
-alone writes ``metrics.jsonl`` and the telemetry DBs; the monitor's
-checkpoint action is rank 0's, which every rank follows.
+With ``mesh`` (``make_host_mesh(model=T)``: world / T data ranks and T
+tensor ranks) every rank of the group runs this loop, holding its blocks
+of the state (``step.init_state``). Every rank builds each step's global
+batch, as the reference's single controller does (the pipeline's host
+0 of 1; ``RunConfig.host`` and ``n_hosts`` keep their meaning for the
+telemetry and for a run without a mesh), and the step takes the data
+rank's rows of each microbatch. A checkpoint gathers each leaf whole in
+rank order over both axes (exact, ``step.gather_state``) and rank 0
+writes it: the file a one-rank run writes, so a run checkpointed on any
+mesh resumes on any other (restore reads the whole state and keeps the
+rank's blocks). Rank 0 alone writes ``metrics.jsonl`` and the telemetry
+DBs; the monitor's checkpoint action is rank 0's, which every rank
+follows.
 """
 
 from __future__ import annotations
@@ -119,8 +124,11 @@ class Trainer:
             state = init_state(self.mcfg, self.seed, self.device, self.mesh)
 
         step_fn = make_train_step(self.mcfg, self.tcfg, self.mesh)
+        # on a mesh every rank builds the global batch
+        host, n_hosts = (0, 1) if self.ctx is not None else (r.host,
+                                                             r.n_hosts)
         prefetch = Prefetcher(self.mcfg, self.dcfg, start_step=start_step,
-                              host=r.host, n_hosts=r.n_hosts)
+                              host=host, n_hosts=n_hosts)
         losses, saved = [], None
         try:
             for i in range(start_step, r.steps):

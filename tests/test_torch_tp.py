@@ -25,10 +25,11 @@ inputs come from this process as numpy.
   the reference's; every rank's logits bit-equal to rank 0's, and a
   rank's parameter bytes equal to ``bytes_per_device``.
 - These raise on every rank, none hangs: danube's smoke config at T = 4
-  (2 KV heads: the reference shards the cache length), hymba, training
-  on a mesh with data > 1 (serving there is
-  ``tests/test_torch_tp_data.py``'s) and a batch that differs between
-  ranks. The MoE and MLA
+  (2 KV heads: the reference shards the cache length), hymba and a batch
+  that differs between ranks. Training on a mesh with data > 1, which
+  raised here until it was ported, runs and gives every rank the same
+  loss (serving there is ``tests/test_torch_tp_data.py``'s, training
+  ``tests/test_torch_dp_train.py``'s). The MoE and MLA
   families are served on the mesh in ``tests/test_torch_tp_moe.py``.
 """
 
@@ -69,9 +70,10 @@ CASES = {
     "starcoder2-narrow/4": ("starcoder2-15b", 4, NARROW),
     "mamba2/4": ("mamba2-370m", 4, None),
 }
-# what raises at T = 4, and the words its message must hold
+# what raises at T = 4, and the words its message must hold; None: it
+# raised until it was ported, and now runs, every rank to the same loss
 REFUSED = {
-    "danube-kv": "item 8", "hymba": "item 8", "data-axis": "item 2c",
+    "danube-kv": "item 8", "hymba": "item 8", "data-axis": None,
     "divergent": "differ",
 }
 
@@ -227,11 +229,13 @@ def _bf16_sum(rank, world, ctx):
 
 
 def _refusals(rank, mesh, checks):
-    """Each refused layout or batch raises here on every rank."""
+    """Each refused layout or batch raises here on every rank; training
+    on a (2, 2) mesh returns its loss's bits."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model
-    from repro_torch.models.shardrules import make_ctx
+    from repro_torch.models.shardrules import (make_ctx, shard_batch,
+                                               shard_params)
     from repro_torch.serve import ServeConfig, ServeEngine
 
     scfg = ServeConfig(max_len=S + NEW, max_new_tokens=NEW,
@@ -244,9 +248,13 @@ def _refusals(rank, mesh, checks):
 
     def train_on(m):
         cfg = get_smoke_config("stablelm-3b")
-        model.forward_hidden(cfg, model.init_params(cfg, 0, "cpu"), {
-            "tokens": torch.zeros((B, S), dtype=torch.long)}, "train",
-            ctx=make_ctx(m))
+        ctx = make_ctx(m)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, S)))
+        rows, rctx = shard_batch({"tokens": tokens, "labels": tokens}, ctx)
+        loss, _ = model.loss_fn(cfg, shard_params(
+            model.init_params(cfg, 0, "cpu"), ctx), rows, rctx)
+        return f"loss {float(loss).hex()}"
 
     def divergent():
         tokens = np.random.default_rng(rank if rank == 1 else 0).integers(
@@ -262,8 +270,8 @@ def _refusals(rank, mesh, checks):
     for name, fn in cases.items():
         t0 = time.monotonic()
         try:
-            fn()
-            checks[name] = "did not raise"
+            out = fn()
+            checks[name] = out if isinstance(out, str) else "did not raise"
         except (NotImplementedError, RuntimeError) as e:
             checks[name] = f"{type(e).__name__}: {e}"
         checks[name + "_s"] = time.monotonic() - t0
@@ -493,7 +501,11 @@ def test_uncovered_layouts_raise_on_every_rank(runs, what):
     _, checks, _ = runs
     for rank in range(4):
         msg = checks[4, rank][what]
-        assert REFUSED[what] in msg, (rank, msg)
+        if REFUSED[what] is None:       # runs: every rank's loss alike
+            assert msg.startswith("loss ") and \
+                msg == checks[4, 0][what], (rank, msg)
+        else:
+            assert REFUSED[what] in msg, (rank, msg)
         assert checks[4, rank][what + "_s"] < GROUP_TIMEOUT_S
 
 
@@ -655,7 +667,7 @@ def test_production_mesh_is_a_description():
     assert mesh.shape == {"data": 16, "model": 16} and mesh.size == 256
     with pytest.raises(RuntimeError, match="256 ranks"):
         mesh.group("model")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         make_ctx(mesh)
     one = make_host_mesh()        # no process group: one rank
     ctx = make_ctx(one)

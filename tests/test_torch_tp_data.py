@@ -35,7 +35,9 @@ returns is held against its rows of the reference's.
   equal to ``bytes_per_device``.
 - Collectives: ordered sums over ``data`` and over the whole mesh are
   float32 adds in rank order, bit for bit; training under a context of
-  more than one rank raises on every rank alike.
+  more than one rank, which raised here until it was ported, runs and
+  gives every rank the same loss (``tests/test_torch_dp_train.py`` holds
+  it against the reference).
 - Rules: ``spec_for`` / ``tree_specs(..., inference=)`` equal the
   reference's for every leaf of the ten architectures on (2, 2) and
   (16, 16), ``bytes_per_device`` on (2, 2); ``shard_params`` gives each
@@ -143,7 +145,7 @@ def _rank_main(rank, port_no, work):
         _layers(name, mesh, work, arrays, checks)
         _models(name, mesh, work, arrays, checks)
         checks[f"sums/{name}"] = _bf16_sums(rank, mesh)
-        checks[f"train/{name}"] = _training_raises(mesh)
+        checks[f"train/{name}"] = _training_runs(mesh)
     checks["dp_serve"] = _dp_serve(rank)
     np.savez(os.path.join(work, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -297,21 +299,24 @@ def _bf16_sums(rank, mesh):
     return "ok" if torch.equal(got, want) else f"rows {got} != {want}"
 
 
-def _training_raises(mesh):
-    """The training forward under the mesh's context raises, naming the
-    sharded-training item; returns the message and the seconds it
-    took."""
+def _training_runs(mesh):
+    """The training loss under the mesh's context on the rank's blocks
+    and rows; returns its bits (or the error) and the seconds it took."""
     from repro_torch.models import model
-    from repro_torch.models.shardrules import make_ctx
+    from repro_torch.models.shardrules import (make_ctx, shard_batch,
+                                               shard_params)
     cfg = _smoke(GRANITE, "port")
-    params = model.init_params(cfg, 0, "cpu")
+    ctx = make_ctx(mesh)
+    params = shard_params(model.init_params(cfg, 0, "cpu"), ctx)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (WORLD, 8)))
     t0 = time.monotonic()
     try:
-        model.forward_hidden(cfg, params, {"tokens": torch.zeros(
-            (WORLD, 8), dtype=torch.long)}, "train", ctx=make_ctx(mesh))
-        msg = "did not raise"
-    except NotImplementedError as e:
-        msg = str(e)
+        rows, rctx = shard_batch({"tokens": tokens, "labels": tokens}, ctx)
+        loss, _ = model.loss_fn(cfg, params, rows, rctx)
+        msg = f"loss {float(loss).hex()}"
+    except (NotImplementedError, RuntimeError) as e:
+        msg = f"{type(e).__name__}: {e}"
     return [msg, time.monotonic() - t0]
 
 
@@ -667,10 +672,13 @@ def test_ordered_sums_over_data_and_mesh_are_rank_order_adds(runs, mesh):
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_training_on_the_mesh_raises_on_every_rank(runs, mesh):
+    """Training under the mesh's context raised until it was ported: it
+    now runs, and every rank computes the same loss, bit for bit."""
     _, checks, _ = runs
     for rank in range(WORLD):
         msg, seconds = checks[rank][f"train/{mesh}"]
-        assert "Queue 1 item 2c" in msg, (rank, msg)
+        assert msg.startswith("loss ") and \
+            msg == checks[0][f"train/{mesh}"][0], (rank, msg)
         assert seconds < GROUP_TIMEOUT_S
 
 

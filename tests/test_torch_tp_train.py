@@ -36,8 +36,7 @@ pipeline) come from this process as numpy.
   (granite's narrow variant and mamba2 at T = 4): its P = 1 yardstick
   reproduces the mesh run's losses and gradients.
 - ``state_specs`` equals the reference's at (1, 2) and (1, 4).
-- Training with a data axis still raises on every rank
-  (``tests/test_torch_tp.py``, ``tests/test_torch_tp_data.py``).
+- Training with a data axis is ``tests/test_torch_dp_train.py``'s.
 
 Tolerances: loss and gradients rtol 1e-4, atol 1e-5; after one step
 first moments rtol 1e-4, atol 1e-7, second moments rtol 2e-4, parameters

@@ -667,6 +667,6 @@ def test_train_cli_on_the_host(tmp_path, capsys):
                 "--workdir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "final loss" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="256 ranks, and this one has 1"):
         train_main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
                     "--production-mesh"])
