@@ -257,19 +257,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 15b. tp    — tensor-parallel serving: 4 rank processes (chip_smoke.py
              --rank-role tp --collective-rank R, started by the phase), all
              on cuda:0 in a gloo group, each draw h2o-danube-1.8b,
-             mamba2-370m, granite-moe-1b-a400m and deepseek-v2-236b (its
-             dense layer and 1 MoE layer; TP_DEPTH_CUTS) whole at full
-             width from --seed, and serve 1 request of 2,048 prompt tokens
-             + 8 new through ``ServeEngine(...,
+             hymba-1.5b, mamba2-370m, granite-moe-1b-a400m and
+             deepseek-v2-236b (its dense layer and 1 MoE layer;
+             TP_DEPTH_CUTS) whole at full width from --seed, and serve 1
+             request of 2,048 prompt tokens (after hymba's 128 meta
+             tokens) + 8 new through ``ServeEngine(...,
              mesh=make_host_mesh(model=4))``: each rank keeps its shards
              (its parameter bytes must equal ``bytes_per_device``; the
              MoE's expert tables by expert), runs flash_attention on its
              query and KV heads (24 launches a prefill for danube, 24 for
              granite, 2 for deepseek's MLA in the (192, 128)
              instantiation, all tensor-core) or ssd_fused on its 8 SSM
-             heads (48), the MoE's ep path in prefill (two all_to_alls a
-             layer) and its replicated path in decode, and adds the
-             partials with ordered sums over gloo. Rank 0 then runs the
+             heads (48), hymba's 25 query and 5 KV heads and 50 SSM heads
+             whole (32 + 32), the MoE's ep path in prefill (two
+             all_to_alls a layer) and its replicated path in decode, and
+             adds the partials with ordered sums over gloo; where the
+             cache's length is cut (hymba's KV heads; deepseek's latent)
+             each rank holds its block of the slots and decode merges the
+             blocks' softmax partials (tp_softmax). For hymba each rank's
+             prefill cache blocks are held against P = 1's slices (layer
+             0's k and v bit-equal, the largest gap printed) and the rank
+             that wrote each decoded slot is printed. Rank 0 then runs the
              same function at P = 1 on the whole tree, drawn again: decode
              teacher-forced on the TP tokens, and for an MoE model each
              prefill MoE call on the 4 sequence blocks as separate calls
@@ -3949,6 +3957,15 @@ TP_TIMEOUT_S = 300               # the group's; the phase's is 460 s
 TP_SPECS = {
     "tp-danube": dict(arch="h2o-danube-1.8b", prompt=2048, new=8,
                       kernel="flash_attention", launches=24),
+    # 25 query heads and 5 KV heads 4 does not divide: the attention runs
+    # whole on every rank over its block of each cache's slots (2,184 =
+    # 128 meta + 2,048 + 8: 546 a rank of each global cache, 256 of each
+    # 1,024-slot ring), the 50 SSM heads scanned whole on every rank;
+    # ``also``: a second kernel and its launches a prefill on every rank,
+    # ``caches``: each rank's cache blocks held against P = 1's slices
+    "tp-hymba": dict(arch="hymba-1.5b", prompt=2048, new=8,
+                     kernel="flash_attention", launches=32,
+                     also={"ssd_fused": 32}, caches=True),
     "tp-mamba2": dict(arch="mamba2-370m", prompt=2048, new=8,
                       kernel="ssd_fused", launches=48),
     "tp-granite": dict(arch="granite-moe-1b-a400m", prompt=2048, new=8,
@@ -4071,7 +4088,7 @@ def _mean(xs):
 
 
 def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
-                  data=1):
+                  data=1, tp_caches=None):
     """Rank 0's P = 1 run of the function the TP run computed: the whole
     tree drawn again from ``seed``, decode teacher-forced on the TP run's
     tokens. For an MoE model each prefill MoE call's routed part runs on
@@ -4084,12 +4101,16 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
     gaps a step, P = 1's argmax a step (of the first request, and of
     each), and for an MoE model the dropped shares, the free-running gap
     (P = 1's own routing, capacity over the whole call) and the tokens
-    whose own top-k differs from the replayed choice."""
+    whose own top-k differs from the replayed choice. ``tp_caches``: the
+    files of each rank's prefill cache blocks, held against P = 1's
+    prefill caches cut as ``cache_specs`` lays them out
+    (``_cache_gaps``)."""
     import torch
 
     from repro_torch.models import model
 
     params = model.init_params(cfg, seed=seed, device=dev)
+    gaps_of_caches = {}
     n_moe = sum(n for sp, n in cfg.plan if sp.moe is not None)
     routing, drops = _Routing(), []
     t = TP_RANKS // data
@@ -4103,6 +4124,8 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
         with blocked:
             lg, caches, index = model.prefill(cfg, params, batch, max_len,
                                               cfg.dtype)
+        if tp_caches:
+            gaps_of_caches = _cache_gaps(caches, tp_caches)
         p1 = [lg]
         for t in range(tokens.shape[1] - 1):
             tok = torch.as_tensor(tokens[:, t:t + 1], device=dev)
@@ -4113,7 +4136,8 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
     argmax = torch.stack([p.argmax(-1) for p in p1], dim=1).cpu()
     out = {"gaps": [_logit_gap(a.float(), b.float())
                     for a, b in zip(tp_logits, p1)],
-           "argmax_p1": argmax[0].tolist(), "argmax_rows": argmax.tolist()}
+           "argmax_p1": argmax[0].tolist(), "argmax_rows": argmax.tolist(),
+           **gaps_of_caches}
     if n_moe:
         free = []
         with torch.inference_mode(), _moe_dropped(free):
@@ -4129,6 +4153,73 @@ def _tp_yardstick(cfg, seed, dev, batch, tokens, tp_logits, chosen, max_len,
             "flips_decode": sum(routing.flips[n_moe * TP_RANKS:])})
     del params
     return out
+
+
+def _cache_gaps(caches, files):
+    """Each rank's prefill cache blocks (``files``, in rank order, from a
+    (1, TP_RANKS) mesh) against the slices ``cache_specs`` gives that
+    rank of the P = 1 prefill's whole ``caches``: the largest |TP - P1|
+    a rank over every leaf, whether its first layer's attention k and v
+    are bit-equal, and the leaves compared."""
+    import torch
+
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.models.shardrules import _items, cache_specs
+    mesh = Mesh(("data", "model"), {"data": 1, "model": TP_RANKS})
+    whole = dict(_items(caches))
+    specs = dict(_items(cache_specs(caches, mesh)))
+    gaps, first, n = [], [], 0
+    for r, f in enumerate(files):
+        worst, same = 0.0, True
+        for path, block in _items(torch.load(f)):
+            want = whole[path]
+            for dim, entry in enumerate(specs[path]):
+                if entry and "model" in entry:
+                    size = want.shape[dim] // TP_RANKS
+                    want = want.narrow(dim, r * size, size)
+            block = block.to(want.device)
+            worst = max(worst, float((block.float() - want.float()).abs()
+                                     .max()))
+            if path in ("0/0/attn/k", "0/0/attn/v"):
+                same = same and torch.equal(block, want)
+            n += r == 0
+        gaps.append(worst)
+        first.append(same)
+    return {"cache_gap": gaps, "cache_layer0_equal": first,
+            "cache_leaves": n}
+
+
+@contextlib.contextmanager
+def _slot_writes(into):
+    """Keep in ``into`` one record of each decode position's first global
+    and first window attention layer (GQA): the position, the slot of the
+    whole cache it goes to, this rank's block of the slots and whether
+    the rank wrote the slot (its row of k changed)."""
+    import torch
+
+    from repro_torch.models import transformer
+    real, seen = transformer.attn_decode, set()
+
+    def tapped(params, x, cache, cfg, index, ctx=None, block=None):
+        key = (index, cfg.window > 0)
+        if "k" not in cache or key in seen:
+            return real(params, x, cache, cfg, index, ctx, block)
+        seen.add(key)
+        length = block.length if block else cache["k"].shape[1]
+        start, size = (block.start, block.size) if block else (0, length)
+        slot = index % length if cfg.window > 0 else min(index, length - 1)
+        mine = start <= slot < start + size
+        before = cache["k"][:, slot - start].clone() if mine else None
+        out = real(params, x, cache, cfg, index, ctx, block)
+        wrote = mine and not torch.equal(cache["k"][:, slot - start], before)
+        into.append({"index": index, "window": cfg.window, "slot": slot,
+                     "block": [start, size], "wrote": wrote})
+        return out
+    transformer.attn_decode = tapped
+    try:
+        yield into
+    finally:
+        transformer.attn_decode = real
 
 
 @contextlib.contextmanager
@@ -4268,7 +4359,7 @@ def dp_serve(cfg, seed, dev, host, spec, counters=None):
         for i in range(len(replicated), steps):
             lg, caches = model.decode_step(cfg, engine.params,
                                            rows[:, i:i + 1], caches,
-                                           index + i, ctx)
+                                           index + i, ctx, max_len)
             replicated.append(lg)
     # every rank's expert choices (the replay below and rank 0's P = 1)
     every = group.gather([c.cpu() for c in routing.chosen], "dp_choices")
@@ -4286,7 +4377,7 @@ def dp_serve(cfg, seed, dev, host, spec, counters=None):
             sync()
             t0 = time.perf_counter()
             lg, caches = model.decode_step(cfg, placed, rows[:, i:i + 1],
-                                           caches, index + i, sta)
+                                           caches, index + i, sta, max_len)
             sync()
             sta_ms.append((time.perf_counter() - t0) * 1e3)
             sta_logits.append(lg)
@@ -4643,13 +4734,14 @@ def tp_rank(args) -> int:
         rec["gloo_bf16"] = f"refused: {e}"[:200]
     rec["mm_out_dtype_grad"] = _mm_out_dtype_grad(dev)
     for tag, spec in TP_SPECS.items():
+        t_step = time.perf_counter()
         cfg = cut_depth(get_config(spec["arch"]),
                         TP_DEPTH_CUTS.get(spec["arch"]))
         n_new = spec["new"]
         params = model.init_params(cfg, seed=args.seed, device=dev)
         host = _serve_batch(cfg, args.seed, 1, spec["prompt"])
         batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
-        max_len = spec["prompt"] + n_new
+        max_len = cfg.meta_tokens + spec["prompt"] + n_new
         scfg = ServeConfig(max_len=max_len, max_new_tokens=n_new,
                            cache_dtype=cfg.dtype)
         engine = ServeEngine(cfg, params, scfg, device=dev, mesh=mesh)
@@ -4667,20 +4759,27 @@ def tp_rank(args) -> int:
             lg, caches, index = model.prefill(cfg, engine.params, head,
                                               max_len, cfg.dtype, engine.ctx)
             model.decode_step(cfg, engine.params, lg.argmax(-1)[:, None],
-                              caches, index, engine.ctx)
+                              caches, index, engine.ctx, max_len)
             del lg, caches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        t_warm = time.perf_counter()
         n_steps = len(engine.telemetry.steps)
         cap = Capture(((ssm, "ssd_fused"), (attention, "flash_attention")),
                       key=_flash_key)
         tp_logits = []                   # the logits generate computes
         routing, drops = _Routing(), []
+        kept_caches = []                 # the prefill's blocks, on the host
 
         def keep(fn):
             def wrapped(*a, **kw):
                 res = fn(*a, **kw)
                 tp_logits.append(res[0])
+                if spec.get("caches") and len(res) == 3:
+                    kept_caches.append([[{p: {k: v.cpu() for k, v in
+                                              d.items()}
+                                          for p, d in c.items()}
+                                         for c in seg] for seg in res[1]])
                 return res
             return wrapped
         engine_mod.prefill = keep(model.prefill)
@@ -4689,9 +4788,12 @@ def tp_rank(args) -> int:
             dist.barrier()
             _zero(counters)
             group.collective_times(reset=True)
-            with routing.record(), _moe_dropped(drops):
+            t_gen = time.perf_counter()
+            with routing.record(), _moe_dropped(drops), \
+                    _slot_writes(writes := []):
                 tokens = engine.generate(host)
             torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t_gen
             launches = {k: counters[k].launches
                         for k in ("flash_attention", "ssd_fused")}
             tc = {k: counters[k].wgmma_launches
@@ -4724,7 +4826,12 @@ def tp_rank(args) -> int:
             "digest": _digest(*tp_logits),
             "finite": all(bool(torch.isfinite(x).all()) for x in tp_logits),
             "shapes": {k: [list(a.shape) for a in c[0] if hasattr(a, "shape")]
-                       for k, c in cap.calls.items()}}
+                       for k, c in cap.calls.items()},
+            "slot_writes": writes}
+        if kept_caches:
+            torch.save(kept_caches[0], os.path.join(
+                root, f"{tag}_caches_rank{rank}.pt"))
+        del kept_caches
         # every rank's expert choices to rank 0, for its P = 1 yardstick
         chosen = [c.cpu() for c in routing.chosen]
         every = [None] * TP_RANKS if rank == 0 else None
@@ -4732,10 +4839,14 @@ def tp_rank(args) -> int:
         del engine, routing, chosen
         gc.collect()
         torch.cuda.empty_cache()
+        t_yard = time.perf_counter()
         if rank == 0:
-            rec[tag].update(_tp_yardstick(cfg, args.seed, dev, batch,
-                                          np.asarray(tokens), tp_logits,
-                                          every, max_len))
+            rec[tag].update(_tp_yardstick(
+                cfg, args.seed, dev, batch, np.asarray(tokens), tp_logits,
+                every, max_len, tp_caches=[os.path.join(
+                    root, f"{tag}_caches_rank{r}.pt")
+                    for r in range(TP_RANKS)] if spec.get("caches")
+                else None))
             torch.save({k: ([a.cpu() if hasattr(a, "cpu") else a
                              for a in c[0]], c[1])
                         for k, c in cap.calls.items()},
@@ -4743,6 +4854,12 @@ def tp_rank(args) -> int:
         del tp_logits, cap, every
         gc.collect()
         torch.cuda.empty_cache()
+        t_end = time.perf_counter()
+        rec[tag]["parts_s"] = {
+            "draw and warm-up": t_warm - t_step, "generate": t_gen,
+            "checks": t_yard - t_warm - t_gen,
+            "yardstick (rank 0)": t_end - t_yard}
+        rec[tag]["seconds"] = t_end - t_step
     cfg = get_config(DP_SPEC["arch"])
     host = _serve_batch(cfg, args.seed, DP_SPEC["batch"], DP_SPEC["prompt"])
     rec[DP_TAG], calls = dp_serve(cfg, args.seed, dev, host, DP_SPEC,
@@ -4785,9 +4902,11 @@ def phase_tp(args, work, dev, card):
     choices, ``_tp_yardstick``), every rank's logits bit-equal, each
     rank's launches one a layer (in the spec's instantiation where it
     names one), each kernel against its plain version on the rank's own
-    inputs, each rank's parameter bytes equal to ``bytes_per_device``.
-    Returns (launches, errs, calls) by ``<kernel>/<tag>``, the calls on
-    ``dev``."""
+    inputs, each rank's parameter bytes equal to ``bytes_per_device``;
+    for a spec with ``caches`` each decoded slot written by the rank whose
+    block holds it and layer 0's cache blocks bit-equal to P = 1's
+    slices. Returns (launches, errs, calls) by ``<kernel>/<tag>``, the
+    calls on ``dev``."""
     import torch
 
     root = os.path.join(work, "tp")
@@ -4804,6 +4923,7 @@ def phase_tp(args, work, dev, card):
     launches, errs, calls = {}, {}, {}
     for tag, spec in TP_SPECS.items():
         name, want = spec["kernel"], spec["launches"]
+        wants = {name: want, **spec.get("also", {})}
         for rec in recs:
             r, t = rec["rank"], rec[tag]
             kinds = {k: f"{n} calls {sec:.3f}s"
@@ -4822,11 +4942,37 @@ def phase_tp(args, work, dev, card):
             if a2a is not None:
                 log(f"{tag} rank {r}: tp_all_to_all {a2a} in the generate"
                     f" [{card}]")
-            if t["launches"][name] != want or t["tensor_core"][name] != want:
-                raise AssertionError(f"{tag} rank {r}: {name} launched "
-                                     f"{t['launches'][name]} times "
-                                     f"({t['tensor_core'][name]} on the "
-                                     f"tensor cores), expected {want}")
+            for kind in ("tp_softmax", "dp_softmax", "mesh_softmax"):
+                if kind in kinds:
+                    log(f"{tag} rank {r}: {kind} {kinds[kind]} in the "
+                        f"generate ({spec['new'] - 1} decode steps) "
+                        f"[{card}]")
+            log(f"{tag} rank {r}: step {t['seconds']:.3f}s ("
+                + ", ".join(f"{k} {v:.3f}s" for k, v in
+                            t["parts_s"].items())
+                + f") [{card}]")
+            if spec.get("caches"):
+                log(f"{tag} rank {r}: slots written in decode (position, "
+                    f"window, slot of the whole cache, the rank's block "
+                    f"[start, size], written here): "
+                    + "; ".join(f"{w['index']} w{w['window']} slot "
+                                f"{w['slot']} {w['block']} {w['wrote']}"
+                                for w in t["slot_writes"]) + f" [{card}]")
+                for w in t["slot_writes"]:
+                    lo, size = w["block"]
+                    if w["wrote"] != (lo <= w["slot"] < lo + size):
+                        raise AssertionError(
+                            f"{tag} rank {r}: position {w['index']}'s "
+                            f"slot {w['slot']} written {w['wrote']} by the"
+                            f" rank of block {w['block']}")
+            for kname, n in wants.items():
+                if t["launches"][kname] != n or \
+                        t["tensor_core"][kname] != n:
+                    raise AssertionError(
+                        f"{tag} rank {r}: {kname} launched "
+                        f"{t['launches'][kname]} times "
+                        f"({t['tensor_core'][kname]} on the tensor "
+                        f"cores), expected {n}")
             if "flash_instance" in spec:
                 inst = "x".join(map(str, spec["flash_instance"]))
                 if t["instances"] != {inst: want}:
@@ -4867,16 +5013,28 @@ def phase_tp(args, work, dev, card):
                 f"whose own top-k at P = 1 differs from the TP choice, by "
                 f"layer: {t0['flips_prefill']}; in decode "
                 f"{t0['flips_decode']} [{card}]")
+        if "cache_gap" in t0:
+            log(f"{tag}: each rank's prefill cache blocks == P = 1's "
+                f"slices under cache_specs ({t0['cache_leaves']} leaves a "
+                f"rank): largest |TP - P1| by rank {t0['cache_gap']}; "
+                f"layer 0's k and v bit-equal by rank "
+                f"{t0['cache_layer0_equal']} [{card}]")
+            if not all(t0["cache_layer0_equal"]):
+                raise AssertionError(f"{tag}: a rank's layer 0 k or v "
+                                     "differs from P = 1's slice")
         if any(m > LOGIT_MAX_TOL or a > LOGIT_MEAN_TOL for m, a in gaps):
             raise AssertionError(f"{tag}: TP and P = 1 logits disagree")
-        launches[f"{name}/{tag}"] = t0["launches"][name]
-        errs[name] = max(max(rec[tag]["errs"].get(name, 0.0)
-                             for rec in recs), errs.get(name, 0.0))
         saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
-        key = next(k for k in saved if k.startswith(name))
-        c_args, c_kw = saved[key]
-        calls[f"{name}/{tag}"] = ([a.to(dev) if hasattr(a, "to") else a
-                                   for a in c_args], c_kw)
+        for kname in wants:
+            launches[f"{kname}/{tag}"] = t0["launches"][kname]
+            errs[kname] = max(max(rec[tag]["errs"].get(kname, 0.0)
+                                  for rec in recs), errs.get(kname, 0.0))
+            # a window layer's call where the model has one
+            key = next(k for k in sorted(saved, key=lambda k: not k.endswith(
+                "/window")) if k.startswith(kname))
+            c_args, c_kw = saved[key]
+            calls[f"{kname}/{tag}"] = ([a.to(dev) if hasattr(a, "to")
+                                        else a for a in c_args], c_kw)
     name = f"flash_attention/{DP_TAG}"
     launches[name], err = _check_dp(recs, card)
     errs["flash_attention"] = max(errs["flash_attention"], err)
@@ -5293,7 +5451,7 @@ def phase_tp_times(shapes):
     others: ssd_fused at rank 0's mamba2 calls (serving, training),
     flash_attention at rank 0's call of each TP_FLASH_ROWS step."""
     rows = {}
-    _ssd_rows(rows, shapes, ("ssd_fused/tp-mamba2",
+    _ssd_rows(rows, shapes, ("ssd_fused/tp-mamba2", "ssd_fused/tp-hymba",
                              "ssd_fused/tp-train-mamba2"))
     _flash_rows(rows, shapes, TP_FLASH_ROWS)
     return rows
@@ -5432,7 +5590,7 @@ ALSO = {"binstats": ("binstats/table1",),
                        "iqr_fences/120k", "iqr_fences/monitor"),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
                       "ssd_fused/train-hymba", "ssd_fused/tp-mamba2",
-                      "ssd_fused/tp-train-mamba2"),
+                      "ssd_fused/tp-hymba", "ssd_fused/tp-train-mamba2"),
         "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
         + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES)
         + TP_FLASH_ROWS,

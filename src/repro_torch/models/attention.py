@@ -27,9 +27,20 @@ parameters are the rank's: its H/T query heads and Hkv/T KV heads.
 Prefill and decode attend over the rank's heads, by the same code as at
 one rank, and add the ranks' ``wo`` partials with one ordered sum
 (:func:`repro_torch.models.tp.ordered_sum`). MLA too: a rank computes
-the latent and the rope key whole, its H/T heads' queries, keys and
-values from them, and keeps the latent cache whole (it has no head
-dim).
+the latent and the rope key whole and its H/T heads' queries, keys and
+values from them. Heads T does not divide stay whole on every rank
+(hymba's 25 and 5 at T = 4), and their output needs no sum.
+
+Where the rules cannot cut the KV heads (or the batch), the cache's
+length is cut instead (``cache_specs``), as it is for MLA's latent and
+rope key, which have no head dim: each rank holds a block of the slots
+(``tp.LengthBlock``). Prefill attends as above and keeps the rank's block
+of the whole cache; where the query heads are the rank's and the KV
+heads whole, it reads the KV heads its heads span. Decode writes the new
+token's entry on the rank whose block holds its slot, takes the softmax
+partials of every query head over the rank's slots (the queries gathered
+whole where they are the rank's), merges them across the ranks in rank
+order (``tp.softmax_merge``) and keeps the rank's heads for ``wo``.
 """
 
 from __future__ import annotations
@@ -165,6 +176,44 @@ def _out(params, o: torch.Tensor, ctx: Optional[ParallelCtx] = None,
                          split)
 
 
+def _split_heads(params, cfg: AttnConfig) -> bool:
+    """Whether ``params`` hold a rank's share of the query heads (where T
+    does not divide them, the rules keep them whole and every rank runs
+    them all)."""
+    return params["wo"].shape[0] < cfg.n_heads
+
+
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, hq: int, cfg: AttnConfig,
+             ctx: Optional[ParallelCtx]):
+    """k and v of the KV heads this rank's ``hq`` query heads read, where
+    the rules cut the query heads but keep the KV heads whole (T does not
+    divide them): the KV heads the rank's heads span, or one KV head a
+    query head where those do not group evenly under them. Otherwise k
+    and v as they are."""
+    if hq == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    heads = [(ctx.tensor_rank * hq + j) // g for j in range(hq)]
+    lo, n = heads[0], heads[-1] - heads[0] + 1
+    if hq % n == 0 and heads == [lo + j // (hq // n) for j in range(hq)]:
+        return k.narrow(2, lo, n), v.narrow(2, lo, n)
+    idx = torch.tensor(heads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _whole_block(length: int) -> tp.LengthBlock:
+    return tp.LengthBlock(0, length, length, None)
+
+
+def _partials(s: torch.Tensor, v: torch.Tensor, eq: str):
+    """A block's softmax partials over its last dim of masked float32
+    scores ``s``: the max m, the sum l of ``exp(s - m)`` and the sum of
+    ``exp(s - m)`` times the float32 values (einsum ``eq``)."""
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    return m, e.sum(-1), torch.einsum(eq, e, v.float())
+
+
 # --- prefill / decode --------------------------------------------------------
 
 def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
@@ -175,21 +224,25 @@ def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
     full-sequence k and v (B, S, Hkv, hd) in the model dtype (MLA: its
     latent and rope key), or None when ``cache`` is False (training keeps
     no decode cache). At T > 1 the rank's heads: its query heads' share
-    of the output, summed over the ranks, and its KV heads' k and v."""
+    of the output, summed over the ranks, and its KV heads' k and v (all
+    of them where T does not divide them; where it divides neither, the
+    heads run whole on every rank and nothing is summed)."""
     if cfg.is_mla:
         return mla_forward(params, x, cfg, positions, cache, ctx)
-    tp.check_attn(cfg, ctx)
+    tp.check_attn(cfg, ctx, train=not cache)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions, ctx)
-    out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
-    return _out(params, out, ctx), (
+    kr, vr = _rank_kv(k, v, q.shape[2], cfg, ctx)
+    out = flash_attention(q, kr, vr, causal=cfg.causal, window=cfg.window)
+    return _out(params, out, ctx, _split_heads(params, cfg)), (
         {"k": k, "v": v} if cache else None)
 
 
 def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
                 cache_index: int, ctx: Optional[ParallelCtx] = None,
+                block: Optional[tp.LengthBlock] = None,
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode against a (possibly ring) KV cache.
 
@@ -197,9 +250,17 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     SWA or max_len otherwise (at T > 1 the rank's Hkv/T heads, its
     queries' H/T); ``cache_index`` is the number of positions already
     absorbed (the absolute position of the new token). The cache is
-    updated in place and returned."""
+    updated in place and returned.
+
+    Where the layout cuts the cache's length (``block``: the rank's slots
+    of the whole C), the mask is worked out in global slots, the new k
+    and v are written by the rank whose block holds their slot, the rank
+    takes its slots' softmax partials and ``tp.softmax_merge`` merges
+    them over the block's axis. Where the KV heads are whole but the
+    query heads the rank's, the queries of every head are gathered first
+    (exact) and the rank keeps its heads' output for ``wo``."""
     if cfg.is_mla:
-        return mla_decode(params, x, cache, cfg, cache_index, ctx)
+        return mla_decode(params, x, cache, cfg, cache_index, ctx, block)
     tp.check_attn(cfg, ctx)
     b = x.shape[0]
     # a decoded token is text: M-RoPE's three ids advance together
@@ -207,21 +268,26 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     pos = torch.full(shape, cache_index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, pos, ctx)
 
-    c = cache["k"].shape[1]
+    blk = block or _whole_block(cache["k"].shape[1])
+    c = blk.length
     if cfg.window > 0:
         slot = cache_index % c              # ring buffer (c == window)
     else:
         slot = min(cache_index, c - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    if blk.start <= slot < blk.start + blk.size:
+        cache["k"][:, slot - blk.start] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - blk.start] = v[:, 0].to(cache["v"].dtype)
 
     # which cache slots hold real tokens (ring-aware): once the ring has
     # wrapped every slot is live; before that only slots [0, slot]
-    idx = torch.arange(c, device=x.device)
+    idx = blk.start + torch.arange(blk.size, device=x.device)
     valid = idx <= slot
     if cfg.window > 0 and cache_index >= c:
         valid = torch.ones_like(valid)
-    h, kv_h, hd = q.shape[2], k.shape[2], k.shape[3]
+    hq = q.shape[2]
+    if hq < cfg.n_heads and cache["k"].shape[2] == cfg.n_kv_heads:
+        q = tp.gather_cat(q, 2, ctx, name="queries")
+    h, kv_h, hd = q.shape[2], cache["k"].shape[2], cache["k"].shape[3]
     g = h // kv_h
     ct = torch.promote_types(q.dtype, cache["k"].dtype)
     qg = q.reshape(b, 1, kv_h, g, hd).to(ct)
@@ -229,12 +295,18 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
                      cache["k"].to(ct)).to(torch.float32)
     s = s / math.sqrt(hd)
     s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    vt = torch.promote_types(v.dtype, cache["v"].dtype)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).to(vt),
-                     cache["v"].to(vt))
+    if blk.axis is None:
+        p = torch.softmax(s, dim=-1)
+        vt = torch.promote_types(v.dtype, cache["v"].dtype)
+        o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).to(vt),
+                         cache["v"].to(vt))
+    else:
+        o = tp.softmax_merge(*_partials(s, cache["v"], "bkgqs,bskh->bkgqh"),
+                             ctx, blk.axis).permute(0, 3, 1, 2, 4)
     o = o.reshape(b, 1, h, hd).to(x.dtype)
-    return _out(params, o, ctx), cache
+    if h > hq:                  # the rank's heads of the gathered queries
+        o = o.narrow(2, ctx.tensor_rank * hq, hq)
+    return _out(params, o, ctx, _split_heads(params, cfg)), cache
 
 
 def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -251,12 +323,6 @@ def attn_init_cache(cfg: AttnConfig, batch: int, max_len: int,
 
 
 # --- MLA (deepseek-v2) -------------------------------------------------------
-
-def _split_heads(params, cfg: AttnConfig) -> bool:
-    """Whether ``params`` hold a rank's share of MLA's heads (where T does
-    not divide them, every rank runs them all)."""
-    return params["wo"].shape[0] < cfg.n_heads
-
 
 def _mla_query(params, x: torch.Tensor, cfg: AttnConfig,
                positions: torch.Tensor,
@@ -320,33 +386,55 @@ def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
 
 def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
                cache_index: int, ctx: Optional[ParallelCtx] = None,
+               block: Optional[tp.LengthBlock] = None,
                ) -> Tuple[torch.Tensor, Dict]:
     """Weight-absorbed MLA decode: scores and the weighted sum run in the
     latent space, and W_UV lifts the sum to the heads.
 
     x: (B, 1, D); cache {"latent": (B, C, kl), "k_rope": (B, C, rope)},
-    updated in place at slot ``min(cache_index, C - 1)`` and returned;
-    at T > 1 the whole cache on every rank, read by the rank's heads."""
+    updated in place at slot ``min(cache_index, C - 1)`` and returned.
+    At T > 1 the rank holds its ``block`` of the slots: the absorbed
+    queries of every head are gathered (where the rank holds a share of
+    the heads), the rank takes its slots' softmax partials in the latent
+    space, ``tp.softmax_merge`` merges them, and the rank keeps its
+    heads' weighted latent for ``wv_b`` and ``wo``."""
     tp.check_attn(cfg, ctx)
     b, dt = x.shape[0], x.dtype
     dn = cfg.qk_nope_dim
     pos = torch.full((b, 1), cache_index, dtype=torch.int64, device=x.device)
     q = _mla_query(params, x, cfg, pos)
     latent_new, k_rope_new = _mla_latent(params, x, cfg, pos)
-    c = cache["latent"].shape[1]
-    slot = min(cache_index, c - 1)
-    cache["latent"][:, slot] = latent_new[:, 0].to(cache["latent"].dtype)
-    cache["k_rope"][:, slot] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    blk = block or _whole_block(cache["latent"].shape[1])
+    slot = min(cache_index, blk.length - 1)
+    if blk.start <= slot < blk.start + blk.size:
+        at = slot - blk.start
+        cache["latent"][:, at] = latent_new[:, 0].to(cache["latent"].dtype)
+        cache["k_rope"][:, at] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
     latent, k_rope = cache["latent"].to(dt), cache["k_rope"].to(dt)
 
     # W_UK absorbed into the query: (B, 1, H, kl)
     q_abs = torch.einsum("bshk,lhk->bshl", q[..., :dn],
                          params["wk_b"].to(dt))
+    q_rope = q[..., dn:]
+    hq = q_abs.shape[2]
+    if _split_heads(params, cfg) and blk.axis in ("model", tp.MESH):
+        kl = q_abs.shape[-1]        # every head's, one gather
+        q_all = tp.gather_cat(torch.cat([q_abs, q_rope], -1), 2, ctx,
+                              name="queries")
+        q_abs, q_rope = q_all[..., :kl], q_all[..., kl:]
     scores = torch.einsum("bshl,bcl->bshc", q_abs, latent)
-    scores = scores + torch.einsum("bshr,bcr->bshc", q[..., dn:], k_rope)
+    scores = scores + torch.einsum("bshr,bcr->bshc", q_rope, k_rope)
     scores = scores.float() / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
-    valid = torch.arange(c, device=x.device) <= slot
-    p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
-    mixed = torch.einsum("bshc,bcl->bshl", p.to(dt), latent)
+    valid = blk.start + torch.arange(blk.size, device=x.device) <= slot
+    scores = torch.where(valid, scores, NEG_INF)
+    if blk.axis is None:
+        mixed = torch.einsum("bshc,bcl->bshl",
+                             torch.softmax(scores, dim=-1).to(dt), latent)
+    else:
+        mixed = tp.softmax_merge(*_partials(scores, latent,
+                                            "bshc,bcl->bshl"),
+                                 ctx, blk.axis).to(dt)
+    if mixed.shape[2] > hq:     # the rank's heads of the gathered queries
+        mixed = mixed.narrow(2, ctx.tensor_rank * hq, hq)
     out = torch.einsum("bshl,lhv->bshv", mixed, params["wv_b"].to(dt))
     return _mla_out(params, out, cfg, ctx), cache

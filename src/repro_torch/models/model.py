@@ -28,7 +28,10 @@ layer's at its use (``transformer.layer_forward``), the embedding
 and the head are vocab-parallel where the rules split the vocabulary
 (the logits gathered along V, so every rank of a data row holds the
 same (B, V)), the layers run :mod:`.tp`'s blocks, and the caches hold
-the rank's rows and its KV heads, SSM heads and ``conv_x`` channels.
+the rank's rows and its KV heads, SSM heads and ``conv_x`` channels, and
+where ``cache_specs`` cuts an attention cache's length (KV heads or
+requests that do not divide, MLA's latent) its block of the slots
+(:func:`cache_blocks`; ``decode_step`` then needs ``max_len``).
 ``loss_fn`` takes the same context in training, on a ``(D, T)`` mesh:
 the rank's blocks and its rows, the layers' collectives with their
 backward, the loss vocab-parallel where the vocabulary is split and the
@@ -49,7 +52,8 @@ from . import tp
 from .frontends import assemble, embed_tokens
 from .layers import (dense_init, embed_init, layernorm, layernorm_init,
                      rmsnorm, rmsnorm_init)
-from .shardrules import ParallelCtx, dp_size
+from .shardrules import (ParallelCtx, _items, _map, cache_specs, dp_size,
+                         length_axes, shard_shape)
 from .transformer import (LayerSpec, layer_init_cache, segment_forward,
                           segment_init)
 
@@ -329,14 +333,70 @@ def logits_for(cfg: ModelConfig, params, h_last: torch.Tensor,
 
 # --- decode ---------------------------------------------------------------------
 
+def _whole_batch(rows: int, ctx: Optional[ParallelCtx]) -> int:
+    """The requests of the whole batch whose ``rows`` a rank holds."""
+    if ctx is None or ctx.batch_whole:
+        return rows
+    return rows * ctx.data_size
+
+
+def _whole_cache(spec: LayerSpec, batch: int, max_len: int,
+                 dtype: torch.dtype = torch.float32) -> Dict:
+    """One layer's whole decode cache as meta tensors (shapes only)."""
+    return layer_init_cache(spec, batch, max_len, dtype,
+                            torch.device("meta"))
+
+
+def cache_blocks(cfg: ModelConfig, rows: int, max_len: Optional[int],
+                 ctx: Optional[ParallelCtx]) -> List:
+    """For each segment, this rank's block of its attention caches'
+    length (``tp.LengthBlock``; None for a segment with no attention):
+    ``cache_specs`` on the whole caches of the rank's ``rows`` requests
+    (their data ranks' too) and ``max_len`` positions. Under a context
+    whose caches' length may be cut, ``max_len`` is required (the rank's
+    blocks do not tell the whole length); elsewhere it may be None."""
+    out = []
+    for spec, _ in cfg.plan:
+        if spec.attn is None:
+            out.append(None)
+            continue
+        name = "latent" if spec.attn.is_mla else "k"
+        whole = _whole_cache(spec, _whole_batch(rows, ctx), max_len or 1)
+        leaf = whole["attn"][name]
+        if ctx is None or not any(
+                ctx.mesh.shape[a] > 1 for a in length_axes(
+                    name, tuple(leaf.shape), ctx.mesh)):
+            out.append(None)
+            continue
+        if max_len is None:
+            raise ValueError(
+                f"{cfg.name} on mesh {ctx.mesh.shape}: the caches' length "
+                "may be cut over the ranks; pass max_len")
+        entry = cache_specs({name: leaf}, ctx.mesh)[name][1]
+        out.append(tp.cache_block(entry, leaf.shape[1], ctx))
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Union[str, torch.device] = "cuda") -> List:
+               device: Union[str, torch.device] = "cuda",
+               ctx: Optional[ParallelCtx] = None) -> List:
     """Per-segment lists of per-layer caches sized for ``max_len``
-    absolute positions (meta tokens + prompt + generated)."""
+    absolute positions (meta tokens + prompt + generated); under a
+    context, the rank's blocks (of its ``batch`` rows) that ``prefill``
+    gives, as ``cache_specs`` lays them out."""
     dev = resolve_device(device)
-    return [[layer_init_cache(spec, batch, max_len, dtype, dev)
-             for _ in range(count)] for spec, count in cfg.plan]
+    if ctx is None:
+        return [[layer_init_cache(spec, batch, max_len, dtype, dev)
+                 for _ in range(count)] for spec, count in cfg.plan]
+    out = []
+    for spec, count in cfg.plan:
+        whole = _whole_cache(spec, _whole_batch(batch, ctx), max_len, dtype)
+        specs = dict(_items(cache_specs(whole, ctx.mesh)))
+        out.append([_map(lambda path, x: torch.zeros(
+            shard_shape(tuple(x.shape), specs[path], ctx.mesh),
+            dtype=x.dtype, device=dev), whole) for _ in range(count)])
+    return out
 
 
 def _ring_from_prefill(entry: torch.Tensor, window: int) -> torch.Tensor:
@@ -359,9 +419,11 @@ def _pad_positions(entry: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
-                        dtype: torch.dtype) -> Dict:
+                        dtype: torch.dtype,
+                        block: Optional[tp.LengthBlock] = None) -> Dict:
     """One layer's prefill cache entries (full-sequence) -> its decode
-    cache layout."""
+    cache layout: the whole ring or padded cache, then the rank's
+    ``block`` of its length where the layout cuts it."""
     out = {}
     if "attn" in pre:
         a = pre["attn"]
@@ -375,6 +437,9 @@ def _cache_from_prefill(spec: LayerSpec, pre: Dict, max_len: int,
         else:
             out["attn"] = {k: _pad_positions(a[k].to(dtype), max_len)
                            for k in ("k", "v")}
+        if block is not None:
+            out["attn"] = {k: v.narrow(1, block.start, block.size).clone()
+                           for k, v in out["attn"].items()}
     if "ssm" in pre:
         out["ssm"] = pre["ssm"]        # states are already decode-shaped
     return out
@@ -390,26 +455,37 @@ def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
     ``max_len`` sizes the global attention caches (meta tokens + prompt +
     generated positions); the attention caches take ``cache_dtype``, the
     SSM caches keep the reference's types (conv tails in the model dtype,
-    states in float32)."""
+    states in float32). Under a context each rank keeps its blocks of
+    the caches as ``cache_specs`` lays them out: its rows, heads and
+    channels, and its block of the slots where the layout cuts an
+    attention cache's length (:func:`cache_blocks`)."""
     params = _gathered(cfg, params, ctx)
     h, pre, _, _ = forward_hidden(cfg, params, batch, "prefill", ctx=ctx)
-    caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype)
-               for c in seg] for (spec, _), seg in zip(cfg.plan, pre)]
+    blocks = cache_blocks(cfg, h.shape[0], max_len, ctx)
+    caches = [[_cache_from_prefill(spec, c, max_len, cache_dtype, blk)
+               for c in seg]
+              for (spec, _), seg, blk in zip(cfg.plan, pre, blocks)]
     logits = logits_for(cfg, params, h[:, -1], ctx)
     return logits, caches, h.shape[1]     # meta/prefix included
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
                 caches: List, index: int, ctx: Optional[ParallelCtx] = None,
+                max_len: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int at absolute position ``index`` (meta tokens
     counted). Returns ((B, V) logits, caches); the caches are updated in
-    place. Under a context, ``token`` holds the rank's rows."""
+    place. Under a context, ``token`` holds the rank's rows, and each
+    attention layer learns its block of the cache's slots
+    (:func:`cache_blocks`) from ``max_len``, the ``max_len`` the caches
+    were made for, which a layout that may cut a cache's length
+    requires."""
     params = _gathered(cfg, params, ctx)
+    blocks = cache_blocks(cfg, token.shape[0], max_len, ctx)
     h = embed_tokens(params, token, cfg.dtype, ctx, cfg.vocab)
     for i, (spec, _) in enumerate(cfg.plan):
         h, caches[i], _ = segment_forward(params["segments"][i], h, spec,
                                           None, "decode", caches[i], index,
-                                          ctx=ctx)
+                                          ctx=ctx, block=blocks[i])
     h = _final_norm(cfg, params, h)
     return logits_for(cfg, params, h[:, -1], ctx), caches

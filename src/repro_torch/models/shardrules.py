@@ -321,15 +321,35 @@ def dp_size(ctx: Optional[ParallelCtx]) -> int:
     return ctx.data_size if ctx is not None else 1
 
 
+def length_axes(name: str, shape: Tuple[int, ...], mesh: Mesh
+                ) -> Tuple[str, ...]:
+    """The mesh axes :func:`cache_specs` may cut the length of a cache
+    leaf ``name`` of ``shape`` over (the leaf's length is cut over the
+    largest suffix of them that divides it): the batch axes where the
+    batch does not divide over them, and the tensor axis where the KV
+    heads do not (MLA's latent and rope key, which have none: always);
+    none for the SSM's leaves."""
+    if name not in ("k", "v", "latent", "k_rope"):
+        return ()
+    baxes = batch_axes(mesh)
+    taxes = ("model",) if "model" in mesh.axis_names else ()
+    b_cut = baxes and _fit_axes(shape[0], baxes, mesh)
+    h_cut = name in ("k", "v") and taxes and _fit_axes(shape[2], taxes,
+                                                      mesh)
+    return (() if b_cut else baxes) + (() if h_cut else taxes)
+
+
 def cache_specs(caches, mesh: Mesh):
     """The spec of every decode cache leaf, after the reference's
     ``serve/engine.py::cache_specs``, on the port's per-layer caches (no
     leading layer dim): the batch over the batch axes and the KV heads,
     SSM ``state`` heads and ``conv_x`` channels over the tensor axis
-    where they divide; ``conv_b`` / ``conv_c`` whole. Where KV heads do
-    not divide, the freed axes move to the cache length, as the
-    reference lays it out (the port refuses to decode over that,
-    ``tp.check_attn``)."""
+    where they divide; ``conv_b`` / ``conv_c`` whole. Where the batch or
+    the KV heads do not divide, the freed axes move to the cache length
+    (:func:`length_axes`), as the reference lays it out: each rank holds
+    a block of the slots, and decode merges the blocks' softmax partials
+    (``tp.softmax_merge``). MLA's latent and rope key are cut along their
+    length over the tensor axis (and the batch axes the batch frees)."""
     baxes = batch_axes(mesh)
     taxes = ("model",) if "model" in mesh.axis_names else ()
 
@@ -339,13 +359,12 @@ def cache_specs(caches, mesh: Mesh):
     def spec(path, x):
         name, shape = path.rsplit("/", 1)[-1], tuple(x.shape)
         b_fit = fit(shape[0], baxes)
+        c_fit = fit(shape[1], length_axes(name, shape, mesh)) \
+            if len(shape) > 1 else None
         if name in ("k", "v"):                 # (B, C, Hkv, hd)
-            h_fit = fit(shape[2], taxes)
-            c_axes = (() if b_fit else baxes) + (() if h_fit else taxes)
-            return (b_fit, fit(shape[1], c_axes), h_fit, None)
+            return (b_fit, c_fit, fit(shape[2], taxes), None)
         if name in ("latent", "k_rope"):       # (B, C, r)
-            c_axes = (() if b_fit else baxes) + taxes
-            return (b_fit, fit(shape[1], c_axes), None)
+            return (b_fit, c_fit, None)
         if name == "state":                    # (B, H, P, N)
             return (b_fit, fit(shape[1], taxes), None, None)
         if name == "conv_x":                   # (B, w - 1, d_inner)
@@ -430,7 +449,11 @@ def shard_batch(batch, ctx: Optional[ParallelCtx]):
     with the requests on the leading dim; the context to run them under).
     The rows are laid out as :func:`batch_specs` says: the data rank's
     block of the requests, or all of them where their number does not
-    divide, and then the context says so (``batch_whole``)."""
+    divide, and then the context says so (``batch_whole``): every data
+    rank computes the whole batch, and :func:`cache_specs` cuts its
+    attention caches' length over ``data`` instead (over ``data`` and
+    ``model`` where the KV heads do not divide either), each data rank
+    holding a block of the slots."""
     if ctx is None or ctx.data_size == 1:
         return batch, ctx
     specs = batch_specs(batch, ctx.mesh)

@@ -19,6 +19,15 @@ scans its heads, normalises over the whole ``d_inner`` (one float32
 ordered sum of squares) and adds ``out_proj``'s partials with one
 ordered sum. Its decode cache holds its heads' state and ``conv_x``
 channels, and the whole ``conv_b`` / ``conv_c`` tails.
+
+Where T does not divide the SSM heads (hymba's 50 at T = 4), the rules
+keep ``in_dt``, ``A_log``, ``D``, ``dt_bias`` and the ``state`` cache
+whole but still cut ``in_z``, ``in_x``, ``conv_x``, the norm's scale and
+``out_proj``'s rows into blocks of ``d_inner`` / T channels, which do
+not fall on head boundaries. Then every rank gathers the convolved x
+channels whole, scans every head (the same launch as at one rank),
+keeps its block of the channels of ``y`` and goes on as above; its
+decode recurrence runs on the whole state.
 """
 
 from __future__ import annotations
@@ -142,6 +151,17 @@ def _conv_step(state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
     return out if whole else tp.gather_cat(out, -1, ctx)
 
 
+def _scanned(xc: torch.Tensor, heads: int, cfg: SSMConfig,
+             ctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """The convolved x channels of the ``heads`` the rank scans: ``xc``
+    itself, or where the rank scans every head (T does not divide them,
+    and the rules keep ``in_dt`` whole) but holds a block of the
+    channels, the ranks' blocks gathered whole (exact)."""
+    if xc.shape[-1] == heads * cfg.head_dim:
+        return xc
+    return tp.gather_cat(xc, -1, ctx, name="conv")
+
+
 # --- block forward / decode -------------------------------------------------------
 
 def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
@@ -177,7 +197,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
     """Training / prefill forward. x: (B, S, D). Returns (out, decode
     cache entries), the entries None when ``cache`` is False (training
     keeps no decode cache). At T > 1 the scan runs on the rank's heads."""
-    tp.check_ssm(cfg, ctx)
+    tp.check_ssm(cfg, ctx, train=not cache)
     bsz, s, _ = x.shape
     z, xr, Br, Cr, dt_raw = _projections(params, x, ctx)
     xc = _conv(xr, params["conv_x"]["w"], params["conv_x"]["b"], ctx)
@@ -185,13 +205,14 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
     Cc = _conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"], ctx)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B, S, H)
+    xc = _scanned(xc, dt.shape[-1], cfg, ctx)
     xs = xc.reshape(bsz, s, dt.shape[-1], cfg.head_dim)
     B3 = Bc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
     C3 = Cc.reshape(bsz, s, cfg.n_groups, cfg.d_state)
     y, h_fin = ssd_fused(xs, dt, params["A_log"], B3, C3, params["D"],
                          chunk=cfg.chunk)
-    y = _gated_norm(params["ssm_norm"]["scale"], y.reshape(bsz, s, -1), z,
-                    ctx=ctx)
+    y = tp.local_block(y.reshape(bsz, s, -1), z.shape[-1], ctx, dim=-1)
+    y = _gated_norm(params["ssm_norm"]["scale"], y, z, ctx=ctx)
     out = tp.sum_matmul(y, params["out_proj"], ctx)
     if not cache:
         return out, None
@@ -228,6 +249,7 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
                     params["conv_c"]["b"], ctx)
 
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])    # (B, H)
+    xc = _scanned(xc, dt.shape[-1], cfg, ctx)
     a = torch.exp(dt * -torch.exp(params["A_log"].float()))      # (B, H)
     H, Pd, G, N = dt.shape[-1], cfg.head_dim, cfg.n_groups, cfg.d_state
     hg = H // G
@@ -239,6 +261,7 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
         (dt[..., None] * x1)[..., None] * Bh[:, :, None, :])
     y = (state * Ch[:, :, None, :]).sum(-1) + params["D"][None, :, None] * x1
     y = y.reshape(bsz, 1, H * Pd).to(x.dtype)
+    y = tp.local_block(y, z.shape[-1], ctx, dim=-1)
     y = _gated_norm(params["ssm_norm"]["scale"], y, z, ctx=ctx)
     return tp.sum_matmul(y, params["out_proj"], ctx), cache
 

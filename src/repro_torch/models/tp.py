@@ -67,16 +67,33 @@ has a backward of its own, the 16-bit products a one-rank step takes.
 The FFN is column x row parallel with one sum after ``w_down``;
 attention (MLA too) runs rank r's query heads ``[r H/T, (r+1) H/T)``
 and the KV heads they read, with one sum after ``wo``, whatever its
-rotary kind. The MoE's paths are in :mod:`.moe`. Every collective is
-the identity at T = 1. :func:`check_layer` refuses, on every rank
-alike, the layers this layout does not cover, rather than replicate
-them quietly.
+rotary kind; heads the rules keep whole run whole on every rank, with
+no sum. The MoE's paths are in :mod:`.moe`. Every collective is the
+identity at T = 1.
+
+Decode over a length-sharded cache: where the rules cannot cut a
+cache's KV heads (or its batch) over an axis, ``cache_specs`` cuts its
+length there instead, and each rank holds a block of the slots
+(:func:`cache_block`). A rank takes the softmax of the new token's
+queries over its own slots only, and :func:`softmax_merge` merges the
+ranks' partials (the max, the sum of exponentials and the weighted sum
+of values, in float32) in rank order: one ``all_gather`` of the three
+(timed ``<axis prefix>_softmax``), then every rank rescales and adds
+them alike, so every rank holds the same bits. A block with no live
+slot has the max ``NEG_INF`` and weighs exactly zero.
+
+:func:`check_layer` refuses, on every rank alike, the layers this
+layout does not cover, rather than replicate them quietly: in serving
+only SSM heads in more than one group; in training also KV or SSM heads
+that T does not divide and hybrid layers, whose gradients the port does
+not yet carry across these layouts.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,7 +103,7 @@ from .shardrules import (EXPERT_TABLE, ParallelCtx, _map, dp_size,
                          fsdp_dims, tp_size)
 
 # the queue item that names what waits (ROADMAP.md, Queue 1)
-LENGTH_SHARDED = "ROADMAP Queue 1 item 8"
+LENGTH_SHARDED = "ROADMAP Queue 1 item 8b"
 
 MESH = "mesh"                 # the axis argument for the whole mesh
 _PREFIX = {"model": "tp", "data": "dp", MESH: "mesh"}
@@ -517,44 +534,115 @@ def local_block(t: torch.Tensor, n: int, ctx: Optional[ParallelCtx],
     return enter(t, ctx).narrow(dim, ctx.tensor_rank * n, n)
 
 
-def check_layer(spec, ctx: Optional[ParallelCtx]) -> None:
+class LengthBlock(NamedTuple):
+    """This rank's block of a cache's length: slots ``[start, start +
+    size)`` of the whole cache's ``length``, cut over ``axis`` ("model",
+    "data" or ``MESH``; None: the rank holds the whole length)."""
+    start: int
+    size: int
+    length: int
+    axis: Optional[str]
+
+
+def cache_block(entry, length: int, ctx: Optional[ParallelCtx]
+                ) -> LengthBlock:
+    """The rank's block of a cache length of ``length`` slots that
+    ``cache_specs`` lays out by ``entry`` (the spec's length entry: None
+    or the mesh axes it is cut over). The axes of one rank are left out;
+    the block's index is row-major over the rest, as ``shardrules._block``
+    orders it, and they merge over "model", "data" or, where the length
+    is cut over both, the whole mesh."""
+    axes = tuple(a for a in entry or () if ctx.mesh.shape[a] > 1)
+    if not axes:
+        return LengthBlock(0, length, length, None)
+    idx = 0
+    for a in axes:
+        idx = idx * ctx.mesh.shape[a] + ctx.mesh.coord(a)
+    size = length // math.prod(ctx.mesh.shape[a] for a in axes)
+    axis = ("model" if axes == ("model",) else
+            MESH if "model" in axes else "data")
+    return LengthBlock(idx * size, size, length, axis)
+
+
+def softmax_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                  ctx: Optional[ParallelCtx], axis: Optional[str]
+                  ) -> torch.Tensor:
+    """The softmax-weighted sum over every rank's block of slots, from
+    each rank's float32 partials: ``m`` its masked scores' max, ``l`` the
+    sum of ``exp(s - m)`` (both of ``o``'s shape without its last dim)
+    and ``o`` the sum of ``exp(s - m) v``. One ``all_gather`` of the
+    three over ``axis`` (timed ``<axis prefix>_softmax``); every rank
+    then takes the largest max and adds the rescaled partials in
+    ascending rank order, so every rank holds the same bits. A block
+    with no live slot (``m`` = ``NEG_INF``) weighs ``exp(NEG_INF - m)``,
+    exactly zero. Where ``axis`` is None, ``o / l``."""
+    if axis is None or _axis(ctx, axis)[0] == 1:
+        return o / l[..., None]
+    flat = torch.cat([m.reshape(-1), l.reshape(-1), o.reshape(-1)])
+    nm = m.numel()
+    parts = [(p[:nm].view(m.shape), p[nm:2 * nm].view(m.shape),
+              p[2 * nm:].view(o.shape))
+             for p in _gather(flat.float(), ctx, "softmax", axis)]
+    top = parts[0][0]
+    for mr, _, _ in parts[1:]:
+        top = torch.maximum(top, mr)
+    l_sum = o_sum = None
+    for mr, lr, orr in parts:
+        w = torch.exp(mr - top)
+        l_sum = w * lr if l_sum is None else l_sum + w * lr
+        o_sum = w[..., None] * orr if o_sum is None else \
+            o_sum + w[..., None] * orr
+    return o_sum / l_sum[..., None]
+
+
+def check_layer(spec, ctx: Optional[ParallelCtx], train: bool = False
+                ) -> None:
     """Raise for a layer the tensor-parallel layout does not cover at
-    T > 1. Every rank sees the same config and mesh, so every rank
-    raises alike, before any collective."""
+    T > 1 (in training, ``train``, or in serving). Every rank sees the
+    same config and mesh, so every rank raises alike, before any
+    collective."""
     t = tp_size(ctx)
     if t == 1:
         return
-    if spec.kind == "hybrid":
+    if spec.kind == "hybrid" and train:
         raise NotImplementedError(
-            f"hybrid layers at T = {t}: hymba's attention and SSM heads "
-            f"wait for tensor-parallel decode over a length-sharded cache "
+            f"training hybrid layers at T = {t}: hymba's attention and SSM "
+            f"heads run whole or across head boundaries, and their "
+            f"gradients are not summed over the tensor axis yet "
             f"({LENGTH_SHARDED})")
     if spec.attn is not None:
-        check_attn(spec.attn, ctx)
+        check_attn(spec.attn, ctx, train)
     if spec.ssm is not None:
-        check_ssm(spec.ssm, ctx)
+        check_ssm(spec.ssm, ctx, train)
 
 
-def check_attn(cfg, ctx: Optional[ParallelCtx]) -> None:
-    """Raise at T > 1 for KV heads the rules do not split. MLA caches no
-    KV heads: its latent and rope key stay whole on every rank, and its
-    query heads run whole on every rank where T does not split them."""
+def check_attn(cfg, ctx: Optional[ParallelCtx], train: bool = False
+               ) -> None:
+    """Raise in training at T > 1 for heads T does not divide. Serving
+    takes any heads: the KV heads the rules keep whole cut the cache's
+    length (``softmax_merge``), and MLA caches no KV heads."""
     t = tp_size(ctx)
-    if t == 1 or cfg.is_mla:
+    if t == 1 or cfg.is_mla or not train:
         return
     if cfg.n_heads % t or cfg.n_kv_heads % t:
         raise NotImplementedError(
-            f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads at T = "
-            f"{t}: the reference lays such a cache out along its length, "
-            f"and decode over a length-sharded cache waits "
-            f"({LENGTH_SHARDED})")
+            f"training {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+            f"at T = {t}: the whole k and v's gradient summed over the "
+            f"tensor axis waits ({LENGTH_SHARDED})")
 
 
-def check_ssm(cfg, ctx: Optional[ParallelCtx]) -> None:
-    """Raise at T > 1 unless T splits the SSM heads of one group."""
+def check_ssm(cfg, ctx: Optional[ParallelCtx], train: bool = False
+              ) -> None:
+    """Raise at T > 1 for SSM heads in more than one group, and in
+    training for heads T does not divide (serving scans them all on
+    every rank)."""
     t = tp_size(ctx)
-    if t > 1 and (cfg.n_heads % t or cfg.n_groups > 1):
+    if t > 1 and cfg.n_groups > 1:
         raise NotImplementedError(
             f"{cfg.n_heads} SSM heads in {cfg.n_groups} groups at T = {t}:"
             f" the port splits one group's heads evenly ({LENGTH_SHARDED})")
-
+    if t > 1 and train and cfg.n_heads % t:
+        raise NotImplementedError(
+            f"training {cfg.n_heads} SSM heads at T = {t}: the scan of "
+            f"every head on every rank has no gradient sum over the "
+            f"tensor axis yet ({LENGTH_SHARDED})")

@@ -20,13 +20,14 @@ A mesh context (:mod:`.shardrules`) reaches every mixer and FFN, whose
 parameters are then the rank's (:mod:`.tp`): each layer first gathers
 its leaves cut over ``data`` (``tp.gather_fsdp``), and the gathered
 blocks go when the layer returns; at T > 1 a layer the layout does not
-cover raises (``tp.check_layer``). Training runs under a context of D
-data ranks and T tensor ranks: every collective carries its backward
-(:mod:`.tp`), each block enters the whole tensors its rank-local work
-reads (``tp.enter``), and under remat ``"full"`` the recompute issues
-the layer's forward collectives again, in the same order on every rank
-(the data axis's gathers among them; their backward reduce-scatters the
-gathered leaves' gradients).
+cover raises (``tp.check_layer``). Decode hands each attention layer
+its block of the cache's slots where the layout cuts the length.
+Training runs under a context of D data ranks and T tensor ranks: every
+collective carries its backward (:mod:`.tp`), each block enters the
+whole tensors its rank-local work reads (``tp.enter``), and under remat
+``"full"`` the recompute issues the layer's forward collectives again,
+in the same order on every rank (the data axis's gathers among them;
+their backward reduce-scatters the gathered leaves' gradients).
 """
 
 from __future__ import annotations
@@ -120,10 +121,15 @@ def layer_init(spec: LayerSpec, d_model: int, *,
 
 def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
            cache, cache_index, ctx: Optional[ParallelCtx] = None,
+           block: Optional[tp.LengthBlock] = None,
            ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The sequence mixer part of a layer. Returns (y, new cache): the
     prefill cache entries, the (in place) updated decode cache, or None
-    in train."""
+    in train. ``block`` is the rank's block of the attention cache's
+    slots in decode. Each part returns its output whole on every rank
+    (a hybrid layer's attention may run replicated, its heads whole,
+    beside an SSM on the rank's channels), so the normed mean fuses
+    whole tensors."""
     ya = ys = None
     new_cache: Dict[str, Any] = {}
     keep = mode != "train"          # training builds no decode cache
@@ -131,7 +137,7 @@ def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
         if mode == "decode":
             ya, new_cache["attn"] = attn_decode(
                 params["attn"], x_n, cache["attn"], spec.attn, cache_index,
-                ctx)
+                ctx, block)
         else:
             ya, new_cache["attn"] = attn_forward(
                 params["attn"], x_n, spec.attn, positions, keep, ctx)
@@ -156,16 +162,17 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
                   mode: str = "train", cache: Optional[Dict] = None,
                   cache_index: Optional[int] = None,
                   ctx: Optional[ParallelCtx] = None,
+                  block: Optional[tp.LengthBlock] = None,
                   ) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
     """Pre-norm residual layer (mixer, then the MoE or dense FFN if any).
     Returns (x, new_cache, metrics)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    tp.check_layer(spec, ctx)
+    tp.check_layer(spec, ctx, train=mode == "train")
     params = tp.gather_fsdp(params, ctx, x.shape[-1])
     metrics: Dict[str, torch.Tensor] = {}
     y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,
-                          positions, mode, cache, cache_index, ctx)
+                          positions, mode, cache, cache_index, ctx, block)
     x = x + y
     if "moe" in params:
         h, metrics = moe_forward(params["moe"],
@@ -229,9 +236,12 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
                     mode: str = "train", caches: Optional[List] = None,
                     cache_index: Optional[int] = None, remat: str = "full",
                     ctx: Optional[ParallelCtx] = None,
+                    block: Optional[tp.LengthBlock] = None,
                     ) -> Tuple[torch.Tensor, Optional[List], Dict]:
     """Run a segment's layers in order. Returns (x, per-layer caches,
-    metrics reduced over the layers), the caches None in train.
+    metrics reduced over the layers), the caches None in train. In
+    decode ``block`` is the rank's block of the attention caches' slots
+    (the same in every layer of the segment).
 
     In train mode with ``remat == "full"`` and grad mode on, each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): backward keeps
@@ -258,7 +268,7 @@ def segment_forward(params: List[Dict], x: torch.Tensor, spec: LayerSpec,
     for i, layer_p in enumerate(params):
         x, c, m = layer_forward(layer_p, x, spec, positions, mode,
                                 caches[i] if caches is not None else None,
-                                cache_index, ctx)
+                                cache_index, ctx, block)
         new_caches.append(c)
         ms.append(m)
     return x, new_caches, _agg_metrics(ms)

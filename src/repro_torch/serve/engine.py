@@ -12,16 +12,22 @@ calls ``generate`` on the same batch (SPMD, one process a rank). The
 engine keeps only the rank's shards (``shard_params``: the ``fsdp``
 dims cut over ``data``, gathered at use) and serves its data rank's
 rows of the batch (``shard_batch``; all of them where the requests do
-not divide over the data ranks), its caches holding those rows. Each
-layer runs tensor-parallel over the ``model`` axis
-(``repro_torch.models.tp``): attention and MLA on the rank's heads, the
-FFN on its hidden columns, the SSM on its heads, the MoE on its experts
-(``ep`` in prefill, ``replicated`` in decode,
-``repro_torch.models.moe``). The tokens are gathered over ``data`` in
-order, so every rank returns the whole batch's. A layout the port does
-not cover raises in the constructor on every rank, and a batch that
-differs between ranks raises in ``generate`` on every rank before the
-first collective.
+not divide over the data ranks), its caches holding those rows and the
+blocks ``cache_specs`` gives it. Each layer runs tensor-parallel over
+the ``model`` axis (``repro_torch.models.tp``): attention and MLA on the
+rank's heads (heads T does not divide whole on every rank), the FFN on
+its hidden columns, the SSM on its heads (all of them, on its block of
+channels, where T does not divide them), the MoE on its experts (``ep``
+in prefill, ``replicated`` in decode, ``repro_torch.models.moe``).
+Where the KV heads do not divide over ``model`` or the requests over
+``data``, the freed axes cut the attention caches' length: each rank
+holds a block of the slots and decode merges the blocks' softmax
+partials (``tp.softmax_merge``), so hymba-1.5b serves at T = 4 and a
+single request on a data axis of two. The tokens are gathered over
+``data`` in order, so every rank returns the whole batch's. A layout the
+port does not cover raises in the constructor on every rank, and a batch
+that differs between ranks raises in ``generate`` on every rank before
+the first collective.
 """
 
 from __future__ import annotations
@@ -114,7 +120,8 @@ class ServeEngine:
             # to its jitted decode step for the same effect)
             with self.telemetry.timed(0, KIND_DECODE, t):
                 logits, caches = decode_step(self.cfg, self.params, tok,
-                                             caches, index + t, ctx)
+                                             caches, index + t, ctx,
+                                             self.scfg.max_len)
                 self._sync()
             tok = logits.argmax(-1)[:, None]
             out.append(tok)

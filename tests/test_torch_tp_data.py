@@ -28,9 +28,11 @@ returns is held against its rows of the reference's.
   the engines' tokens; granite's 4 decode steps again under
   ``make_ctx(mesh, inference=True)`` over the inference layout (the
   stationary branch at (2, 2), ``local`` at (4, 1)); B = 1 at (2, 2),
-  whose batch is whole on every data rank (granite's against the
-  reference's (1, 2) mesh: its ``ep`` and ``replicated`` bodies refuse a
-  batch the data axis does not divide); the ranks of one data row
+  whose batch is whole on every data rank and whose attention caches'
+  length is cut over ``data`` (granite's against the reference's (1, 2)
+  mesh: its ``ep`` and ``replicated`` bodies refuse a batch the data axis
+  does not divide), and hymba's, whose KV head 2 does not divide either,
+  so its length is cut over the whole mesh; the ranks of one data row
   bit-equal, every rank's tokens equal, a rank's bytes in both layouts
   equal to ``bytes_per_device``.
 - Collectives: ordered sums over ``data`` and over the whole mesh are
@@ -57,11 +59,12 @@ import torch
 
 from test_torch_tp import (GROUP_TIMEOUT_S, SRC, TOL, _close, _flat,
                            _flat_specs, _free_port, _nested, _port_dtypes,
-                           _port_shapes, _ref_key, _ref_shapes, _slice)
+                           _port_shapes, _ref_key, _ref_shapes)
 
 WORLD, NEW = 4, 4
 GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-v2-236b"
 MAMBA2, DANUBE = "mamba2-370m", "h2o-danube-1.8b"
+HYMBA = "hymba-1.5b"
 # mesh name: (data, model)
 MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
 # name: (arch, mesh, B, S, inference, the branch moe_forward takes); the
@@ -86,6 +89,7 @@ MODEL_CASES = {
     "granite-b1/2x2": (GRANITE, "2x2", 1, 12, (1, 2)),
     "mamba2-b1/2x2": (MAMBA2, "2x2", 1, 12, None),
     "danube-b1/2x2": (DANUBE, "2x2", 1, 12, None),
+    "hymba-b1/2x2": (HYMBA, "2x2", 1, 12, None),
     "granite/4x1": (GRANITE, "4x1", 4, 12, None),
     "mamba2/4x1": (MAMBA2, "4x1", 4, 12, None),
     "danube/4x1": (DANUBE, "4x1", 4, 12, None),
@@ -235,28 +239,30 @@ def _models(mesh_name, mesh, work, arrays, checks):
                                   bool(ctx.batch_whole)]
         mine = shard_params(params, ctx)
         held = sum(x.numel() * x.element_size() for _, x in _items(mine))
+        max_len = cfg.meta_tokens + s + NEW
         with torch.inference_mode():
-            lg, caches, index = model.prefill(cfg, mine, batch, s + NEW,
+            lg, caches, index = model.prefill(cfg, mine, batch, max_len,
                                               torch.float32, ctx)
             arrays[f"{case}/prefill"] = lg.numpy()
             for path, x in _items(caches):
                 arrays[f"{case}/cache/{path}"] = x.numpy().copy()
             for i in range(NEW):
                 lg, caches = model.decode_step(cfg, mine, dec[:, i:i + 1],
-                                               caches, index + i, ctx)
+                                               caches, index + i, ctx,
+                                               max_len)
                 arrays[f"{case}/decode{i}"] = lg.numpy()
             if case in STATIONARY:
                 import dataclasses
                 inf = dataclasses.replace(ctx, inference=True)
                 placed = shard_params(params, inf)
                 lg, caches, index = model.prefill(cfg, mine, batch,
-                                                  s + NEW, torch.float32,
+                                                  max_len, torch.float32,
                                                   ctx)
                 with _Spy() as spy:
                     for i in range(NEW):
                         lg, caches = model.decode_step(
                             cfg, placed, dec[:, i:i + 1], caches,
-                            index + i, inf)
+                            index + i, inf, max_len)
                         arrays[f"{case}/stationary{i}"] = lg.numpy()
                 checks[f"{case}/stationary_branch"] = sorted(set(spy.taken))
                 arrays[f"{case}/bytes_inference"] = np.asarray(
@@ -264,7 +270,7 @@ def _models(mesh_name, mesh, work, arrays, checks):
                          for _, x in _items(placed)),
                      bytes_per_device(params, mesh)])
         engine = ServeEngine(cfg, params, ServeConfig(
-            max_len=s + NEW, max_new_tokens=NEW, cache_dtype=torch.float32),
+            max_len=max_len, max_new_tokens=NEW, cache_dtype=torch.float32),
             device="cpu", mesh=mesh)
         arrays[f"{case}/tokens"] = engine.generate(
             {"tokens": inp["tokens"]})
@@ -415,7 +421,7 @@ def _reference_main(work, mesh_name):
         with set_mesh(ref_mesh):
             placed = place(params, ref_mesh)
             eng = ServeEngine(cfg, placed, ServeConfig(
-                max_len=s + NEW, max_new_tokens=NEW,
+                max_len=cfg.meta_tokens + s + NEW, max_new_tokens=NEW,
                 cache_dtype=jnp.float32), mesh=ref_mesh)
             lg, caches, index = eng._prefill(placed, batch)
             out[f"{case}/prefill"] = np.asarray(lg)
@@ -606,29 +612,49 @@ def test_inference_decode_matches_reference_mesh(runs, case):
         assert held == want > 0
 
 
+def _mesh_block(whole, spec, coords, shape):
+    """A rank's block of a whole numpy array under a port spec on a mesh
+    of ``shape`` ({axis: size}) at ``coords`` ({axis: index}): each cut
+    dim's block indexed row-major over its entry's axes of more than one
+    rank, as ``shardrules._block`` cuts it."""
+    for dim, entry in enumerate(spec):
+        axes = [a for a in entry or () if shape[a] > 1]
+        idx, n = 0, 1
+        for a in axes:
+            idx, n = idx * shape[a] + coords[a], n * shape[a]
+        size = whole.shape[dim] // n
+        whole = np.take(whole, np.arange(idx * size, (idx + 1) * size),
+                        axis=dim)
+    return whole
+
+
 @pytest.mark.parametrize("case", list(MODEL_CASES))
 def test_caches_hold_the_ranks_rows_and_heads(runs, case):
-    """A rank's cache block equals the reference's whole cache cut to the
-    rank's rows and, by the port's ``cache_specs`` on the tensor axis, to
-    its heads and channels."""
+    """A rank's cache block equals the reference's whole cache cut by the
+    port's ``cache_specs`` on the mesh: to the rank's rows, heads and
+    channels, and where the requests do not divide over ``data`` (B = 1),
+    to its block of the attention caches' slots over ``data`` (over the
+    whole mesh for hymba's KV head, which 2 does not divide either)."""
     from repro_torch.core.mesh import Mesh
     from repro_torch.models.shardrules import cache_specs
 
     arrays, _, ref = runs
     _, m, b, _, _ = MODEL_CASES[case]
     d, t = MESHES[m]
-    tensor_mesh = Mesh(("data", "model"), {"data": 1, "model": t})
+    shape = {"data": d, "model": t}
+    mesh = Mesh(("data", "model"), shape)
     n = 0
     for rank in range(WORLD):
-        data, model_rank = _coords(m, rank)
+        coords = dict(zip(("data", "model"), _coords(m, rank)))
         for key, block in arrays[rank].items():
             if not key.startswith(f"{case}/cache/"):
                 continue
             seg, layer, part, leaf = key.split("/")[-4:]
-            whole = _rows(ref[f"{case}/cache/{seg}/{part}/{leaf}"][
-                int(layer)], b, data, d)
-            spec = cache_specs({leaf: whole}, tensor_mesh)[leaf]
-            _close(block, _slice(whole, spec, model_rank, t))
+            whole = ref[f"{case}/cache/{seg}/{part}/{leaf}"][int(layer)]
+            spec = cache_specs({leaf: whole}, mesh)[leaf]
+            if b % d and leaf in ("k", "v"):
+                assert "data" in spec[1], spec
+            _close(block, _mesh_block(whole, spec, coords, shape))
             n += 1
     assert n
 

@@ -23,10 +23,12 @@ is held to the reference at the same T, never at one device.
   every rank's out bit-equal to rank 0's.
 - Model: granite-moe's smoke config at T = 2, a narrow variant (8 query,
   4 KV heads) at T = 4, and deepseek-v2's at T = 2 and 4: prefill
-  logits, 4 decode steps (MLA's absorbed decode on the rank's heads),
-  the caches (GQA blocks against the reference's slices, MLA's latent and
-  rope key whole), the engines' tokens; every rank bit-equal; a rank's
-  parameter bytes equal to ``bytes_per_device``.
+  logits, 4 decode steps (MLA's absorbed decode: every head's queries
+  over the rank's block of the slots, the partials merged, the rank's
+  heads lifted by ``wv_b``), the caches (GQA blocks and MLA's latent and
+  rope key's length blocks against the reference's slices), the engines'
+  tokens; every rank bit-equal; a rank's parameter bytes equal to
+  ``bytes_per_device``.
 - Layout: ``spec_for`` on the expert tables equals the reference's
   (its dense-FFN rules shadow the expert rules); ``shard_params`` gives
   rank r the rows ``tree_specs(..., inference=True)`` places there at
@@ -212,7 +214,7 @@ def _models(world, mesh, work, arrays):
             for i in range(NEW):
                 tok = inp["decode_tokens"][:, i:i + 1]
                 lg, caches = model.decode_step(cfg, mine, tok, caches,
-                                               index + i, ctx)
+                                               index + i, ctx, s + NEW)
                 arrays[f"{case}/decode{i}"] = lg.numpy()
         engine = ServeEngine(cfg, params, ServeConfig(
             max_len=s + NEW, max_new_tokens=NEW, cache_dtype=torch.float32),
@@ -505,10 +507,10 @@ def test_prefill_and_decode_match_reference_mesh(runs, case):
 
 @pytest.mark.parametrize("case", list(MODEL_CASES))
 def test_caches_match_reference(runs, case):
-    """A GQA cache block equals its slice of the reference's whole cache
-    under ``cache_specs``; MLA's latent and rope key are whole on every
-    rank (the reference lays them out along the length, and the port's
-    ``cache_specs`` says so too)."""
+    """A cache block equals its slice of the reference's whole cache under
+    ``cache_specs``: a GQA cache's KV heads, and MLA's latent and rope
+    key's length (the reference lays them out along the length, and the
+    port holds a block of the slots on each rank)."""
     from repro_torch.core.mesh import Mesh
     from repro_torch.models.shardrules import cache_specs
 
@@ -527,9 +529,8 @@ def test_caches_match_reference(runs, case):
             assert ref_specs[f"{seg}/{part}/{leaf}"] == [None] + [
                 list(e) if e else None for e in spec]
             if leaf in ("latent", "k_rope"):
-                _close(block, whole)
-            else:
-                _close(block, _slice(whole, spec, rank, world))
+                assert "model" in spec[1], spec
+            _close(block, _slice(whole, spec, rank, world))
             n += 1
     assert n
 
