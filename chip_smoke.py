@@ -320,10 +320,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              and seconds in the generate and in the stationary steps
              (tp_* the model axis, dp_* the data axis, mesh_* the whole
              mesh), the P = 1 and replicated-decode gaps. Then the
-             steps tp-train-granite and tp-train-mamba2
+             steps tp-train-granite, tp-train-mamba2 and tp-train-hymba
              (TP_TRAIN_SPECS): the same 4 ranks train granite-moe-1b-a400m
-             and mamba2-370m at full width, 4 layers each
-             (TP_TRAIN_DEPTH_CUTS), on make_host_mesh(model=4) = (1, 4)
+             and mamba2-370m at full width, 4 layers each, and
+             hymba-1.5b at full width, one global and one window-1,024
+             layer (TP_TRAIN_DEPTH_CUTS; its 25 query, 5 KV and 50 SSM
+             heads whole on every rank, 128 meta tokens before the 2,048,
+             each whole tensor's gradient summed once over the tensor
+             axis), on make_host_mesh(model=4) = (1, 4)
              through ``make_train_step(cfg, tcfg, mesh)``: each rank
              draws the whole float32 tree from --seed and keeps its
              blocks of the weights and of both moments (bytes ==
@@ -333,8 +337,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              backward through every collective, remat "full"; one
              warm-up step and 2 timed ones at the peak lr of
              TRAIN_SPECS, the counters zeroed just before the timed ones:
-             2 launches a layer a step (forward and recompute) on the
-             tensor cores. Every rank's losses, grad norms and updated
+             2 launches of each of the step's kernels a layer a step
+             (forward and recompute) on the tensor cores (hymba: 8
+             flash_attention, in the (64, 64) instantiation, and 8
+             ssd_fused). Every rank's losses, grad norms and updated
              whole leaves bit-equal; every rank's first-step gradient
              blocks go to rank 0, which runs the same steps at P = 1 (the
              MoE on the 4 sequence blocks' capacity under the mesh run's
@@ -3989,28 +3995,40 @@ TP_FLASH_ROWS += (f"flash_attention/{DP_TAG}",)
 # width, its depth cut as TP_TRAIN_DEPTH_CUTS says, a batch of 1 x 2,048
 # tokens from make_batch at --seed, grad_accum 1, remat "full", one
 # warm-up step and TP_TRAIN_STEPS timed ones at the peak lr TRAIN_SPECS
-# gives the architecture (no warm-up of the schedule); the kernel each
-# launches, 2 a layer a step (the forward and the remat recompute)
+# gives the architecture (no warm-up of the schedule); the kernels each
+# launches, each 2 a layer a step (the forward and the remat recompute),
+# and the flash_attention instantiation where it names one
 TP_TRAIN_SPECS = {
     "tp-train-granite": dict(arch="granite-moe-1b-a400m", seq=2048,
                              lr=TRAIN_SPECS["train-granite"]["lr"],
-                             kernel="flash_attention"),
+                             kernels=("flash_attention",)),
     "tp-train-mamba2": dict(arch="mamba2-370m", seq=2048,
                             lr=TRAIN_SPECS["train"]["lr"],
-                            kernel="ssd_fused"),
+                            kernels=("ssd_fused",)),
+    # 25 query heads, 5 KV heads and 50 SSM heads 4 does not divide: the
+    # attention and the scan run whole on every rank over 128 meta +
+    # 2,048 tokens, and each whole tensor's gradient is summed once over
+    # the tensor axis (the FFN and the SSM's channels are the rank's)
+    "tp-train-hymba": dict(arch="hymba-1.5b", seq=2048,
+                           lr=TRAIN_SPECS["train-hymba"]["lr"],
+                           kernels=("flash_attention", "ssd_fused"),
+                           flash_instance=(64, 64)),
     # on a (2, 2) mesh (``model`` ranks on the tensor axis, the rest on
     # data), ``batch`` rows of ``seq`` tokens: one row a data rank
     "dp-train-granite": dict(arch="granite-moe-1b-a400m", seq=2048,
                              batch=2, model=2,
                              lr=TRAIN_SPECS["train-granite"]["lr"],
-                             kernel="flash_attention"),
+                             kernels=("flash_attention",)),
 }
 # (mamba2's 8 layers took 13-15 s of the step on one host, over the 30 s
 # the two steps may add to the tp phase with the ~9 s the process's first
-# non-reentrant checkpoint call takes)
-TP_TRAIN_DEPTH_CUTS = {"granite-moe-1b-a400m": (4,), "mamba2-370m": (4,)}
+# non-reentrant checkpoint call takes; hymba: one global layer and one
+# window-1,024 layer)
+TP_TRAIN_DEPTH_CUTS = {"granite-moe-1b-a400m": (4,), "mamba2-370m": (4,),
+                       "hymba-1.5b": (1, 1, 0, 0, 0)}
 TP_TRAIN_STEPS = 2
 TP_FLASH_ROWS += ("flash_attention/tp-train-granite",
+                  "flash_attention/tp-train-hymba",
                   "flash_attention/dp-train-granite")
 # deepseek-v2-236b's dense layer and 1 of its 59 MoE layers: every rank
 # draws the whole tree before it keeps its shards, ~4.8 B parameters (9.7
@@ -4595,6 +4613,9 @@ def tp_train(cfg, seed, dev, spec, counters=None):
                         for k in ("flash_attention", "ssd_fused")}
             tc = {k: getattr(counters[k], "wgmma_launches", 0) if counters
                   else 0 for k in ("flash_attention", "ssd_fused")}
+            insts = {f"{hd}x{hdv}": n for (hd, hdv), n in getattr(
+                counters["flash_attention"], "instances", {}).items()
+                     } if counters else {}
             coll = _by_kind(group.collective_times(reset=True))
         finally:
             cap.close()
@@ -4619,8 +4640,8 @@ def tp_train(cfg, seed, dev, spec, counters=None):
     lap("checks")
     rec = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "laps": laps, "peak_gib": peak, "collectives": coll,
-           "launches": launches, "tensor_core": tc, "errs": errs,
-           "bytes": [held, want], "moment_bytes": moments,
+           "launches": launches, "tensor_core": tc, "instances": insts,
+           "errs": errs, "bytes": [held, want], "moment_bytes": moments,
            "digest": digest, "model_digest": model_digest,
            "finite": finite, "mesh": list(shape),
            "tokens": rows // shape[0] * spec["seq"],
@@ -5044,14 +5065,16 @@ def phase_tp(args, work, dev, card):
     calls[name] = ([a.to(dev) if hasattr(a, "to") else a for a in c_args],
                    c_kw)
     for tag, spec in TP_TRAIN_SPECS.items():
-        name = f"{spec['kernel']}/{tag}"
-        launches[name], err = _check_tp_train(recs, tag, card)
-        errs[spec["kernel"]] = max(errs[spec["kernel"]], err)
+        got, err = _check_tp_train(recs, tag, card)
         saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
-        c_args, c_kw = saved[next(k for k in saved
-                                  if k.startswith(spec["kernel"]))]
-        calls[name] = ([a.to(dev) if hasattr(a, "to") else a
-                        for a in c_args], c_kw)
+        for kname in spec["kernels"]:
+            name = f"{kname}/{tag}"
+            launches[name] = got[kname]
+            errs[kname] = max(errs[kname], err[kname])
+            c_args, c_kw = saved[next(k for k in saved
+                                      if k.startswith(kname))]
+            calls[name] = ([a.to(dev) if hasattr(a, "to") else a
+                            for a in c_args], c_kw)
     log(f"tp: {TP_RANKS} ranks on cuda:0 over gloo, {seconds:.3f}s "
         f"[{card}]")
     return launches, errs, calls
@@ -5064,14 +5087,16 @@ DP_TRAIN_KINDS = ("dp_fsdp", "dp_fsdp_bwd", "dp_sum_bwd")
 
 def _check_tp_train(recs, tag, card):
     """The gates of a tp-train step (see the docstring's tp entry) on
-    every rank's record; returns the kernel's launches a rank in the
-    timed steps and the largest |kernel - plain| of its calls."""
+    every rank's record; returns, by kernel of the spec, its launches a
+    rank in the timed steps and the largest |kernel - plain| of its
+    calls."""
     import statistics
     spec = TP_TRAIN_SPECS[tag]
-    name = spec["kernel"]
-    layers = TP_TRAIN_DEPTH_CUTS[spec["arch"]][0]
+    layers = sum(TP_TRAIN_DEPTH_CUTS[spec["arch"]])
     want = {"flash_attention": 0, "ssd_fused": 0}
-    want[name] = 2 * layers * TP_TRAIN_STEPS
+    for name in spec["kernels"]:
+        want[name] = 2 * layers * TP_TRAIN_STEPS
+    inst = "x".join(map(str, spec.get("flash_instance", ())))
     y = recs[0][tag]["yardstick"]
     d, t = recs[0][tag]["mesh"]
 
@@ -5093,7 +5118,8 @@ def _check_tp_train(recs, tag, card):
             f"the step {x['seconds']:.2f}s in all, by part "
             f"{ {k: round(v, 2) for k, v in x['laps'].items()} }; launches "
             f"{x['launches']} (tensor core "
-            f"{x['tensor_core']}; expected {want}); parameter bytes "
+            f"{x['tensor_core']}; flash_attention by instantiation "
+            f"{x['instances']}; expected {want}); parameter bytes "
             f"{x['bytes'][0]}, moment bytes {x['moment_bytes']} "
             f"(bytes_per_device {x['bytes'][1]}); kernel calls "
             f"{x['shapes']}; |kernel - plain| {x['errs']} [{card}]")
@@ -5113,6 +5139,9 @@ def _check_tp_train(recs, tag, card):
             raise AssertionError(f"{tag} rank {r}: launches {x['launches']}"
                                  f" (tensor core {x['tensor_core']}), "
                                  f"expected {want}")
+        if inst and x["instances"] != {inst: want["flash_attention"]}:
+            raise AssertionError(f"{tag} rank {r}: flash_attention ran in "
+                                 f"{x['instances']}, expected {inst}")
         if x["bytes"][0] != x["bytes"][1] or \
                 x["moment_bytes"] != 2 * x["bytes"][1]:
             raise AssertionError(f"{tag} rank {r} holds {x['bytes'][0]} "
@@ -5145,8 +5174,9 @@ def _check_tp_train(recs, tag, card):
             min(c for c, _ in y["cosines"]) < TRAIN_COSINE:
         raise AssertionError(f"{tag}: the ({d}, {t}) mesh and P = 1 "
                              "disagree")
-    return x["launches"][name], max(rec[tag]["errs"].get(name, 0.0)
-                                    for rec in recs)
+    return ({k: x["launches"][k] for k in spec["kernels"]},
+            {k: max(rec[tag]["errs"].get(k, 0.0) for rec in recs)
+             for k in spec["kernels"]})
 
 
 def _check_dp(recs, card):
@@ -5452,7 +5482,8 @@ def phase_tp_times(shapes):
     flash_attention at rank 0's call of each TP_FLASH_ROWS step."""
     rows = {}
     _ssd_rows(rows, shapes, ("ssd_fused/tp-mamba2", "ssd_fused/tp-hymba",
-                             "ssd_fused/tp-train-mamba2"))
+                             "ssd_fused/tp-train-mamba2",
+                             "ssd_fused/tp-train-hymba"))
     _flash_rows(rows, shapes, TP_FLASH_ROWS)
     return rows
 
@@ -5590,7 +5621,8 @@ ALSO = {"binstats": ("binstats/table1",),
                        "iqr_fences/120k", "iqr_fences/monitor"),
         "ssd_fused": ("ssd_fused/hymba", "ssd_fused/train",
                       "ssd_fused/train-hymba", "ssd_fused/tp-mamba2",
-                      "ssd_fused/tp-hymba", "ssd_fused/tp-train-mamba2"),
+                      "ssd_fused/tp-hymba", "ssd_fused/tp-train-mamba2",
+                      "ssd_fused/tp-train-hymba"),
         "flash_attention": ("flash_attention/global",) + TRAIN_FLASH_ROWS
         + tuple(f"flash_attention/{tag}" for tag in FAMILY_PHASES)
         + TP_FLASH_ROWS,

@@ -9,15 +9,17 @@ Builds the flashattn and ssd libraries and starts ``TP_RANKS`` processes
 of this script on ``cuda:0`` in a gloo group (``chip_smoke._run_ranks``).
 Each runs ``chip_smoke.tp_rank`` with the tp phase's serving models
 (``TP_SPECS``) and its dp-granite step left out, so only
-``TP_TRAIN_SPECS`` run: granite-moe-1b-a400m and mamba2-370m at full
-width on ``make_host_mesh(model=4)``, then granite-moe-1b-a400m on
+``TP_TRAIN_SPECS`` run: granite-moe-1b-a400m, mamba2-370m and
+hymba-1.5b at full width on ``make_host_mesh(model=4)``, then
+granite-moe-1b-a400m on
 ``make_host_mesh(model=2)`` (dp-train-granite, a (2, 2) mesh), their
 depth cut as ``TP_TRAIN_DEPTH_CUTS`` says. The parent applies the
 phase's gates (``_check_tp_train``), which print each rank's step ms,
 the seconds of each part of the step and its collectives by kind (the
 backward's and the data axis's apart), and times
-``ssd_fused/tp-train-mamba2``, ``flash_attention/tp-train-granite`` and
-``flash_attention/dp-train-granite`` at the ranks' own calls
+``ssd_fused/tp-train-mamba2``, ``ssd_fused/tp-train-hymba``,
+``flash_attention/tp-train-granite``, ``flash_attention/tp-train-hymba``
+and ``flash_attention/dp-train-granite`` at the ranks' own calls
 (``_ssd_rows``, ``_flash_rows``). Every line names the card and its
 power limit. Needs one CUDA card and nvcc; exits non-zero without a
 card.
@@ -77,15 +79,18 @@ def main() -> int:
     for tag, spec in cs.TP_TRAIN_SPECS.items():
         cs._check_tp_train(recs, tag, card)
         saved = torch.load(os.path.join(root, f"{tag}_calls.pt"))
-        c_args, c_kw = saved[next(k for k in saved
-                                  if k.startswith(spec["kernel"]))]
-        shapes[f"{spec['kernel']}/{tag}"] = (
-            [a.to(dev) if hasattr(a, "to") else a for a in c_args], c_kw)
+        for kname in spec["kernels"]:
+            c_args, c_kw = saved[next(k for k in saved
+                                      if k.startswith(kname))]
+            shapes[f"{kname}/{tag}"] = (
+                [a.to(dev) if hasattr(a, "to") else a for a in c_args], c_kw)
     cs.log(f"tp-train: {cs.TP_RANKS} ranks on cuda:0 over gloo, "
            f"{seconds:.1f}s [{card}]")
     rows = {}
-    cs._ssd_rows(rows, shapes, ("ssd_fused/tp-train-mamba2",))
+    cs._ssd_rows(rows, shapes, ("ssd_fused/tp-train-mamba2",
+                                "ssd_fused/tp-train-hymba"))
     cs._flash_rows(rows, shapes, ("flash_attention/tp-train-granite",
+                                  "flash_attention/tp-train-hymba",
                                   "flash_attention/dp-train-granite"))
     for name, t in rows.items():
         cs.log(f"time {name}: {json.dumps(t, default=str)} [{card}]")

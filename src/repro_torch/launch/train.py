@@ -18,9 +18,10 @@ deepseek-v2-236b do not; ``--smoke`` fits anywhere).
 ``--production-mesh`` trains on the reference's (16, 16) mesh: run in
 each of the 256 processes of a default process group (started by the
 caller, or from the ``torchrun`` environment), and raises a
-``ValueError`` on a group of another size. Training on any ``(D, T)``
-mesh is ``Trainer(..., mesh=make_host_mesh(model=T))`` in each rank's
-process.
+``ValueError`` on a group of another size; it takes all ten
+architectures, heads that T does not divide included. Training on any
+``(D, T)`` mesh is ``Trainer(..., mesh=make_host_mesh(model=T))`` in
+each rank's process.
 """
 
 from __future__ import annotations

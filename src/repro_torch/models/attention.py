@@ -29,7 +29,11 @@ one rank, and add the ranks' ``wo`` partials with one ordered sum
 (:func:`repro_torch.models.tp.ordered_sum`). MLA too: a rank computes
 the latent and the rope key whole and its H/T heads' queries, keys and
 values from them. Heads T does not divide stay whole on every rank
-(hymba's 25 and 5 at T = 4), and their output needs no sum.
+(hymba's 25 and 5 at T = 4), and their output needs no sum. In training
+a whole tensor's gradient is summed over the ranks once (``tp.enter``):
+``x`` where it enters the rank's heads, and where only the query heads
+are the rank's, the whole k and v before the rank keeps the KV heads its
+queries read; where every head is whole, nothing is summed.
 
 Where the rules cannot cut the KV heads (or the batch), the cache's
 length is cut instead (``cache_specs``), as it is for MLA's latent and
@@ -149,10 +153,13 @@ def _project_qkv(params, x: torch.Tensor, cfg: AttnConfig,
                  ctx: Optional[ParallelCtx] = None):
     """q, k and v of the heads ``params`` hold (a rank's, under a
     tensor-parallel ``ctx``: the whole biases are cut to them, and ``x``
-    enters the rank's heads, ``tp.enter``)."""
+    enters the projections that hold the rank's heads, ``tp.enter``;
+    whole ones read it as it is)."""
     dt = x.dtype
-    x = tp.enter(x, ctx)
-    q, k, v = (_heads(x, params[w]) for w in ("wq", "wk", "wv"))
+    xq = tp.enter(x, ctx) if _split_heads(params, cfg) else x
+    xkv = xq if params["wk"].shape[1] < cfg.n_kv_heads else x
+    q = _heads(xq, params["wq"])
+    k, v = _heads(xkv, params["wk"]), _heads(xkv, params["wv"])
     if "bq" in params:
         q = q + tp.local_block(params["bq"], q.shape[2], ctx).to(dt)
         k = k + tp.local_block(params["bk"], k.shape[2], ctx).to(dt)
@@ -188,10 +195,13 @@ def _rank_kv(k: torch.Tensor, v: torch.Tensor, hq: int, cfg: AttnConfig,
     """k and v of the KV heads this rank's ``hq`` query heads read, where
     the rules cut the query heads but keep the KV heads whole (T does not
     divide them): the KV heads the rank's heads span, or one KV head a
-    query head where those do not group evenly under them. Otherwise k
-    and v as they are."""
+    query head where those do not group evenly under them. The whole k
+    and v enter (``tp.enter``) before they are cut, so their gradient,
+    and ``wk`` / ``wv``'s, is summed once. Otherwise k and v as they
+    are."""
     if hq == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
         return k, v
+    k, v = tp.enter(k, ctx), tp.enter(v, ctx)
     g = cfg.n_heads // cfg.n_kv_heads
     heads = [(ctx.tensor_rank * hq + j) // g for j in range(hq)]
     lo, n = heads[0], heads[-1] - heads[0] + 1
@@ -229,7 +239,6 @@ def attn_forward(params, x: torch.Tensor, cfg: AttnConfig,
     heads run whole on every rank and nothing is summed)."""
     if cfg.is_mla:
         return mla_forward(params, x, cfg, positions, cache, ctx)
-    tp.check_attn(cfg, ctx, train=not cache)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -261,7 +270,6 @@ def attn_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     (exact) and the rank keeps its heads' output for ``wo``."""
     if cfg.is_mla:
         return mla_decode(params, x, cache, cfg, cache_index, ctx, block)
-    tp.check_attn(cfg, ctx)
     b = x.shape[0]
     # a decoded token is text: M-RoPE's three ids advance together
     shape = (b, 3, 1) if cfg.rope == "mrope" else (b, 1)
@@ -365,7 +373,6 @@ def mla_forward(params, x: torch.Tensor, cfg: AttnConfig,
     values, attended with the rope key broadcast over the heads. Returns
     (out, {"latent", "k_rope"} or None); at T > 1 over the rank's heads,
     with the whole latent and rope key."""
-    tp.check_attn(cfg, ctx)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -398,7 +405,6 @@ def mla_decode(params, x: torch.Tensor, cache: Dict, cfg: AttnConfig,
     the heads), the rank takes its slots' softmax partials in the latent
     space, ``tp.softmax_merge`` merges them, and the rank keeps its
     heads' weighted latent for ``wv_b`` and ``wo``."""
-    tp.check_attn(cfg, ctx)
     b, dt = x.shape[0], x.dtype
     dn = cfg.qk_nope_dim
     pos = torch.full((b, 1), cache_index, dtype=torch.int64, device=x.device)

@@ -27,7 +27,10 @@ whole but still cut ``in_z``, ``in_x``, ``conv_x``, the norm's scale and
 not fall on head boundaries. Then every rank gathers the convolved x
 channels whole, scans every head (the same launch as at one rank),
 keeps its block of the channels of ``y`` and goes on as above; its
-decode recurrence runs on the whole state.
+decode recurrence runs on the whole state. In training the whole scan's
+gradient is then summed over the ranks once, where ``y`` enters the
+rank's block; ``in_dt`` reads ``x`` as it is and the gathered B and C
+feed the scan without an entry.
 """
 
 from __future__ import annotations
@@ -122,16 +125,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-          ctx: Optional[ParallelCtx]) -> torch.Tensor:
+          ctx: Optional[ParallelCtx], local: bool = True) -> torch.Tensor:
     """:func:`_causal_conv` of the channels ``w`` holds: where ``x`` is
     whole and ``w`` a rank's block, the rank's block of channels, then
-    the ranks' blocks gathered (exact: each channel is its own conv) and
-    entered (``tp.enter``) for the rank's heads."""
+    the ranks' blocks gathered (exact: each channel is its own conv) and,
+    where the scan runs on the rank's heads (``local``), entered
+    (``tp.enter``); a scan of every head takes the whole gradient."""
     if w.shape[1] == x.shape[2]:
         return _causal_conv(x, w, b)
     x = tp.local_block(x, w.shape[1], ctx, dim=2)
-    # the whole result feeds the scan on the rank's heads
-    return tp.enter(tp.gather_cat(_causal_conv(x, w, b), -1, ctx), ctx)
+    out = tp.gather_cat(_causal_conv(x, w, b), -1, ctx)
+    return tp.enter(out, ctx) if local else out
 
 
 def _conv_step(state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
@@ -181,14 +185,17 @@ def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     return (gf * torch.rsqrt(var + eps) * scale).to(y.dtype)
 
 
-def _projections(params, x: torch.Tensor,
+def _projections(params, x: torch.Tensor, cfg: SSMConfig,
                  ctx: Optional[ParallelCtx] = None):
     """z, x, B, C and dt's projections: ``in_b`` and ``in_c`` are whole
-    and read ``x`` as it is; the others hold the rank's heads and read it
-    entered (``tp.enter``)."""
+    and read ``x`` as it is, and so does ``in_dt`` where the rules keep
+    it whole (T does not divide the heads: every rank scans them all);
+    the others hold the rank's channels or heads and read it entered
+    (``tp.enter``)."""
     xe = tp.enter(x, ctx)
+    xd = xe if params["in_dt"].shape[1] < cfg.n_heads else x
     return (xe @ params["in_z"], xe @ params["in_x"], x @ params["in_b"],
-            x @ params["in_c"], xe @ params["in_dt"])
+            x @ params["in_c"], xd @ params["in_dt"])
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
@@ -196,13 +203,17 @@ def ssm_forward(params, x: torch.Tensor, cfg: SSMConfig, cache: bool = True,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Training / prefill forward. x: (B, S, D). Returns (out, decode
     cache entries), the entries None when ``cache`` is False (training
-    keeps no decode cache). At T > 1 the scan runs on the rank's heads."""
-    tp.check_ssm(cfg, ctx, train=not cache)
+    keeps no decode cache). At T > 1 the scan runs on the rank's heads,
+    or on every head where T does not divide them: then its inputs are
+    whole on every rank and its gradient is summed once, where ``y``
+    enters the rank's block of channels (``tp.local_block``)."""
+    tp.check_ssm(cfg, ctx)
     bsz, s, _ = x.shape
-    z, xr, Br, Cr, dt_raw = _projections(params, x, ctx)
+    local = params["A_log"].shape[0] < cfg.n_heads
+    z, xr, Br, Cr, dt_raw = _projections(params, x, cfg, ctx)
     xc = _conv(xr, params["conv_x"]["w"], params["conv_x"]["b"], ctx)
-    Bc = _conv(Br, params["conv_b"]["w"], params["conv_b"]["b"], ctx)
-    Cc = _conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"], ctx)
+    Bc = _conv(Br, params["conv_b"]["w"], params["conv_b"]["b"], ctx, local)
+    Cc = _conv(Cr, params["conv_c"]["w"], params["conv_c"]["b"], ctx, local)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B, S, H)
     xc = _scanned(xc, dt.shape[-1], cfg, ctx)
@@ -240,7 +251,7 @@ def ssm_decode(params, x: torch.Tensor, cache: Dict, cfg: SSMConfig,
     loop donates it to the jitted step for the same effect)."""
     tp.check_ssm(cfg, ctx)
     bsz = x.shape[0]
-    z, xr, Br, Cr, dt_raw = _projections(params, x, ctx)
+    z, xr, Br, Cr, dt_raw = _projections(params, x, cfg, ctx)
     xc = _conv_step(cache["conv_x"], xr, params["conv_x"]["w"],
                     params["conv_x"]["b"], ctx)
     Bc = _conv_step(cache["conv_b"], Br, params["conv_b"]["w"],

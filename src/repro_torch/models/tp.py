@@ -82,11 +82,32 @@ of values, in float32) in rank order: one ``all_gather`` of the three
 them alike, so every rank holds the same bits. A block with no live
 slot has the max ``NEG_INF`` and weighs exactly zero.
 
-:func:`check_layer` refuses, on every rank alike, the layers this
-layout does not cover, rather than replicate them quietly: in serving
-only SSM heads in more than one group; in training also KV or SSM heads
-that T does not divide and hybrid layers, whose gradients the port does
-not yet carry across these layouts.
+In training every layout sums the gradient of a tensor that every rank
+holds whole over ``model`` exactly once, where it first enters work a
+rank does on its own block; where every rank does the whole work, it
+sums nothing, as each rank's gradient is already whole and bit-equal:
+
+  * heads split on both sides: ``x`` enters the projections
+    (:func:`enter`), the whole biases are cut by :func:`local_block`;
+  * query heads split, KV heads whole (T does not divide them): ``x``
+    enters ``wq`` alone; ``wk`` / ``wv`` read it as it is, and k and v
+    enter (summed once) before the rank keeps the KV heads its query
+    heads read;
+  * query and KV heads whole (hymba's 25 and 5 at T = 4): the attention
+    runs whole on every rank, nothing is entered and ``wo`` needs no sum;
+  * SSM heads split: ``x`` enters ``in_z`` / ``in_x`` / ``in_dt``, the
+    gathered B and C channels enter the rank's scan;
+  * SSM heads whole (T does not divide them): every rank scans every
+    head, ``in_dt`` / ``in_b`` / ``in_c`` read ``x`` as it is, the
+    gathered B, C and x channels feed the scan without an entry, and the
+    scan's output ``y`` enters (summed once) before the rank keeps its
+    block of channels (:func:`local_block`);
+  * the normed mean of a hybrid layer, its norms and gains, the meta
+    tokens and a whole vocabulary: whole work, no sum.
+
+:func:`check_layer` refuses, on every rank alike, the one layout the
+port does not cover, rather than replicate it quietly: SSM heads in
+more than one group at T > 1, in serving and in training.
 """
 
 from __future__ import annotations
@@ -103,7 +124,7 @@ from .shardrules import (EXPERT_TABLE, ParallelCtx, _map, dp_size,
                          fsdp_dims, tp_size)
 
 # the queue item that names what waits (ROADMAP.md, Queue 1)
-LENGTH_SHARDED = "ROADMAP Queue 1 item 8b"
+SSM_GROUPS = "ROADMAP Queue 1 item 8c"
 
 MESH = "mesh"                 # the axis argument for the whole mesh
 _PREFIX = {"model": "tp", "data": "dp", MESH: "mesh"}
@@ -595,54 +616,19 @@ def softmax_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
     return o_sum / l_sum[..., None]
 
 
-def check_layer(spec, ctx: Optional[ParallelCtx], train: bool = False
-                ) -> None:
+def check_layer(spec, ctx: Optional[ParallelCtx]) -> None:
     """Raise for a layer the tensor-parallel layout does not cover at
-    T > 1 (in training, ``train``, or in serving). Every rank sees the
-    same config and mesh, so every rank raises alike, before any
-    collective."""
-    t = tp_size(ctx)
-    if t == 1:
-        return
-    if spec.kind == "hybrid" and train:
-        raise NotImplementedError(
-            f"training hybrid layers at T = {t}: hymba's attention and SSM "
-            f"heads run whole or across head boundaries, and their "
-            f"gradients are not summed over the tensor axis yet "
-            f"({LENGTH_SHARDED})")
-    if spec.attn is not None:
-        check_attn(spec.attn, ctx, train)
+    T > 1, in serving and in training. Every rank sees the same config
+    and mesh, so every rank raises alike, before any collective."""
     if spec.ssm is not None:
-        check_ssm(spec.ssm, ctx, train)
+        check_ssm(spec.ssm, ctx)
 
 
-def check_attn(cfg, ctx: Optional[ParallelCtx], train: bool = False
-               ) -> None:
-    """Raise in training at T > 1 for heads T does not divide. Serving
-    takes any heads: the KV heads the rules keep whole cut the cache's
-    length (``softmax_merge``), and MLA caches no KV heads."""
-    t = tp_size(ctx)
-    if t == 1 or cfg.is_mla or not train:
-        return
-    if cfg.n_heads % t or cfg.n_kv_heads % t:
-        raise NotImplementedError(
-            f"training {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
-            f"at T = {t}: the whole k and v's gradient summed over the "
-            f"tensor axis waits ({LENGTH_SHARDED})")
-
-
-def check_ssm(cfg, ctx: Optional[ParallelCtx], train: bool = False
-              ) -> None:
-    """Raise at T > 1 for SSM heads in more than one group, and in
-    training for heads T does not divide (serving scans them all on
-    every rank)."""
+def check_ssm(cfg, ctx: Optional[ParallelCtx]) -> None:
+    """Raise at T > 1 for SSM heads in more than one group. Heads T does
+    not divide are scanned whole on every rank."""
     t = tp_size(ctx)
     if t > 1 and cfg.n_groups > 1:
         raise NotImplementedError(
             f"{cfg.n_heads} SSM heads in {cfg.n_groups} groups at T = {t}:"
-            f" the port splits one group's heads evenly ({LENGTH_SHARDED})")
-    if t > 1 and train and cfg.n_heads % t:
-        raise NotImplementedError(
-            f"training {cfg.n_heads} SSM heads at T = {t}: the scan of "
-            f"every head on every rank has no gradient sum over the "
-            f"tensor axis yet ({LENGTH_SHARDED})")
+            f" the port splits one group's heads evenly ({SSM_GROUPS})")

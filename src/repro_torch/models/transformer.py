@@ -24,7 +24,9 @@ cover raises (``tp.check_layer``). Decode hands each attention layer
 its block of the cache's slots where the layout cuts the length.
 Training runs under a context of D data ranks and T tensor ranks: every
 collective carries its backward (:mod:`.tp`), each block enters the
-whole tensors its rank-local work reads (``tp.enter``), and under remat
+whole tensors its rank-local work reads (``tp.enter``), once, and work
+every rank does whole (heads T does not divide, a hybrid layer's normed
+mean) enters nothing, and under remat
 ``"full"`` the recompute issues the layer's forward collectives again,
 in the same order on every rank (the data axis's gathers among them;
 their backward reduce-scatters the gathered leaves' gradients).
@@ -129,7 +131,8 @@ def _mixer(params, x_n: torch.Tensor, spec: LayerSpec, positions, mode: str,
     slots in decode. Each part returns its output whole on every rank
     (a hybrid layer's attention may run replicated, its heads whole,
     beside an SSM on the rank's channels), so the normed mean fuses
-    whole tensors."""
+    whole tensors; in training the gradients of its norms and gains are
+    whole on every rank and summed nowhere."""
     ya = ys = None
     new_cache: Dict[str, Any] = {}
     keep = mode != "train"          # training builds no decode cache
@@ -168,7 +171,7 @@ def layer_forward(params, x: torch.Tensor, spec: LayerSpec,
     Returns (x, new_cache, metrics)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    tp.check_layer(spec, ctx, train=mode == "train")
+    tp.check_layer(spec, ctx)
     params = tp.gather_fsdp(params, ctx, x.shape[-1])
     metrics: Dict[str, torch.Tensor] = {}
     y, new_cache = _mixer(params, _norm(spec, params["norm1"], x), spec,

@@ -17,8 +17,11 @@ rank takes its block of them (``shard_batch``; all of them where D does
 not divide them). It runs the forward on its rows, heads, channels,
 experts and vocabulary block, the backward through every collective
 (:mod:`repro_torch.models.tp`: the FSDP gathers' backward is a
-reduce-scatter over ``data``), adds the gradients of the leaves no rank
-cuts over ``data`` over the data ranks (:func:`batch_grads`), and
+reduce-scatter over ``data``; a leaf every rank holds whole, in any
+layout of the heads, has its whole gradient over ``model`` from the
+layers' single ordered sums, so nothing is added over ``model`` after
+it), adds the gradients of the leaves no rank cuts over ``data`` over
+the data ranks (:func:`batch_grads`), and
 updates its own blocks, clipped by the whole model's norm. Every sum
 over ``data`` adds the ranks' gradients in data order in float32 and
 casts once to the gradient's type: under ``compress_grads`` a bf16

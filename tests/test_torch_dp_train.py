@@ -24,10 +24,12 @@ the step takes the data rank's rows of each microbatch.
   grad_accum 2 (each data rank's rows of each global microbatch), granite
   with B = 1 at (2, 2) (the batch whole on every data rank; against the
   reference's (1, 2) mesh, whose ``ep`` body refuses a batch the data
-  axis does not divide) and deepseek-v2-236b (MLA, shared experts) at (2,
-  2). Each rank's loss, every gradient block, ``grad_norm``, and after
-  one step its blocks of the parameters and both moments against the
-  same block of the reference's, at ``tests/test_torch_train.py``'s
+  axis does not divide), deepseek-v2-236b (MLA, shared experts) and
+  hymba-1.5b (FSDP gathers of its meta tokens and hybrid layers, its 5
+  query heads and 1 KV head whole at T = 2) at (2, 2). Each rank's loss,
+  every gradient block, ``grad_norm``, and after one step its blocks of
+  the parameters and both moments against the same block of the
+  reference's, at ``tests/test_torch_train.py``'s
   tolerances; every rank's whole leaves' gradients, updated leaves, loss
   and ``grad_norm`` bit-equal to rank 0's, and the data ranks' copies of
   each block cut over ``model`` alone bit-equal; a rank's parameter and
@@ -82,6 +84,7 @@ CASES = {
     "granite-accum2/2x2": (GRANITE, "2x2", 2, 4, 24, None),
     "granite-b1/2x2": (GRANITE, "2x2", 1, 1, 24, (1, 2)),
     "deepseek/2x2": (DEEPSEEK, "2x2", 1, 2, 24, None),
+    "hymba/2x2": ("hymba-1.5b", "2x2", 1, 2, 24, None),
 }
 CKPT_ARCH, CKPT_STEPS, CKPT_AT = "mamba2-370m", 4, 2
 # chip_smoke.py's dp-train step at smoke size: (arch, sequence)

@@ -19,9 +19,11 @@ gives: 1 KV head, which 4 does not divide, so the length is cut over
   values give the same bits, and the merge of all four ranks' partials
   is the merge of the three live ones, bit for bit; its weight
   ``exp(NEG_INF - m)`` is exactly 0.
-- Training with KV heads T does not divide, and a hybrid layer in
-  training at T > 1, raise on every rank before any collective, naming
-  ROADMAP Queue 1 item 8b, and none hangs.
+- Training with KV heads T does not divide (danube's smoke config) and
+  hybrid layers (hymba's) at T = 4 give one rank's loss, and every
+  rank's gradient of every whole leaf bit-equal to rank 0's; SSM heads
+  in 2 groups at T = 2 raise on every rank, in serving and in training,
+  naming ROADMAP Queue 1 item 8c, and none hangs.
 - In one process: ``tp.cache_block`` on meshes of (1, 4), (2, 2) and
   (4, 1), and ``model.cache_blocks`` requiring ``max_len`` where a
   layout may cut a length.
@@ -132,7 +134,8 @@ def _rank_main(rank, port_no, work):
         for k, v in caches[0].items():
             arrays[f"{case}/cache/{k}"] = v.numpy()
     checks["dead_merge"] = _dead_merge(rank, ctx, NEG_INF)
-    checks.update(_training_refusals())
+    checks.update(_training_layouts())
+    checks.update(_ssm_groups())
     np.savez(os.path.join(work, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(checks, f)
@@ -172,14 +175,17 @@ def _dead_merge(rank, ctx, neg_inf):
         f"max |diff| {float((got - want).abs().max())}"
 
 
-def _training_refusals():
-    """The training loss under a T = 4 context for danube's smoke config
-    (2 KV heads) and hymba's (hybrid layers): each message (or "did not
-    raise") and its seconds."""
+def _training_layouts():
+    """The training loss and its gradient under a T = 4 context for
+    danube's smoke config (4 query heads split, 2 KV heads whole) and
+    hymba's (hybrid layers, the attention whole): the loss's bits, one
+    rank's loss on the whole tree, a digest of the bits of every whole
+    leaf's gradient, and the seconds."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model
-    from repro_torch.models.shardrules import make_ctx, shard_params
+    from repro_torch.models.shardrules import _items, _map, make_ctx, \
+        shard_params
 
     out = {}
     ctx = make_ctx(make_host_mesh(model=WORLD))
@@ -188,12 +194,54 @@ def _training_refusals():
         cfg = get_smoke_config(arch)
         tokens = torch.as_tensor(np.random.default_rng(0).integers(
             0, cfg.vocab, (2, 8)))
-        params = shard_params(model.init_params(cfg, 0, "cpu",
-                                                torch.float32), ctx)
+        batch = {"tokens": tokens, "labels": tokens}
+        whole = model.init_params(cfg, 0, "cpu", torch.float32)
+        t0 = time.monotonic()
+        params = _map(lambda _, x: x.clone().requires_grad_(),
+                      shard_params(whole, ctx))
+        loss, _ = model.loss_fn(cfg, params, batch, ctx)
+        loss.backward()
+        shapes = {k: v.shape for k, v in _items(whole)}
+        grads = [x.grad.flatten() for k, x in _items(params)
+                 if x.shape == shapes[k]]
+        out[name] = {"loss": float(loss).hex(),
+                     "one_rank": float(model.loss_fn(cfg, whole, batch)[0]),
+                     "whole_leaves": len(grads),
+                     "grads": torch.cat(grads).numpy().tobytes().hex()}
+        out[name + "_s"] = time.monotonic() - t0
+    return out
+
+
+def _ssm_groups():
+    """hymba's smoke config with its SSM heads in 2 groups at T = 2 (a
+    (2, 2) mesh), served and trained: each message (or "did not
+    raise")."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.models.shardrules import make_ctx, shard_params
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from test_torch_tp import _narrowed
+
+    cfg = _narrowed(get_smoke_config("hymba-1.5b"), {"ssm": {"n_groups": 2}})
+    mesh = make_host_mesh(model=2)
+    params = model.init_params(cfg, 0, "cpu", torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+
+    def serve():
+        ServeEngine(cfg, params, ServeConfig(max_len=24, max_new_tokens=2),
+                    device="cpu", mesh=mesh)
+
+    def train():
+        ctx = make_ctx(mesh)
+        model.loss_fn(cfg, shard_params(params, ctx),
+                      {"tokens": tokens, "labels": tokens}, ctx)
+    out = {}
+    for name, fn in (("groups-serve", serve), ("groups-train", train)):
         t0 = time.monotonic()
         try:
-            model.loss_fn(cfg, params, {"tokens": tokens,
-                                        "labels": tokens}, ctx)
+            fn()
             out[name] = "did not raise"
         except NotImplementedError as e:
             out[name] = f"NotImplementedError: {e}"
@@ -287,11 +335,31 @@ def test_dead_partials_weigh_exactly_zero(runs):
 
 @pytest.mark.parametrize("what", ["train-danube", "train-hymba"])
 def test_training_uncovered_layouts_raise_on_every_rank(runs, what):
+    """Training where T = 4 does not divide the KV heads (danube) or any
+    heads (hymba's hybrid layers), which raised until it was ported: the
+    loss equals one rank's, and every rank's gradient of every whole
+    leaf is bit-equal to rank 0's."""
+    _, checks = runs
+    for rank in range(WORLD):
+        got = checks[rank][what]
+        assert float.fromhex(got["loss"]) == pytest.approx(
+            got["one_rank"], rel=1e-6), (rank, got["loss"])
+        assert got["whole_leaves"] > 5
+        assert got["loss"] == checks[0][what]["loss"]
+        assert got["grads"] == checks[0][what]["grads"], rank
+        assert checks[rank][what + "_s"] < GROUP_TIMEOUT_S
+
+
+@pytest.mark.parametrize("what", ["groups-serve", "groups-train"])
+def test_ssm_groups_raise_on_every_rank_naming_item_8c(runs, what):
+    """SSM heads in 2 groups at T = 2, the one layout the port does not
+    cover, raise on every rank alike, in serving and in training, naming
+    ROADMAP Queue 1 item 8c, and none hangs."""
     _, checks = runs
     for rank in range(WORLD):
         msg = checks[rank][what]
         assert msg.startswith("NotImplementedError") and \
-            "item 8b" in msg, (rank, msg)
+            "item 8c" in msg, (rank, msg)
         assert msg == checks[0][what]
         assert checks[rank][what + "_s"] < GROUP_TIMEOUT_S
 

@@ -16,8 +16,14 @@ pipeline) come from this process as numpy.
 - Cases: the smoke configs of stablelm-3b (dense FFN), mamba2-370m (SSM,
   vocab-parallel CE), granite-moe-1b-a400m (``ep``, grad_accum 1 and 2;
   an S that T does not divide: ``replicated``), deepseek-v2-236b (MLA,
-  shared experts) at T = 2 and 4, and narrow danube and granite variants
-  (8 query, 4 KV heads) at T = 4. Each rank's loss, every gradient
+  shared experts) at T = 2 and 4, narrow danube and granite variants
+  (8 query, 4 KV heads) at T = 4, and the layouts with heads T does not
+  divide: hymba-1.5b at T = 2 and 4 (its attention whole on every rank,
+  its hybrid layers' norms, gains and meta tokens whole) and with 2 SSM
+  heads at T = 4 (the scan whole on every rank), danube at T = 4 (2 KV
+  heads whole beside the rank's query heads) and with 6 query and 3 KV
+  heads at T = 2 (a rank's query heads read KV heads that do not group
+  evenly under them). Each rank's loss, every gradient
   block, ``grad_norm``, and after one step its blocks of the parameters
   and both moments against the same slice of the reference's, at
   ``tests/test_torch_train.py``'s tolerances; every rank's whole leaves'
@@ -33,8 +39,8 @@ pipeline) come from this process as numpy.
   and one checkpointed at P = 1 resumes at T = 2, with the
   uninterrupted run's losses; rank 0 alone writes ``metrics.jsonl``.
 - ``chip_smoke.py``'s tp-train step, run on the CPU at smoke size
-  (granite's narrow variant and mamba2 at T = 4): its P = 1 yardstick
-  reproduces the mesh run's losses and gradients.
+  (granite's narrow variant, mamba2 and hymba at T = 4): its P = 1
+  yardstick reproduces the mesh run's losses and gradients.
 - ``state_specs`` equals the reference's at (1, 2) and (1, 4).
 - Training with a data axis is ``tests/test_torch_dp_train.py``'s.
 
@@ -43,7 +49,6 @@ first moments rtol 1e-4, atol 1e-7, second moments rtol 2e-4, parameters
 atol 2e-6 (AdamW's eps 1e-5, lr 1e-3), as ``tests/test_torch_train.py``.
 """
 
-import dataclasses
 import datetime
 import json
 import os
@@ -56,12 +61,17 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_tp import (GROUP_TIMEOUT_S, NARROW, SRC, _free_port,
-                           _nested, _slice)
+from test_torch_tp import (GROUP_TIMEOUT_S, NARROW, ODD_SSM, SRC,
+                           _free_port, _narrowed, _nested, _slice)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLDS = (2, 4)
 GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-v2-236b"
+HYMBA, DANUBE = "hymba-1.5b", "h2o-danube-1.8b"
+# 6 query and 3 KV heads at T = 2: a rank's 3 query heads read KV heads
+# (0, 0, 1) or (1, 2, 2), which do not group evenly (``_rank_kv``'s
+# index_select)
+UNEVEN = {"attn": {"n_heads": 6, "n_kv_heads": 3}}
 OPTIM = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10, eps=1e-5)
 # name: (arch, T, fields replaced in both packages' smoke config, grad
 # accumulation, batch, sequence)
@@ -76,22 +86,25 @@ CASES = {
     "granite-accum2/4": (GRANITE, 4, NARROW, 2, 4, 24),
     "deepseek/2": (DEEPSEEK, 2, None, 1, 2, 24),
     "deepseek/4": (DEEPSEEK, 4, None, 1, 2, 24),
-    "danube-narrow/4": ("h2o-danube-1.8b", 4, NARROW, 1, 2, 24),
+    "danube-narrow/4": (DANUBE, 4, NARROW, 1, 2, 24),
+    # heads T does not divide: hymba's attention whole (5 query heads, 1
+    # KV head) beside its 16 SSM heads split, then scanned whole (2 SSM
+    # heads at T = 4); danube's 2 KV heads whole beside its 4 query heads
+    # split, and 6 query heads over 3 KV heads at T = 2
+    "hymba/2": (HYMBA, 2, None, 1, 2, 24),
+    "hymba/4": (HYMBA, 4, None, 1, 2, 24),
+    "hymba-ssm-odd/4": (HYMBA, 4, ODD_SSM, 1, 2, 24),
+    "danube/4": (DANUBE, 4, None, 1, 2, 24),
+    "danube-uneven/2": (DANUBE, 2, UNEVEN, 1, 2, 24),
 }
+# cases drawn from another case's seeds: hymba at T = 4 trains hymba/2's
+# initial state on hymba/2's batch
+SAME_INPUTS = {"hymba/4": "hymba/2"}
 CKPT_ARCH, CKPT_STEPS, CKPT_AT = "mamba2-370m", 4, 2
 # chip_smoke.py's tp-train step at smoke size: (arch, fields, sequence)
 CARD_CASES = {"tp-train-granite": (GRANITE, NARROW, 24),
-              "tp-train-mamba2": ("mamba2-370m", None, 24)}
-
-
-def _narrowed(cfg, fields):
-    if fields is None:
-        return cfg
-    fields = dict(fields)
-    attn = fields.pop("attn", {})
-    return dataclasses.replace(cfg, plan=tuple(
-        (dataclasses.replace(spec, attn=dataclasses.replace(
-            spec.attn, **attn), **fields), n) for spec, n in cfg.plan))
+              "tp-train-mamba2": ("mamba2-370m", None, 24),
+              "tp-train-hymba": (HYMBA, None, 24)}
 
 
 def _cfg(case, package):
@@ -344,7 +357,8 @@ def _write_inputs(work):
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.models.convert import state_to_flat
     from repro_torch.train import init_state
-    for i, case in enumerate(CASES):
+    for case in CASES:
+        i = list(CASES).index(SAME_INPUTS.get(case, case))
         cfg = _cfg(case, "port")
         _, _, _, _, b, s = CASES[case]
         np.savez(os.path.join(work, f"state_{_stem(case)}.npz"),
